@@ -11,8 +11,9 @@ Phases, each printed as it runs:
 3. each kernel against its plain PyTorch version on the card at the
    shapes of the main path (full-width gemma-7b in bf16), plus fp32
    matmul at a ragged shape for every ring depth and grid order, and
-   flash attention with lengths, offsets, causal and non-causal masks and
-   a fully-masked row;
+   flash attention with lengths, offsets, causal and non-causal masks, a
+   fully-masked row and, through ``ops.attention``, causal Sq < Skv
+   without lengths (end-aligned);
 4. the reduced gemma-7b and deepseek-coder-33b configs in fp32: the
    serving engine's greedy tokens through the kernels must equal those
    of the plain ``backend="torch"`` path, at K = 1 and K = 4;
@@ -38,6 +39,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -169,9 +171,10 @@ def check_kernels(torch, zero_stall_matmul, flash_attention) -> dict:
         return torch.randn(*shape, device=dev, generator=gen).to(dtype)
 
     errs = {"zero_stall_matmul": 0.0, "flash_attention": 0.0}
-    print(f"[3] kernels against their plain versions (bf16: |err| <= "
+    print(f"[3] kernels against their plain versions (matmul bf16: |err| <= "
           f"{BF16_TOL} * max|ref|; fp32: |err| <= {FP32_TOL} * max(1, "
-          f"max|ref|))", flush=True)
+          f"max|ref|); flash bf16: each row's |err| <= {BF16_TOL} * that "
+          f"row's max|ref|)", flush=True)
 
     def judge(kernel, what, got, want, dtype):
         err = (got.float() - want.float()).abs().max().item()
@@ -182,6 +185,22 @@ def check_kernels(torch, zero_stall_matmul, flash_attention) -> dict:
         require(err <= tol, f"{kernel} {what} disagrees with its plain "
                 f"version: {err} > {tol}")
         errs[kernel] = max(errs[kernel], err)
+
+    def judge_rows(what, got, want):
+        """Flash attention per output row: a row that averages many keys
+        is small, so a tolerance scaled by the largest row would hide
+        its errors.  A fully-masked row (all zeros) must be exact."""
+        err = (got.float() - want.float()).abs().amax(-1)
+        tol = BF16_TOL * want.float().abs().amax(-1)
+        worst = (err / tol.clamp_min(1e-30)).max().item()
+        e = err.max().item()
+        print(f"    flash_attention {what}: max|err| {e:.3g}, worst row "
+              f"|err|/tol {worst:.3g} (smallest row tol "
+              f"{tol[tol > 0].min().item() if (tol > 0).any() else 0:.3g})")
+        require(bool((err <= tol).all()), f"flash_attention {what} "
+                f"disagrees with its plain version in some row (worst "
+                f"|err|/tol {worst})")
+        errs["flash_attention"] = max(errs["flash_attention"], e)
 
     # matmul at every gemma-7b projection shape, decode and prefill
     for M in (GEMMA["slots"], 128):
@@ -230,11 +249,22 @@ def check_kernels(torch, zero_stall_matmul, flash_attention) -> dict:
         full.setdefault("q_lens", full["q_offsets"] + S)
         full.setdefault("kv_lens", i32(S))
         got = flash_attention(q, k, v, **kw)
-        judge("flash_attention", what, got,
-              flash_attention_ref(q, k, v, **full), torch.bfloat16)
+        judge_rows(what, got, flash_attention_ref(q, k, v, **full))
         if "masked" in what:
             require(bool((got == 0).all()), "a fully-masked row is not "
                     "exact zeros")
+    # causal, fewer queries than keys and no lengths: ops.attention runs
+    # the kernel end-aligned, the reference's convention without lengths
+    from repro_torch.kernels import ops
+    launched = flash_attention.launches
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        got = ops.attention(q[:, :, S // 2:].contiguous(), k, v, causal=True)
+    require(flash_attention.launches == launched + 1,
+            "ops.attention with Sq < Skv did not launch the kernel")
+    judge_rows("ops.attention causal Sq=64 < Skv=128, no lengths "
+               "(end-aligned)", got,
+               flash_attention_ref(q[:, :, S // 2:], k, v, causal=True))
     torch.cuda.synchronize()
     return errs
 

@@ -13,20 +13,23 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 
 __all__ = ["params_from_numpy", "tensor_from_numpy"]
 
 
 def tensor_from_numpy(a: Any, device=None) -> torch.Tensor:
-    """One numpy array (fp32, int, or ml_dtypes bfloat16) -> tensor."""
+    """One numpy array (fp32, int, or ml_dtypes bfloat16) -> tensor on
+    ``device`` (None: the card, as every entry point of the port)."""
+    device = resolve_device(device)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
         t = t.view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(a, copy=True))
-    return t if device is None else t.to(device)
+    return t.to(device)
 
 
 def _tree(x: Any, device) -> Any:
@@ -40,8 +43,10 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, *, device=None) -> dict:
 
     The JAX package stacks every per-layer leaf along a leading
     ``n_layers`` axis (``params["layers"]``); the port keeps a list of
-    per-layer dicts, so that axis is unstacked here.
+    per-layer dicts, so that axis is unstacked here.  The tensors land
+    on ``device`` (None: the card; pass ``device="cpu"`` for the host).
     """
+    device = resolve_device(device)
     def unstack(x: Any, i: int) -> Any:
         if isinstance(x, dict):
             return {k: unstack(v, i) for k, v in x.items()}

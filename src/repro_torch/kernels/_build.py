@@ -13,6 +13,7 @@ a nonzero code.  Nothing here runs at import time.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -21,7 +22,10 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_all", "load", "check", "ptxas_report"]
+import torch
+
+__all__ = ["SOURCES", "build_all", "load", "bind", "check", "on_device",
+           "ptxas_report"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _ROOT = Path(__file__).resolve().parents[3]
@@ -31,6 +35,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FNS: dict[str, ctypes._CFuncPtr] = {}
 _LOCK = threading.Lock()
 
 
@@ -106,6 +111,24 @@ def load(name: str) -> ctypes.CDLL:
         return _LIBS[name]
 
 
+def bind(name: str, argtypes: list) -> ctypes._CFuncPtr:
+    """The C entry point ``name`` of ``csrc/<name>.cu``, built at first use
+    and given its signature once: ``argtypes`` and an ``int`` result."""
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(load(name), name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _FNS[name] = fn
+    return fn
+
+
+def on_device(device: torch.device):
+    """A context that makes ``device`` current, or nothing when it is."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 def ptxas_report(name: str) -> str:
     """What ``-Xptxas -v`` said for the last build of ``name``: registers,
     shared memory and spills of each kernel instantiation."""
@@ -113,10 +136,11 @@ def ptxas_report(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-def check(lib: ctypes.CDLL, code: int, what: str) -> None:
-    """Raise if a C entry point of ``lib`` returned a CUDA error code."""
+def check(name: str, code: int) -> None:
+    """Raise if the C entry point of ``csrc/<name>.cu`` returned a CUDA
+    error code."""
     if code != 0:
-        fn = lib.repro_error_string
+        fn = load(name).repro_error_string
         fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
-        raise RuntimeError(f"{what}: CUDA error {code} at launch: "
+        raise RuntimeError(f"{name}: CUDA error {code} at launch: "
                            f"{fn(code).decode()}")

@@ -25,6 +25,10 @@ from repro_torch.kernels.ref import flash_attention_ref
 __all__ = ["flash_attention", "smem_bytes", "SMEM_LIMIT"]
 
 SMEM_LIMIT = 232448
+# q, k, v, o, q_lens, kv_lens, q_offsets, B, H, Sq, Skv, D, bq, bkv, scale,
+# causal, bf16, stream
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def smem_bytes(D: int, bq: int, bkv: int) -> int:
@@ -94,18 +98,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.empty_like(q)
     if Sq == 0:
         return o
-    lib = _build.load("flash_attention")
-    fn = lib.flash_attention
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn = _build.bind("flash_attention", _ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
+    with _build.on_device(q.device):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                   q_lens.data_ptr(), kv_lens.data_ptr(), q_offsets.data_ptr(),
                   B, H, Sq, Skv, D, bq, bkv, float(scale), int(causal),
                   int(q.dtype == torch.bfloat16), stream)
-    _build.check(lib, code, "flash_attention")
+    _build.check("flash_attention", code)
     flash_attention.launches += 1
     return o
 

@@ -103,14 +103,12 @@ def _warn_fallback_once(key: str, reason: str,
         strict = _STRICT["on"]
     if strict and key not in _STRICT["allow"]:
         raise FallbackError(
-            f"ops fallback {key!r}: {reason}; the flash-attention kernel is "
-            f"NOT used (strict mode: allowlist the key via "
-            f"strict_fallbacks(allow=...) if this is intentional)")
+            f"ops fallback {key!r}: {reason} (strict mode: allowlist the key "
+            f"via strict_fallbacks(allow=...) if this is intentional)")
     if key not in _FALLBACK_WARNED:
         _FALLBACK_WARNED.add(key)
-        warnings.warn(f"ops.attention: falling back to the plain reference "
-                      f"({reason}); the flash-attention kernel is NOT used",
-                      RuntimeWarning, stacklevel=3)
+        warnings.warn(f"ops.attention: {reason}", RuntimeWarning,
+                      stacklevel=3)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -123,11 +121,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``q_lens``/``kv_lens``: optional (B,) valid lengths; ``q_offsets``:
     optional (B,) absolute position of query row 0.  Causal attention
-    with Sq != Skv and no length operand is the one documented dispatch
-    rule that leaves the kernel: the kernel's causal mask is
-    start-aligned and the reference's end-aligned, so the call goes to
-    the reference and is counted under ``attention_causal_unaligned``
-    (a :class:`FallbackError` under strict mode).
+    with Sq != Skv and no length operand follows the reference's
+    documented dispatch rule: it is counted under
+    ``attention_causal_unaligned`` (a :class:`FallbackError` under strict
+    mode) and warned about once, because the kernel's causal mask is
+    start-aligned and the reference's end-aligned.  With Sq < Skv the
+    kernel then runs end-aligned, through ``q_offsets = Skv - Sq``.  With
+    Sq > Skv the leading rows see no key at all, which the reference
+    averages uniformly and the kernel zeroes: that case runs the plain
+    reference on a CPU tensor and raises on a CUDA one.
     """
     cfg = as_config(config)
     B, H, Sq, D = q.shape
@@ -138,11 +140,28 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                         q_offsets=q_offsets)
     if (causal and Sq != Skv and q_lens is None and kv_lens is None
             and q_offsets is None):
+        if Sq > Skv:
+            _warn_fallback_once("attention_causal_unaligned",
+                                "causal attention with Sq > Skv and no "
+                                "length operands has ambiguous alignment; "
+                                "falling back to the plain reference",
+                                strict=strict)
+            if q.device.type != "cpu":
+                raise ValueError(
+                    f"ops.attention: causal attention with Sq={Sq} > "
+                    f"Skv={Skv} and no length operands has rows that see no "
+                    f"key; pass q_lens/kv_lens/q_offsets to run the kernel")
+            return _ref.flash_attention_ref(q, k, v, causal=causal,
+                                            scale=scale)
         _warn_fallback_once("attention_causal_unaligned",
-                            "causal attention with Sq != Skv and no "
-                            "length operands has ambiguous alignment",
+                            "causal attention with Sq < Skv and no length "
+                            "operands has ambiguous alignment; the kernel "
+                            "runs it end-aligned (q_offsets = Skv - Sq)",
                             strict=strict)
-        return _ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+        q_offsets = torch.full((B,), Skv - Sq, dtype=torch.int32,
+                               device=q.device)
+        q_lens = kv_lens = torch.full((B,), Skv, dtype=torch.int32,
+                                      device=q.device)
     bq, bkv = min(cfg.bq, Sq), min(cfg.bkv, Skv)
     if Sq % bq or Skv % bkv:
         # ragged tiles: the lengths default to the unragged extents

@@ -27,6 +27,9 @@ SMEM_LIMIT = 232448          # bytes of shared memory one Hopper block may use
 MAX_THREADS = 512            # the kernel's __launch_bounds__
 _IN_DTYPES = (torch.float32, torch.bfloat16)
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
+# a, b, c, M, N, K, bm, bn, bk, slots, jik, bf16, fp32 out, trans_b, vec,
+# stream
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
 
 
 def smem_bytes(bm: int, bn: int, bk: int, slots: int, dtype: torch.dtype,
@@ -125,19 +128,15 @@ def zero_stall_matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
         return c
     if K == 0:
         return c.zero_()
-    lib = _build.load("zero_stall_matmul")
-    fn = lib.zero_stall_matmul
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 \
-        + [ctypes.c_void_p]
+    fn = _build.bind("zero_stall_matmul", _ARGTYPES)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    with torch.cuda.device(a.device):
+    with _build.on_device(a.device):
         code = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K, bm, bn,
                   bk, slots, int(grid_order == "jik"),
                   int(a.dtype == torch.bfloat16),
                   int(out_dtype == torch.float32), int(trans_b),
                   int(_vec_ok(a, b, K, N, trans_b)), stream)
-    _build.check(lib, code, "zero_stall_matmul")
+    _build.check("zero_stall_matmul", code)
     zero_stall_matmul.launches += 1
     return c
 

@@ -140,6 +140,8 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
     hd = cfg.resolved_head_dim
     lens = None if lengths is None else \
         torch.as_tensor(lengths, device=x.device).to(torch.int32)
+    # query row 0 sits at position 0; made once, not in every layer's call
+    offs = None if lens is None else torch.zeros_like(lens)
     shape = (cfg.n_layers, B, max_len, cfg.n_kv_heads, hd)
     ck = torch.zeros(shape, dtype=ctx.dtype, device=x.device)
     cv = torch.zeros(shape, dtype=ctx.dtype, device=x.device)
@@ -148,7 +150,8 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
         q, k, v = L._qkv(lp["attn"], h, cfg, ctx)
         q = L.rope(q, positions, cfg.rope_theta)
         k = L.rope(k, positions, cfg.rope_theta)
-        o = L._gqa_full(q, k, v, causal=True, config=ctx.plan, lengths=lens)
+        o = L._gqa_full(q, k, v, causal=True, config=ctx.plan, lengths=lens,
+                        q_offset=offs)
         x = x + L.linear(lp["attn"]["wo"],
                          o.reshape(B, S, cfg.n_heads * hd), ctx)
         h = L.rms_norm(lp["mlp_norm"], x, cfg.norm_eps)

@@ -55,7 +55,7 @@ def _np(x):
 
 
 def _t(x):
-    return tensor_from_numpy(np.asarray(x))
+    return tensor_from_numpy(np.asarray(x), device="cpu")
 
 
 # ----------------------------------------------------------------------
@@ -205,8 +205,36 @@ def test_attention_bf16_matches_jax(rng):
                                rtol=BF16_TOL)
 
 
-def test_attention_causal_unaligned_counts_warns_and_matches_reference(rng):
+def test_attention_causal_unaligned_counts_warns_and_matches_reference(
+        rng, monkeypatch):
+    """Sq < Skv without lengths: counted and warned about, then run by the
+    kernel end-aligned, which is the reference's end-aligned mask."""
     q, k, v = _qkv(rng, B=1, H=1, S=16, D=8, T=32)
+    want = jref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), causal=True)
+    seen = []
+
+    def spy(*a, **kw):
+        seen.append({n: kw[n].tolist() for n in ("q_offsets", "q_lens",
+                                                   "kv_lens")})
+        return flash_attention(*a, **kw)
+
+    monkeypatch.setattr(ops, "_flash", spy)
+    with pytest.warns(RuntimeWarning, match="end-aligned"):
+        got = ops.attention(torch.from_numpy(q), torch.from_numpy(k),
+                            torch.from_numpy(v), causal=True,
+                            config=T_AUTO_ATTN)
+    assert seen == [{"q_offsets": [16], "q_lens": [32], "kv_lens": [32]}]
+    assert ops.fallback_counts() == {"attention_causal_unaligned": 1}
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=FP32_TOL)
+    ops.reset_fallback_warnings()
+    assert ops.fallback_counts() == {}
+
+
+def test_attention_causal_more_queries_than_keys_runs_the_reference(rng):
+    """Sq > Skv without lengths: rows that see no key are averaged
+    uniformly by the reference; on a CPU tensor the reference runs."""
+    q, k, v = _qkv(rng, B=1, H=2, S=24, D=8, T=16)
     want = jref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k),
                                     jnp.asarray(v), causal=True)
     with pytest.warns(RuntimeWarning, match="falling back"):
@@ -215,8 +243,6 @@ def test_attention_causal_unaligned_counts_warns_and_matches_reference(rng):
                             config=T_AUTO_ATTN)
     assert ops.fallback_counts() == {"attention_causal_unaligned": 1}
     np.testing.assert_allclose(got.numpy(), _np(want), atol=FP32_TOL)
-    ops.reset_fallback_warnings()
-    assert ops.fallback_counts() == {}
 
 
 def test_attention_causal_unaligned_strict_raises(rng):
@@ -228,7 +254,7 @@ def test_attention_causal_unaligned_strict_raises(rng):
     with pytest.raises(ops.FallbackError):
         ops.attention(q, k, v, causal=True, config=T_AUTO_ATTN, strict=True)
     with ops.strict_fallbacks(allow=("attention_causal_unaligned",)):
-        with pytest.warns(RuntimeWarning, match="falling back"):
+        with pytest.warns(RuntimeWarning, match="end-aligned"):
             ops.attention(q, k, v, causal=True, config=T_AUTO_ATTN)
     assert not ops._STRICT["on"]
     assert ops.fallback_counts()["attention_causal_unaligned"] == 3
@@ -301,3 +327,20 @@ def test_flash_kernel_matches_plain_on_card(cuda):
                                q_offsets=torch.zeros_like(lens))
     torch.testing.assert_close(got, want, atol=FP32_TOL, rtol=FP32_TOL)
     assert bool((got[1] == 0).all())
+
+
+@pytest.mark.gpu
+def test_attention_causal_unaligned_on_card(cuda):
+    """Sq < Skv runs the kernel end-aligned; Sq > Skv raises on the card."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn(1, 2, 24, 32, device=cuda, generator=g)
+    k, v = (torch.randn(1, 2, 40, 32, device=cuda, generator=g)
+            for _ in range(2))
+    before = flash_attention.launches
+    with pytest.warns(RuntimeWarning, match="end-aligned"):
+        got = ops.attention(q, k, v, causal=True)
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(got, flash_attention_ref(q, k, v, causal=True),
+                               atol=FP32_TOL, rtol=FP32_TOL)
+    with pytest.raises(ValueError, match="see no key"):
+        ops.attention(k, q, q, causal=True)

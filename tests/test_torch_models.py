@@ -34,7 +34,7 @@ def _pair(arch):
     cfg = get_config(arch, reduced=True)
     jm, m = j_build_model(jcfg), build_model(cfg)
     jp = jm.init(jax.random.PRNGKey(0), dtype=jnp.float32)
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp), cfg)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), cfg, device="cpu")
     return jm, jp, m, tp, cfg
 
 
@@ -83,7 +83,7 @@ def test_params_from_numpy_unstacks_layers(arch):
 def test_bf16_converts_bit_exactly():
     x = jnp.asarray(np.random.default_rng(0).standard_normal((5, 7)),
                     jnp.bfloat16)
-    t = tensor_from_numpy(np.asarray(x))
+    t = tensor_from_numpy(np.asarray(x), device="cpu")
     assert t.dtype == torch.bfloat16
     assert np.array_equal(t.view(torch.int16).numpy(),
                           np.asarray(x).view(np.int16))

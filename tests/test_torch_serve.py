@@ -27,7 +27,7 @@ from repro.serve import lockstep_generate as j_lockstep
 from repro.serve import sampling as j_sampling
 from repro.obs.metrics import summarize as j_summarize
 from repro_torch.configs import get_config
-from repro_torch.interop import params_from_numpy
+from repro_torch.interop import params_from_numpy, tensor_from_numpy
 from repro_torch.launch.serve import serve_batch
 from repro_torch.models import Ctx, build_model
 from repro_torch.obs.metrics import summarize
@@ -52,7 +52,8 @@ def _pair(arch):
     cfg = get_config(arch, reduced=True)
     jm, m = j_build_model(jcfg), build_model(cfg)
     jp = jm.init(jax.random.PRNGKey(0), dtype=jnp.float32)
-    return jm, jp, m, params_from_numpy(jax.tree.map(np.asarray, jp), cfg)
+    return jm, jp, m, params_from_numpy(jax.tree.map(np.asarray, jp), cfg,
+                                        device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -246,7 +247,7 @@ def test_serve_batch_on_cpu():
 def test_entry_points_raise_without_a_device_when_cuda_is_absent(gemma):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is valid here")
-    _, _, m, tp = gemma
+    _, jp, m, tp = gemma
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServeEngine(m, tp, CTX)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -257,6 +258,11 @@ def test_entry_points_raise_without_a_device_when_cuda_is_absent(gemma):
         lockstep_generate(m, tp, CTX, [[1, 2]], 2, max_len=8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         m.init_cache(1, 8, torch.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tensor_from_numpy(np.zeros(3, np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_numpy(jax.tree.map(np.asarray, jp),
+                          get_config("gemma-7b", reduced=True))
 
 
 _NO_JAX = """
