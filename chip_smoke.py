@@ -10,21 +10,37 @@ Phases, each printed as it runs:
    (one nvcc per source, all at once) and its time;
 3. each kernel against its plain PyTorch version on the card at the
    shapes of the main path (full-width gemma-7b in bf16), plus fp32
-   matmul at a ragged shape for every ring depth and grid order, and
-   flash attention with lengths, offsets, causal and non-causal masks, a
+   matmul at a ragged shape for every ring depth and grid order, flash
+   attention with lengths, offsets, causal and non-causal masks, a
    fully-masked row and, through ``ops.attention``, causal Sq < Skv
-   without lengths (end-aligned);
+   without lengths (end-aligned), the 96-token prefill chunks of phase
+   5b against a 160-token stripe, and paged attention with scattered
+   page ids, a row parked on the trash page, a row with no valid column
+   and a row whose length runs past its table, in bf16 at the decode
+   shape and in fp32 with four query heads per kv head;
 4. the reduced gemma-7b and deepseek-coder-33b configs in fp32: the
    serving engine's greedy tokens through the kernels must equal those
-   of the plain ``backend="torch"`` path, at K = 1 and K = 4;
+   of the plain ``backend="torch"`` path, at K = 1 and K = 4, with the
+   contiguous cache, the paged cache, and the paged cache with chunked
+   prefill;
 5. full-width gemma-7b (28 layers, random weights from a seed) in bf16
    serving 8 mixed-length requests through ``serve_batch``: prefill and
    decode tokens/s, each kernel's launch count against the count the
    path implies, and the first prefill's logits against the plain path;
+5b. full-width gemma-7b paged: 8 requests behind one shared 64-token
+   prefix through ``ServeEngine`` with 16-token pages and 96-token
+   prefill chunks, run contiguous, paged, paged, contiguous on one copy
+   of the weights: shared pages, chunk and launch counts against what
+   the traffic implies, tokens/s of both modes, the host time spent
+   waiting on chunks, and, for the first four requests, the first
+   tokens and prefill logits of the paged engine with chunked prefill
+   against the contiguous engine's monolithic prefill, and the first
+   decode step's logits on the paged cache (kernel) against the
+   contiguous cache (plain einsum);
 6. each kernel's time at the main-path shapes with CUDA events, beside
-   its plain version, its bound on the card and one PyTorch library call
-   that computes the same function (a yardstick only: the port never
-   calls it);
+   its plain version, its bound on the card and, where one exists, one
+   PyTorch library call that computes the same function (a yardstick
+   only: the port never calls it);
 7. a ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, ...}`` line.
 
@@ -101,6 +117,7 @@ def main() -> int:
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.zero_stall_matmul import zero_stall_matmul
 
     # -- 1. card ---------------------------------------------------------
@@ -115,10 +132,14 @@ def main() -> int:
     for name in _build.SOURCES:
         print(f"    {name} ptxas: {ptxas_summary(_build.ptxas_report(name))}")
 
-    errs = check_kernels(torch, zero_stall_matmul, flash_attention)
-    check_reduced_engines(torch)
-    counts = serve_full_width(torch, zero_stall_matmul, flash_attention)
-    timings = time_kernels(torch, zero_stall_matmul, flash_attention)
+    kern = {"zero_stall_matmul": zero_stall_matmul,
+            "flash_attention": flash_attention,
+            "paged_attention": paged_attention}
+    errs = check_kernels(torch, kern)
+    check_reduced_engines(torch, kern)
+    counts = serve_full_width(torch, kern)
+    counts.update(serve_paged_full_width(torch, kern))
+    timings = time_kernels(torch, kern)
 
     kernels = [
         {"name": "zero_stall_matmul", "route": "cuda",
@@ -131,6 +152,11 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention.py:164",
          "launches": counts["flash_attention"],
          "max_abs_err": errs["flash_attention"], **timings["attention"]},
+        {"name": "paged_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention.py:141",
+         "launches": counts["paged_attention"],
+         "max_abs_err": errs["paged_attention"], **timings["paged"]},
     ]
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "repro.")))
@@ -161,8 +187,33 @@ def gemma_matmul_shapes(M: int) -> list[tuple[str, int, int, int, int]]:
             ("mlp wo", M, g["ff"], g["d"], 1)]
 
 
-def check_kernels(torch, zero_stall_matmul, flash_attention) -> dict:
-    from repro_torch.kernels.ref import flash_attention_ref, matmul_ref
+def paged_case(torch, gen, *, B, H, KV, D, ps, T, kv_lens, dtype,
+               trash_rows=()):
+    """Decode-attention operands on the card: q (B, H, D), (P, ps, KV, D)
+    pools with random contents on every page (the trash page too), page
+    ids scattered over the pool, ``trash_rows`` parked on the trash page,
+    and int32 ``kv_lens``."""
+    dev = "cuda"
+    P = B * T + 1
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=gen).to(dtype)
+
+    table = 1 + torch.randperm(P - 1, device=dev, generator=gen)[:B * T]
+    table = table.reshape(B, T).to(torch.int32)
+    for b in trash_rows:
+        table[b] = 0
+    lens = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+    return (rnd(B, H, D), rnd(P, ps, KV, D), rnd(P, ps, KV, D),
+            table.contiguous(), lens)
+
+
+def check_kernels(torch, kern) -> dict:
+    from repro_torch.kernels.ref import (flash_attention_ref, matmul_ref,
+                                         paged_attention_ref)
+    zero_stall_matmul = kern["zero_stall_matmul"]
+    flash_attention = kern["flash_attention"]
+    paged_attention = kern["paged_attention"]
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -170,11 +221,12 @@ def check_kernels(torch, zero_stall_matmul, flash_attention) -> dict:
     def rnd(*shape, dtype=torch.bfloat16):
         return torch.randn(*shape, device=dev, generator=gen).to(dtype)
 
-    errs = {"zero_stall_matmul": 0.0, "flash_attention": 0.0}
+    errs = {name: 0.0 for name in kern}
     print(f"[3] kernels against their plain versions (matmul bf16: |err| <= "
           f"{BF16_TOL} * max|ref|; fp32: |err| <= {FP32_TOL} * max(1, "
-          f"max|ref|); flash bf16: each row's |err| <= {BF16_TOL} * that "
-          f"row's max|ref|)", flush=True)
+          f"max|ref|); attention, per output row: bf16 |err| <= {BF16_TOL} "
+          f"* that row's max|ref|, fp32 |err| <= {FP32_TOL} * max(1, that "
+          f"row's max|ref|))", flush=True)
 
     def judge(kernel, what, got, want, dtype):
         err = (got.float() - want.float()).abs().max().item()
@@ -186,21 +238,23 @@ def check_kernels(torch, zero_stall_matmul, flash_attention) -> dict:
                 f"version: {err} > {tol}")
         errs[kernel] = max(errs[kernel], err)
 
-    def judge_rows(what, got, want):
-        """Flash attention per output row: a row that averages many keys
-        is small, so a tolerance scaled by the largest row would hide
-        its errors.  A fully-masked row (all zeros) must be exact."""
+    def judge_rows(what, got, want, kernel="flash_attention"):
+        """Attention per output row: a row that averages many keys is
+        small, so a tolerance scaled by the largest row would hide its
+        errors.  A bf16 fully-masked row (all zeros) must be exact."""
         err = (got.float() - want.float()).abs().amax(-1)
-        tol = BF16_TOL * want.float().abs().amax(-1)
+        scale = want.float().abs().amax(-1)
+        tol = (BF16_TOL * scale if got.dtype == torch.bfloat16
+               else FP32_TOL * scale.clamp_min(1.0))
         worst = (err / tol.clamp_min(1e-30)).max().item()
         e = err.max().item()
-        print(f"    flash_attention {what}: max|err| {e:.3g}, worst row "
+        print(f"    {kernel} {what}: max|err| {e:.3g}, worst row "
               f"|err|/tol {worst:.3g} (smallest row tol "
               f"{tol[tol > 0].min().item() if (tol > 0).any() else 0:.3g})")
-        require(bool((err <= tol).all()), f"flash_attention {what} "
+        require(bool((err <= tol).all()), f"{kernel} {what} "
                 f"disagrees with its plain version in some row (worst "
                 f"|err|/tol {worst})")
-        errs["flash_attention"] = max(errs["flash_attention"], e)
+        errs[kernel] = max(errs[kernel], e)
 
     # matmul at every gemma-7b projection shape, decode and prefill
     for M in (GEMMA["slots"], 128):
@@ -265,6 +319,49 @@ def check_kernels(torch, zero_stall_matmul, flash_attention) -> dict:
     judge_rows("ops.attention causal Sq=64 < Skv=128, no lengths "
                "(end-aligned)", got,
                flash_attention_ref(q[:, :, S // 2:], k, v, causal=True))
+    # the chunked-prefill calls of phase 5b: 96 queries of one chunk
+    # against the whole 160-token stripe, q_offsets at the chunk's start,
+    # q_lens = kv_lens = the prompt's valid end after the chunk (the
+    # second chunk of a 128- or 112-token prompt has 32 or 16 valid rows,
+    # the rest all zeros)
+    C, stripe = 96, 160
+    q, k, v = rnd(1, H, C, D), rnd(1, H, stripe, D), rnd(1, H, stripe, D)
+    for off, end in ((0, 96), (96, 128), (96, 112)):
+        kw = dict(causal=True, q_offsets=i32(off), q_lens=i32(end),
+                  kv_lens=i32(end))
+        judge_rows(f"chunk (1, {H}, {C}, {D}) over a {stripe}-token stripe, "
+                   f"causal, q_offsets {off}, lengths {end}",
+                   flash_attention(q, k, v, **kw),
+                   flash_attention_ref(q, k, v, **kw))
+
+    # paged attention at the decode shape: 4 slots, 16 heads of 256,
+    # 16-token pages, a 10-page table (max_len 160)
+    B, T, ps = GEMMA["slots"], 10, 16
+    cases = [
+        ("bf16 (4, 16, 256), ps 16, scattered pages, kv 160/129/80/17",
+         dict(B=B, H=H, KV=H, D=D, ps=ps, T=T, kv_lens=[160, 129, 80, 17],
+              dtype=torch.bfloat16)),
+        ("bf16, row 1 on the trash page, row 2 kv 0, row 3 kv 185 > T*ps",
+         dict(B=B, H=H, KV=H, D=D, ps=ps, T=T, kv_lens=[96, 50, 0, 185],
+              dtype=torch.bfloat16, trash_rows=(1,))),
+        ("fp32 rep 4 (4, 16 heads over 4 kv, 128), ps 16, row 2 on the "
+         "trash page, row 3 kv 0",
+         dict(B=B, H=16, KV=4, D=128, ps=ps, T=T, kv_lens=[160, 33, 70, 0],
+              dtype=torch.float32, trash_rows=(2,))),
+    ]
+    for what, kw in cases:
+        ops_in = paged_case(torch, gen, **kw)
+        launched = paged_attention.launches
+        got = paged_attention(*ops_in[:4], kv_lens=ops_in[4])
+        require(paged_attention.launches == launched + 1,
+                "paged_attention did not launch its kernel")
+        judge_rows(what, got, paged_attention_ref(*ops_in[:4],
+                                                  kv_lens=ops_in[4]),
+                   kernel="paged_attention")
+        for b, n in enumerate(kw["kv_lens"]):
+            if n == 0:
+                require(bool((got[b] == 0).all()), "a paged row with no "
+                        "valid column is not exact zeros")
     torch.cuda.synchronize()
     return errs
 
@@ -272,7 +369,11 @@ def check_kernels(torch, zero_stall_matmul, flash_attention) -> dict:
 # ----------------------------------------------------------------------
 # 4. reduced configs: kernel path vs plain path, token for token
 # ----------------------------------------------------------------------
-def check_reduced_engines(torch) -> None:
+REDUCED_MODES = {"contiguous": {}, "paged": {"page_size": 4},
+                 "paged+chunked": {"page_size": 4, "prefill_chunk": 4}}
+
+
+def check_reduced_engines(torch, kern) -> None:
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -280,7 +381,8 @@ def check_reduced_engines(torch) -> None:
     from repro_torch.serve import Request, ServeEngine
 
     print("[4] reduced configs in fp32: engine greedy tokens, kernels vs "
-          "backend='torch'", flush=True)
+          f"backend='torch', modes {list(REDUCED_MODES)}", flush=True)
+    paged_attention = kern["paged_attention"]
     for arch in ("gemma-7b", "deepseek-coder-33b"):
         cfg = get_config(arch, reduced=True)
         model = build_model(cfg)
@@ -289,28 +391,40 @@ def check_reduced_engines(torch) -> None:
                    for i, n in enumerate((5, 11, 3, 8))]
         max_new = [6, 3, 5, 7]
         outs = {}
-        for backend in ("auto", "torch"):
-            for K in (1, 4):
-                eng = ServeEngine(model, params,
-                                  Ctx(plan=backend, dtype=torch.float32),
-                                  num_slots=2, max_len=32,
-                                  steps_per_dispatch=K, device="cuda")
-                res = eng.run([Request(rid=i, prompt=p, max_new_tokens=m)
-                               for i, (p, m) in enumerate(zip(prompts,
-                                                              max_new))])
-                outs[backend, K] = [res[i].tokens for i in range(4)]
-        ref = outs["torch", 1]
+        for mode, mode_kw in REDUCED_MODES.items():
+            for backend in ("auto", "torch"):
+                for K in (1, 4):
+                    launched = paged_attention.launches
+                    eng = ServeEngine(model, params,
+                                      Ctx(plan=backend, dtype=torch.float32),
+                                      num_slots=2, max_len=32,
+                                      steps_per_dispatch=K, device="cuda",
+                                      **mode_kw)
+                    res = eng.run([Request(rid=i, prompt=p,
+                                           max_new_tokens=m)
+                                   for i, (p, m) in enumerate(zip(prompts,
+                                                                  max_new))])
+                    outs[mode, backend, K] = [res[i].tokens
+                                              for i in range(4)]
+                    on_kernel = paged_attention.launches > launched
+                    require(on_kernel == (backend == "auto"
+                                          and "page_size" in mode_kw),
+                            f"{arch} {mode} {backend}: paged_attention "
+                            f"launches do not follow the path")
+        ref = outs["contiguous", "torch", 1]
         for key, toks in outs.items():
             require(toks == ref, f"{arch} {key}: tokens {toks} differ from "
-                    f"the plain path's {ref}")
+                    f"the plain contiguous path's {ref}")
         print(f"    {arch}: {sum(map(len, ref))} tokens equal on both paths "
-              f"at K=1 and K=4")
+              f"at K=1 and K=4 in every mode")
 
 
 # ----------------------------------------------------------------------
 # 5. full-width gemma-7b serving
 # ----------------------------------------------------------------------
-def serve_full_width(torch, zero_stall_matmul, flash_attention):
+def serve_full_width(torch, kern):
+    zero_stall_matmul = kern["zero_stall_matmul"]
+    flash_attention = kern["flash_attention"]
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import make_requests, serve_batch
     from repro_torch.models import Ctx, build_model
@@ -319,13 +433,15 @@ def serve_full_width(torch, zero_stall_matmul, flash_attention):
               steps_per_dispatch=4, seed=0)
     print(f"[5] gemma-7b full width, 28 layers, bf16, random weights: "
           f"serve_batch({kw})", flush=True)
-    zero_stall_matmul.launches = 0
-    flash_attention.launches = 0
+    for k in kern.values():
+        k.launches = 0
     out = serve_batch("gemma-7b", reduced=False, dtype=torch.bfloat16,
                       device="cuda", **kw)
     torch.cuda.synchronize()
     counts = {"zero_stall_matmul": zero_stall_matmul.launches,
               "flash_attention": flash_attention.launches}
+    require(kern["paged_attention"].launches == 0,
+            "the contiguous cache launched the paged kernel")
     s = out["stats"]
     L = GEMMA["layers"]
     want_mm = (7 * L + 1) * (s["admitted"] + s["decode_steps"])
@@ -376,6 +492,180 @@ def serve_full_width(torch, zero_stall_matmul, flash_attention):
 
 
 # ----------------------------------------------------------------------
+# 5b. full-width gemma-7b, paged, chunked prefill, shared prefix pages
+# ----------------------------------------------------------------------
+def serve_paged_full_width(torch, kern) -> dict:
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import Ctx, build_model
+    from repro_torch.serve import Request, ServeEngine
+
+    L, V = GEMMA["layers"], GEMMA["V"]
+    cfg = get_config("gemma-7b")
+    model = build_model(cfg)
+    params = model.init(seed=0, dtype=torch.bfloat16, device="cuda")
+    ctx = Ctx(plan="auto", dtype=torch.bfloat16)
+    # one shared 64-token prefix (a system prompt) before the mixed tails
+    # of 64, 32, 16 and 48 tokens: prompts of 128, 96, 80 and 112
+    prefix = np.random.default_rng(1).integers(0, V, 64).tolist()
+    reqs = [Request(rid=r.rid, prompt=prefix + list(r.prompt),
+                    max_new_tokens=r.max_new_tokens)
+            for r in make_requests(cfg, 0, 8, 64, 32, True)]
+    ps, chunk, max_len = 16, 96, 160
+    base = dict(num_slots=GEMMA["slots"], max_len=max_len,
+                cache_dtype=torch.bfloat16, steps_per_dispatch=4, seed=0,
+                device="cuda")
+    paged = dict(page_size=ps, prefill_chunk=chunk)
+    n_chunked = sum(len(r.prompt) > chunk for r in reqs)
+    want_chunks = sum(-(-len(r.prompt) // chunk) for r in reqs
+                      if len(r.prompt) > chunk)
+    print(f"[5b] gemma-7b full width, 28 layers, bf16, paged: 8 requests of "
+          f"{sorted({len(r.prompt) for r in reqs})} prompt tokens behind one "
+          f"shared 64-token prefix, 32 new tokens each, {base['num_slots']} "
+          f"slots, K=4, page_size {ps}, prefill_chunk {chunk}, default pool "
+          f"of {base['num_slots'] * max_len // ps + 1} pages; runs "
+          f"contiguous, paged, paged, contiguous", flush=True)
+
+    # the engine waits for each prefill chunk (a departure from the JAX
+    # engine, which leaves it in flight): time those waits, an upper
+    # bound on the host work they keep from overlapping the chunk
+    from repro_torch.serve import engine as engine_mod
+    waited = []
+    wait = engine_mod._wait
+
+    def timed_wait(device):
+        t0 = time.perf_counter()
+        wait(device)
+        waited.append(time.perf_counter() - t0)
+
+    engine_mod._wait = timed_wait
+    counts = {}
+    for mode in ("contiguous", "paged", "paged", "contiguous"):
+        for k in kern.values():
+            k.launches = 0
+        waited.clear()
+        eng = ServeEngine(model, params, ctx, **base,
+                          **(paged if mode == "paged" else {}))
+        t_run = time.perf_counter()
+        res = eng.run(reqs)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t_run
+        got = {name: k.launches for name, k in kern.items()}
+        s = eng.stats
+        require(sorted(res) == list(range(8)) and all(
+            len(r.tokens) == 32 and all(0 <= t < V for t in r.tokens)
+            for r in res.values()), f"{mode}: not every request completed")
+        chunks = s.prefill_chunks
+        mono = s.admitted - (n_chunked if mode == "paged" else 0)
+        want = {"zero_stall_matmul": (7 * L + 1) * (mono + chunks
+                                                    + s.decode_steps),
+                "flash_attention": L * (mono + chunks),
+                "paged_attention": L * s.decode_steps if mode == "paged"
+                else 0}
+        print(f"    {mode}: prefill {s.prefill_tok_s:.1f} tok/s over "
+              f"{s.prefill_s:.3f} s; decode {s.decode_tok_s:.1f} tok/s over "
+              f"{s.decode_s:.3f} s ({s.decode_steps} steps, {s.dispatches} "
+              f"dispatches, {mono} monolithic prefills, {chunks} chunks); "
+              f"pages in use (peak) {s.pages_in_use}, shared {s.pages_shared}"
+              f"; run {t_run:.3f} s, of which the host waited on chunks "
+              f"{1e3 * sum(waited):.1f} ms ({len(waited)} waits)")
+        print(f"      launches {got} (path implies {want})")
+        require(got == want and got["zero_stall_matmul"] > 0,
+                f"{mode}: launch counts differ from the path's")
+        if mode == "paged":
+            require(s.pages_shared >= 4, "fewer than 4 shared prefix pages")
+            require(chunks == want_chunks, f"{chunks} prefill chunks, the "
+                    f"traffic implies {want_chunks}")
+            require(eng.pages_in_use_now == len(eng._prefix.pages),
+                    "pages still held after every request retired")
+            counts.setdefault("paged_attention", got["paged_attention"])
+        del eng, res
+        torch.cuda.empty_cache()
+    engine_mod._wait = wait
+
+    # the first four requests (prompts of 128, 96, 80 and 112 tokens):
+    # the paged engine admits the 128- and 112-token ones through its
+    # chunk path (two 96-token chunks each), the contiguous engine
+    # prefills all four whole.  Their first tokens and prefill logits
+    # must agree; then one decode step of both caches from the same
+    # tokens: paged through the kernel, contiguous through the plain
+    # einsum
+    n = GEMMA["slots"]
+    logits, first, pre = {}, {}, {}
+    for mode in ("contiguous", "paged"):
+        eng = ServeEngine(model, params, ctx, **base,
+                          **(paged if mode == "paged" else {}))
+        pre[mode] = {}
+        record_first_logits(eng, pre[mode])
+        launched = kern["flash_attention"].launches
+        first[mode] = []
+        for slot, r in enumerate(reqs[:n]):
+            if eng._chunkable(r):
+                eng._start_chunking(r, slot, 0.0, time.perf_counter())
+                events = []
+                while not events:
+                    events = eng._advance_chunk(slot)
+                first[mode].append(events[0][1])
+            else:
+                first[mode].append(eng._admit(r, slot))
+        lens = [len(r.prompt) for r in reqs[:n] if eng._chunkable(r)]
+        chunks = eng.stats.prefill_chunks
+        require(chunks == sum(-(-m // chunk) for m in lens)
+                == (4 if mode == "paged" else 0)
+                and kern["flash_attention"].launches - launched
+                == L * (n - len(lens) + chunks),
+                f"{mode}: the admissions did not take the path's chunks")
+        tok = torch.tensor(first["contiguous"], device="cuda")[:, None]
+        launched = kern["paged_attention"].launches
+        lg, _ = model.decode(params, eng.cache, tok, ctx)
+        require((kern["paged_attention"].launches > launched)
+                == (mode == "paged"), "decode did not take the paged kernel")
+        logits[mode] = lg.float()
+        if mode == "paged":
+            require(eng.stats.pages_shared >= 4, "the 4 admissions share "
+                    "fewer than 4 prefix pages")
+        del eng
+    first_pre = torch.cat([pre["paged"][i] for i in range(n)])
+    want_pre = torch.cat([pre["contiguous"][i] for i in range(n)])
+    err = (first_pre - want_pre).abs().max().item()
+    scale = want_pre.abs().max().item()
+    print(f"    first tokens: paged, chunked {first['paged']}, contiguous "
+          f"{first['contiguous']}; prefill logits ({n}, {V}): max|paged "
+          f"chunked - contiguous whole| {err:.4g}, max|contiguous| "
+          f"{scale:.4g} (tol 0.05 * max = {0.05 * scale:.4g})")
+    require(first["paged"] == first["contiguous"], "chunked prefill's first "
+            "tokens differ from monolithic prefill's")
+    require(err <= 0.05 * scale, "chunked prefill logits disagree with "
+            "monolithic prefill's")
+    require(bool(torch.isfinite(logits["paged"]).all()),
+            "non-finite paged decode logits")
+    err = (logits["paged"] - logits["contiguous"]).abs().max().item()
+    scale = logits["contiguous"].abs().max().item()
+    tol = 0.05 * scale
+    print(f"    first decode step's logits ({n}, 1, {V}): max|paged kernel - "
+          f"contiguous plain| {err:.4g}, max|contiguous| {scale:.4g} (tol "
+          f"0.05 * max = {tol:.4g}: bf16 rounding through 28 layers)")
+    require(err <= tol, "paged decode logits disagree with contiguous")
+    del params, logits
+    torch.cuda.empty_cache()
+    return counts
+
+
+def record_first_logits(eng, out: dict) -> None:
+    """Have ``eng`` keep each admission's last-position prefill logits
+    in ``out[slot]`` when it samples the first token."""
+    first_token = eng._first_token
+
+    def recording(req, slot, logits):
+        out[slot] = logits[:, -1].float()
+        return first_token(req, slot, logits)
+
+    eng._first_token = recording
+
+
+# ----------------------------------------------------------------------
 # 6. timing
 # ----------------------------------------------------------------------
 def time_ms(torch, fns, iters: int = 20) -> float:
@@ -394,8 +684,12 @@ def time_ms(torch, fns, iters: int = 20) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def time_kernels(torch, zero_stall_matmul, flash_attention) -> dict:
-    from repro_torch.kernels.ref import flash_attention_ref, matmul_ref
+def time_kernels(torch, kern) -> dict:
+    from repro_torch.kernels.ref import (flash_attention_ref, matmul_ref,
+                                         paged_attention_ref)
+    zero_stall_matmul = kern["zero_stall_matmul"]
+    flash_attention = kern["flash_attention"]
+    paged_attention = kern["paged_attention"]
     dev = "cuda"
     F = torch.nn.functional
     print("[6] kernel times at main-path shapes (CUDA events; operands "
@@ -474,7 +768,37 @@ def time_kernels(torch, zero_stall_matmul, flash_attention) -> dict:
                  "bound_ms": max(t_bytes, t_ops),
                  "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                  "library_ms": lib}
-    return {"matmul": matmul, "attention": attention}
+
+    # paged attention at the decode shape of phase 5b: 4 slots, 16 heads
+    # of 256, a 41-page pool of 16-token pages, 10-page tables, kv lengths
+    # of the four prompts 16 tokens into decode; 8 pool copies (86 MB)
+    # cycle past L2
+    B, T, ps = GEMMA["slots"], 10, 16
+    kv = [144, 112, 96, 128]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    cases = [paged_case(torch, gen, B=B, H=H, KV=H, D=D, ps=ps, T=T,
+                        kv_lens=kv, dtype=torch.bfloat16) for _ in range(8)]
+    ms = time_ms(torch, [lambda c=c: paged_attention(*c[:4], kv_lens=c[4])
+                         for c in cases])
+    plain = time_ms(torch, [lambda c=c: paged_attention_ref(
+        *c[:4], kv_lens=c[4]) for c in cases])
+    keys = sum(min(n, T * ps) for n in kv)
+    nbytes = (keys * H * D * 2 * 2          # the K and V rows it must read
+              + 2 * B * H * D * 2           # q in, o out
+              + B * T * 4 + B * 4)          # page table, kv_lens
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * H * D * keys / PEAK_FLOPS["bfloat16"] * 1e3
+    print(f"    paged_attention ({B}, {H}, {D}) bf16 over {keys} keys "
+          f"(kv {kv}, 16-token pages): {ms:.4f} ms (plain {plain:.4f}, no "
+          f"single PyTorch call reads a page table; bound "
+          f"{max(t_bytes, t_ops):.5f} by "
+          f"{'bytes' if t_bytes >= t_ops else 'operations'}); per decode "
+          f"step ({GEMMA['layers']} calls) {GEMMA['layers'] * ms:.3f} ms")
+    paged = {"ms": ms, "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "library_ms": None}
+    return {"matmul": matmul, "attention": attention, "paged": paged}
 
 
 if __name__ == "__main__":

@@ -4,7 +4,8 @@ Model code calls these; they route to
 
   * backend ``"auto"``: the hand-written kernel wrappers
     (:mod:`~repro_torch.kernels.zero_stall_matmul`,
-    :mod:`~repro_torch.kernels.flash_attention`), which launch the CUDA
+    :mod:`~repro_torch.kernels.flash_attention`,
+    :mod:`~repro_torch.kernels.paged_attention`), which launch the CUDA
     kernel on a CUDA tensor and run their plain version on a CPU tensor;
   * backend ``"torch"``: the plain versions in :mod:`.ref` on any device
     (the counterpart of the JAX package's ``"jnp"``).
@@ -23,10 +24,11 @@ import torch
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import flash_attention as _flash
+from repro_torch.kernels.paged_attention import paged_attention as _paged
 from repro_torch.kernels.zero_stall_matmul import zero_stall_matmul
 from repro_torch.plan.config import KernelConfig, dtype_from_name
 
-__all__ = ["matmul", "attention", "as_config", "fallback_counts",
+__all__ = ["matmul", "attention", "paged_attention", "as_config", "fallback_counts",
            "reset_fallback_warnings", "strict_fallbacks", "FallbackError"]
 
 
@@ -175,4 +177,25 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                  device=q.device)
     return _flash(q, k, v, q_lens=q_lens, kv_lens=kv_lens,
                   q_offsets=q_offsets, bq=bq, bkv=bkv, causal=causal,
+                  scale=scale)
+
+
+def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                    v_pool: torch.Tensor, page_table: torch.Tensor, *,
+                    kv_lens: torch.Tensor, config=None,
+                    scale: float | None = None) -> torch.Tensor:
+    """Decode attention over a paged KV pool (see
+    :mod:`repro_torch.kernels.paged_attention`).
+
+    ``q`` (B, H, D) holds the batch's last-position queries, ``k_pool``
+    / ``v_pool`` (P, ps, KV, D) the shared page pool, ``page_table``
+    (B, T) each slot's logical -> physical pages and ``kv_lens`` (B,)
+    the valid kv extents.  ``config`` only selects the backend: the page
+    geometry is the schedule (one page per step), so there is no tile
+    to resolve and no fallback rule.
+    """
+    if as_config(config).backend == "torch":
+        return _ref.paged_attention_ref(q, k_pool, v_pool, page_table,
+                                        kv_lens=kv_lens, scale=scale)
+    return _paged(q, k_pool, v_pool, page_table, kv_lens=kv_lens,
                   scale=scale)

@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["matmul_ref", "flash_attention_ref", "NEG_INF"]
+__all__ = ["matmul_ref", "flash_attention_ref", "paged_attention_ref",
+           "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -70,3 +71,40 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     row_valid = mask.any(dim=-1, keepdim=True)
     return torch.where(row_valid, out, torch.zeros((), dtype=out.dtype,
                                                    device=out.device))
+
+
+def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                        v_pool: torch.Tensor, page_table: torch.Tensor, *,
+                        kv_lens: torch.Tensor,
+                        scale: float | None = None) -> torch.Tensor:
+    """Decode attention over a paged KV pool.
+
+    q: (B, H, D), one query per sequence (its last position);
+    k_pool/v_pool: (P, ps, KV, D); page_table: (B, T) int32 logical ->
+    physical page id; kv_lens: (B,) valid kv positions (cache pos + 1).
+    ``H = KV * rep`` query heads share each kv head.  The table is
+    gathered into a (B, T*ps, KV, D) view, scores are fp32, columns
+    ``>= kv_len`` (trash-page gathers included) are -1e30, and the
+    output takes q's dtype.  A row with ``kv_len <= 0`` sees no column
+    and is exact zeros, as in the kernels (the JAX reference would
+    average it uniformly; the engine never asks for it: kv_len >= 1).
+    """
+    B, H, D = q.shape
+    ps, KV = k_pool.shape[1], k_pool.shape[2]
+    T = page_table.shape[1]
+    rep = H // KV
+    scale = scale if scale is not None else D ** -0.5
+    pt = page_table.to(torch.long)
+    k = k_pool[pt].reshape(B, T * ps, KV, D)
+    v = v_pool[pt].reshape(B, T * ps, KV, D)
+    qr = q.reshape(B, KV, rep, D)
+    s = torch.einsum("bkrd,btkd->bkrt", qr.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    kv_lens = kv_lens.to(q.device)
+    valid = torch.arange(T * ps, device=q.device)[None, :] < kv_lens[:, None]
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkrt,btkd->bkrd", p.to(v.dtype), v)
+    out = torch.where((kv_lens > 0)[:, None, None, None], out,
+                      torch.zeros((), dtype=out.dtype, device=out.device))
+    return out.reshape(B, H, D).to(q.dtype)

@@ -2,12 +2,14 @@
 
 Requests with (optionally mixed-length) prompts are prefilled one at a
 time and decode together in the engine's slot pool.  On the card every
-projection and the LM head run the zero-stall matmul kernel and prefill
-attention the flash-attention kernel.
+projection and the LM head run the zero-stall matmul kernel, prefill
+attention the flash-attention kernel and, with a paged cache, decode
+attention the paged-attention kernel.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-7b \\
       --no-reduced --dtype bfloat16 --batch 8 --num-slots 4 \\
-      --prompt-len 128 --gen-len 32 --mixed --steps-per-dispatch 4
+      --prompt-len 128 --gen-len 32 --mixed --steps-per-dispatch 4 \\
+      --page-size 16 --prefill-chunk 96
 
 Pass ``--device cpu`` to run the plain versions of the kernels on the
 host (at the reduced size).
@@ -53,7 +55,9 @@ def serve_batch(arch: str, *, reduced: bool = True, batch: int = 4,
                 num_slots: int | None = None, mixed: bool = False,
                 backend: str = "auto", steps_per_dispatch: int = 1,
                 temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
-                step_timeout_s: float | None = None, device=None) -> dict:
+                step_timeout_s: float | None = None, device=None,
+                page_size: int | None = None, num_pages: int | None = None,
+                prefill_chunk: int | None = None) -> dict:
     """Run a synthetic request batch through the serving engine.
 
     Parameters are made from ``seed`` directly in ``dtype`` on
@@ -61,7 +65,10 @@ def serve_batch(arch: str, *, reduced: bool = True, batch: int = 4,
     none).  ``backend`` is ``"auto"`` (the kernels on the card) or
     ``"torch"`` (the plain versions).  Returns the generated tokens
     (``(batch, gen_len)``, -1 past a request's end), throughput and the
-    engine's stats snapshot.
+    engine's stats snapshot.  ``page_size`` switches the KV cache to the
+    paged pool (it must divide ``prompt_len + gen_len``), ``num_pages``
+    sizes the pool (default: no oversubscription) and ``prefill_chunk``
+    ingests long prompts chunk by chunk between decode dispatches.
     """
     device = resolve_device(device)
     cfg = get_config(arch, reduced=reduced)
@@ -72,7 +79,8 @@ def serve_batch(arch: str, *, reduced: bool = True, batch: int = 4,
     engine = ServeEngine(model, params, ctx, num_slots=slots,
                          max_len=prompt_len + gen_len, cache_dtype=dtype,
                          steps_per_dispatch=steps_per_dispatch, seed=seed,
-                         device=device)
+                         device=device, page_size=page_size,
+                         num_pages=num_pages, prefill_chunk=prefill_chunk)
     reqs = make_requests(cfg, seed, batch, prompt_len, gen_len, mixed,
                          temperature=temperature, top_k=top_k, top_p=top_p)
     results = engine.run(reqs, step_timeout_s=step_timeout_s)
@@ -106,6 +114,15 @@ def main(argv=None) -> None:
     ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--step-timeout", type=float, default=None)
+    ap.add_argument("--page-size", type=int, default=None,
+                    help="tokens per KV page: the paged pool with prefix "
+                    "sharing (default: contiguous per-slot cache)")
+    ap.add_argument("--num-pages", type=int, default=None,
+                    help="page-pool size including the trash page "
+                    "(default: no oversubscription)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="ingest prompts longer than this in chunks of "
+                    "this many tokens between decode dispatches")
     args = ap.parse_args(argv)
     out = serve_batch(args.arch, reduced=args.reduced, batch=args.batch,
                       prompt_len=args.prompt_len, gen_len=args.gen_len,
@@ -115,7 +132,9 @@ def main(argv=None) -> None:
                       steps_per_dispatch=args.steps_per_dispatch,
                       temperature=args.temperature, top_k=args.top_k,
                       top_p=args.top_p, step_timeout_s=args.step_timeout,
-                      device=args.device)
+                      device=args.device, page_size=args.page_size,
+                      num_pages=args.num_pages,
+                      prefill_chunk=args.prefill_chunk)
     s = out["stats"]
     print(f"generated shape: {out['generated'].shape}")
     print(f"prefill: {out['prefill_s']:.2f}s ({out['prefill_tok_s']:.1f} "
@@ -124,6 +143,10 @@ def main(argv=None) -> None:
     print(f"steps: {s['decode_steps']}  dispatches: {s['dispatches']}  "
           f"admitted: {s['admitted']}  retired: {s['retired']}  "
           f"max concurrent: {s['max_concurrent']}")
+    if args.page_size is not None or args.prefill_chunk is not None:
+        print(f"pages in use (peak): {s['pages_in_use']}  "
+              f"shared: {s['pages_shared']}  "
+              f"prefill chunks: {s['prefill_chunks']}")
 
 
 if __name__ == "__main__":

@@ -22,7 +22,8 @@ from repro_torch.kernels.ref import NEG_INF
 from repro_torch.plan.config import KernelConfig
 
 __all__ = ["Ctx", "Params", "linear", "rms_norm", "rope", "attention",
-           "attention_decode", "mlp", "embed", "unembed", "gather_last"]
+           "attention_decode", "attention_decode_paged", "mlp", "embed",
+           "unembed", "gather_last"]
 
 Params = dict[str, Any]
 
@@ -179,20 +180,15 @@ def _scatter_at(c: torch.Tensor, new: torch.Tensor,
     return c
 
 
-def attention_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
-                     *, cache: Params, pos: torch.Tensor
-                     ) -> tuple[torch.Tensor, Params]:
-    """One-token decode against a contiguous KV cache (plain torch, as in
-    the reference).  x: (B, 1, d); cache: {"k": (B, S_max, KV, D), "v"};
-    pos: (B,) or scalar write index.  The cache is updated in place."""
-    B = x.shape[0]
+def _decode_attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                   pos_b: torch.Tensor, cfg: ModelConfig,
+                   ctx: Ctx) -> torch.Tensor:
+    """The masked einsum of one-token decode over a contiguous (B, S, KV,
+    D) view of the cache, shared by :func:`attention_decode` and the
+    plain path of :func:`attention_decode_paged`, so that the two are
+    the same operations on the same shapes.  Returns (B, 1, H*D)."""
+    B = q.shape[0]
     hd = cfg.resolved_head_dim
-    q, k, v = _qkv(p, x, cfg, ctx)
-    pos_b = torch.broadcast_to(torch.as_tensor(pos, device=x.device), (B,))
-    q = rope(q, pos_b[:, None], cfg.rope_theta)
-    k = rope(k, pos_b[:, None], cfg.rope_theta)
-    ck = _scatter_at(cache["k"], k, pos)
-    cv = _scatter_at(cache["v"], v, pos)
     KV = ck.shape[2]
     rep = cfg.n_heads // KV
     qg = q.reshape(B, 1, KV, rep, hd)
@@ -200,12 +196,90 @@ def attention_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
     # are upcast for the softmax (as in the reference)
     scores = torch.einsum("bskrd,btkd->bkrst", qg.to(ck.dtype), ck)
     logits = scores.to(torch.float32) * (hd ** -0.5)
-    t_idx = torch.arange(ck.shape[1], device=x.device)
+    t_idx = torch.arange(ck.shape[1], device=q.device)
     mask = t_idx[None, :] <= pos_b[:, None]
     logits = torch.where(mask[:, None, None, None, :], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     o = torch.einsum("bkrst,btkd->bskrd", probs.to(cv.dtype), cv)
-    o = o.reshape(B, 1, cfg.n_heads * hd).to(ctx.dtype)
+    return o.reshape(B, 1, cfg.n_heads * hd).to(ctx.dtype)
+
+
+def attention_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
+                     *, cache: Params, pos: torch.Tensor
+                     ) -> tuple[torch.Tensor, Params]:
+    """One-token decode against a contiguous KV cache (plain torch, as in
+    the reference).  x: (B, 1, d); cache: {"k": (B, S_max, KV, D), "v"};
+    pos: (B,) or scalar write index.  The cache is updated in place."""
+    B = x.shape[0]
+    q, k, v = _qkv(p, x, cfg, ctx)
+    pos_b = torch.broadcast_to(torch.as_tensor(pos, device=x.device), (B,))
+    q = rope(q, pos_b[:, None], cfg.rope_theta)
+    k = rope(k, pos_b[:, None], cfg.rope_theta)
+    ck = _scatter_at(cache["k"], k, pos)
+    cv = _scatter_at(cache["v"], v, pos)
+    o = _decode_attend(q, ck, cv, pos_b, cfg, ctx)
+    return linear(p["wo"], o, ctx), {"k": ck, "v": cv}
+
+
+def _scatter_paged(pool: torch.Tensor, new: torch.Tensor,
+                   page_table: torch.Tensor,
+                   pos: torch.Tensor) -> torch.Tensor:
+    """pool: (P, ps, KV, D); new: (B, 1, KV, D); write row b's token at
+    sequence position ``pos[b]`` through its page table.
+
+    Updates ``pool`` IN PLACE (as :func:`_scatter_at` does) and returns
+    it.  The logical page index clips to the table length, so a slot
+    decoding past its allocation lands on whatever its table's last
+    entry points at: for retired and overflowing rows that is the trash
+    page (id 0), whose contents are never read unmasked.  Duplicate
+    trash writes across rows are fine for the same reason."""
+    ps = pool.shape[1]
+    T = page_table.shape[1]
+    pos = pos.to(torch.long)
+    idx = (pos // ps).clamp(0, T - 1)
+    pids = page_table.gather(1, idx[:, None].to(page_table.device))[:, 0]
+    pool[pids.to(torch.long), pos % ps] = new[:, 0].to(pool.dtype)
+    return pool
+
+
+def attention_decode_paged(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                           ctx: Ctx, *, cache: Params,
+                           page_table: torch.Tensor, pos: torch.Tensor
+                           ) -> tuple[torch.Tensor, Params]:
+    """One-token decode against a paged KV pool.
+
+    x: (B, 1, d); cache: {"k": (P, ps, KV, D), "v"}, the shared page
+    pool; page_table: (B, T) int32 logical -> physical page map; pos:
+    (B,) or scalar write index.  The new token's K/V are scattered in
+    place into the page holding ``pos``.  On the ``"torch"`` backend the
+    table is gathered into a contiguous (B, T*ps, KV, D) view and
+    :func:`attention_decode`'s masked einsum runs on it, so paged decode
+    is bitwise equal to contiguous decode there (garbage positions mask
+    to exactly -1e30 in both).  On ``"auto"`` the paged-attention kernel
+    walks the table itself with ``kv_lens = pos + 1`` and never
+    materialises the gathered copy.
+    """
+    B = x.shape[0]
+    hd = cfg.resolved_head_dim
+    q, k, v = _qkv(p, x, cfg, ctx)
+    pos_b = torch.broadcast_to(torch.as_tensor(pos, device=x.device), (B,))
+    q = rope(q, pos_b[:, None], cfg.rope_theta)
+    k = rope(k, pos_b[:, None], cfg.rope_theta)
+    ck = _scatter_paged(cache["k"], k, page_table, pos_b)
+    cv = _scatter_paged(cache["v"], v, page_table, pos_b)
+    if ctx.plan.backend == "auto":
+        o = ops.paged_attention(
+            q.reshape(B, cfg.n_heads, hd).to(ck.dtype), ck, cv, page_table,
+            kv_lens=(pos_b + 1).to(torch.int32), config=ctx.plan,
+            scale=hd ** -0.5)
+        o = o.reshape(B, 1, cfg.n_heads * hd).to(ctx.dtype)
+        return linear(p["wo"], o, ctx), {"k": ck, "v": cv}
+    ps, KV = ck.shape[1], ck.shape[2]
+    T = page_table.shape[1]
+    pt = page_table.to(torch.long)
+    kg = ck[pt].reshape(B, T * ps, KV, hd)
+    vg = cv[pt].reshape(B, T * ps, KV, hd)
+    o = _decode_attend(q, kg, vg, pos_b, cfg, ctx)
     return linear(p["wo"], o, ctx), {"k": ck, "v": cv}
 
 

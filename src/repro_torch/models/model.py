@@ -5,6 +5,8 @@
     decode(params, cache, tokens, ctx)       -> (logits, cache)
     prefill_logits(params, batch, ctx)       -> (B, 1, V) logits
     prefill(params, batch, ctx, max_len)     -> (logits, populated cache)
+    prefill_chunk(params, tokens, ctx, *, cache, offset, lengths)
+                                             -> (logits, cache)
 
 ``batch`` is a dict with ``tokens`` (B, S) and optional ``lengths``
 ((B,) ragged valid prefixes).  Only the dense family is ported so far.
@@ -40,6 +42,7 @@ class Model:
     decode: Callable[..., tuple]
     prefill_logits: Callable[..., Any]
     prefill: Callable[..., tuple]
+    prefill_chunk: Callable[..., tuple]     # chunked prefill
 
 
 def build_model(cfg: ModelConfig) -> Model:
@@ -53,6 +56,12 @@ def build_model(cfg: ModelConfig) -> Model:
             return transformer.prefill(params, batch["tokens"], cfg, ctx,
                                        max_len, lengths=batch.get("lengths"))
 
+        def prefill_chunk_fn(params, tokens, ctx, *, cache, offset,
+                             lengths):
+            return transformer.prefill_chunk(params, tokens, cfg, ctx,
+                                             cache=cache, offset=offset,
+                                             lengths=lengths)
+
         return Model(
             cfg=cfg,
             init=functools.partial(transformer.init_params, cfg),
@@ -61,6 +70,7 @@ def build_model(cfg: ModelConfig) -> Model:
                 params, cache, tokens, cfg, ctx),
             prefill_logits=prefill_logits,
             prefill=prefill_fn,
+            prefill_chunk=prefill_chunk_fn,
         )
     if fam in _LATER:
         raise NotImplementedError(

@@ -16,7 +16,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import Ctx, Params
 
-__all__ = ["init_params", "forward", "init_cache", "prefill", "decode_step"]
+__all__ = ["init_params", "forward", "init_cache", "prefill", "prefill_chunk",
+           "decode_step"]
 
 
 # ----------------------------------------------------------------------
@@ -105,20 +106,36 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
                 cfg: ModelConfig, ctx: Ctx) -> tuple[torch.Tensor, Params]:
     """tokens: (B, 1) -> (logits (B, 1, V), cache).  The cache's K/V
-    tensors are updated in place; the returned dict carries ``pos + 1``."""
+    tensors are updated in place; the returned dict carries ``pos + 1``.
+
+    A ``"page_table"`` leaf ((B, T) int32) switches every layer to the
+    paged pool, ``cache["k"]``/``["v"]`` then being stacked
+    ``(n_layers, P, ps, KV, D)`` pools
+    (:func:`~repro_torch.models.layers.attention_decode_paged`); the
+    table passes through unchanged (the engine rewrites it on admission
+    and retirement)."""
     pos = cache["pos"]
+    page_table = cache.get("page_table")
     x = L.embed(params["embed"], tokens, ctx)
     for i, lp in enumerate(params["layers"]):
         h = L.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
-        a, _ = L.attention_decode(
-            lp["attn"], h, cfg, ctx,
-            cache={"k": cache["k"][i], "v": cache["v"][i]}, pos=pos)
+        layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
+        if page_table is None:
+            a, _ = L.attention_decode(lp["attn"], h, cfg, ctx,
+                                      cache=layer_cache, pos=pos)
+        else:
+            a, _ = L.attention_decode_paged(lp["attn"], h, cfg, ctx,
+                                            cache=layer_cache,
+                                            page_table=page_table, pos=pos)
         x = x + a
         h = L.rms_norm(lp["mlp_norm"], x, cfg.norm_eps)
         x = x + L.mlp(lp["mlp"], h, cfg, ctx)
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     logits = L.unembed(params["embed"], x, ctx)
-    return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+    out = {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+    if page_table is not None:
+        out["page_table"] = page_table
+    return logits, out
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
@@ -167,3 +184,51 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
         pos = lens
     logits = L.unembed(params["embed"], x_last, ctx)
     return logits, {"k": ck, "v": cv, "pos": pos}
+
+
+def prefill_chunk(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+                  ctx: Ctx, *, cache: Params, offset: int | torch.Tensor,
+                  lengths: torch.Tensor) -> tuple[torch.Tensor, Params]:
+    """Process one chunk of a long prompt against a KV stripe in place.
+
+    tokens: (B, C), the chunk, zero-padded on the last call; cache: a
+    contiguous ``init_cache(B, max_len)`` stripe (the engine pages it
+    when the last chunk lands); ``offset``: absolute position of chunk
+    row 0; ``lengths``: (B,) absolute valid end after this chunk
+    (``<= offset + C``; less only on the final, padded chunk).
+
+    Each chunk's K/V are written into the stripe at ``offset`` and its
+    queries attend to the whole stripe, ``q_offset`` shifting the causal
+    frontier and ``lengths`` masking rows and columns, so chunked
+    prefill stays on the flash kernel.  Rows of a padded final chunk
+    that would land past ``max_len`` are not written (they are padding:
+    ``lengths <= max_len``).  Returns the logits at ``lengths - 1`` (only
+    meaningful on the final chunk) and the stripe with ``pos =
+    lengths``, the contract of :func:`prefill`.
+    """
+    x = L.embed(params["embed"], tokens, ctx)
+    B, C, _ = x.shape
+    off = int(offset)
+    lens = torch.as_tensor(lengths, device=x.device).to(torch.int32)
+    off_b = torch.full((B,), off, dtype=torch.int32, device=x.device)
+    positions = (off + torch.arange(C, device=x.device))[None, :].expand(B, C)
+    hd = cfg.resolved_head_dim
+    n_write = min(C, cache["k"].shape[2] - off)
+    for i, lp in enumerate(params["layers"]):
+        h = L.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
+        q, k, v = L._qkv(lp["attn"], h, cfg, ctx)
+        q = L.rope(q, positions, cfg.rope_theta)
+        k = L.rope(k, positions, cfg.rope_theta)
+        ck, cv = cache["k"][i], cache["v"][i]
+        ck[:, off:off + n_write] = k[:, :n_write]
+        cv[:, off:off + n_write] = v[:, :n_write]
+        o = L._gqa_full(q, ck.to(q.dtype), cv.to(q.dtype), causal=True,
+                        config=ctx.plan, lengths=lens, q_offset=off_b)
+        x = x + L.linear(lp["attn"]["wo"],
+                         o.reshape(B, C, cfg.n_heads * hd), ctx)
+        h = L.rms_norm(lp["mlp_norm"], x, cfg.norm_eps)
+        x = x + L.mlp(lp["mlp"], h, cfg, ctx)
+    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    x_last = L.gather_last(x, lens - off_b)
+    logits = L.unembed(params["embed"], x_last, ctx)
+    return logits, {"k": cache["k"], "v": cache["v"], "pos": lens}

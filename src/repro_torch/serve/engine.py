@@ -16,9 +16,22 @@ every K.
 
 The K-step block is a Python loop of ``Model.decode`` calls here; CUDA
 graphs come later.  Greedy decode through the engine is token-for-token
-identical to :func:`lockstep_generate`.  Paged KV, chunked prefill,
-execution plans and plan validation are not ported yet (ROADMAP.md,
-queue 1 item 7 and later slices).
+identical to :func:`lockstep_generate`.
+
+Paged mode (``page_size=...``) replaces the per-slot stripes with a
+device-resident page pool, stacked ``(n_layers, num_pages, page_size,
+KV, D)``, plus a ``(num_slots, T)`` int32 page table
+(:mod:`repro_torch.serve.paging`): admission allocates just the pages a
+request needs, identical prompt prefixes share pages copy-on-write
+through a refcounted prefix cache (LRU-evicted under pressure; a
+request that still does not fit is requeued), and decode attention
+walks the table through the paged-attention kernel on the card or a
+gather on the plain path, which is bitwise equal to contiguous decode.
+Chunked prefill (``prefill_chunk=...``) ingests prompts longer than the
+chunk one chunk per engine step, between decode dispatches, against a
+private contiguous stripe that is installed when the last chunk lands.
+Execution plans and plan validation are not ported yet (ROADMAP.md,
+queue 1 items 2 and 13).
 """
 
 from __future__ import annotations
@@ -32,14 +45,12 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.serve import sampling
+from repro_torch.serve.paging import (TRASH_PAGE, OutOfPages, PageAllocator,
+                                      PageGeometry, PrefixCache)
 from repro_torch.serve.request import GenerationResult, Request, SlotState
 from repro_torch.serve.stats import EngineStats
 
 __all__ = ["ServeEngine", "lockstep_generate"]
-
-_SLICE_2 = ("is not ported yet: paged serving, chunked prefill, plans and "
-            "plan validation come in slice 2 of the port (ROADMAP.md queue 1 "
-            "item 7)")
 
 
 def _host(x: torch.Tensor) -> np.ndarray:
@@ -51,6 +62,13 @@ def _host(x: torch.Tensor) -> np.ndarray:
 # THE engine clock: every latency the engine records reads it, so tests
 # can substitute a fake clock.
 _now = time.perf_counter
+
+
+def _wait(device: torch.device) -> None:
+    """Let the card finish what was queued, so that a host-clock interval
+    covers the device work it launched (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 class ServeEngine:
@@ -65,6 +83,16 @@ class ServeEngine:
     ``seed``: engine sampling seed.  ``device``: where the cache lives
     and the engine runs; ``None`` means the CUDA device (it raises when
     there is none).
+
+    ``page_size``: tokens per KV page; ``None`` keeps the contiguous
+    per-slot cache, an int (dividing ``max_len``) switches to the paged
+    pool with prefix sharing.  ``num_pages``: pool size including the
+    reserved trash page 0; the default ``num_slots * max_len //
+    page_size + 1`` never runs short, a smaller pool oversubscribes
+    (LRU prefix eviction, then requeueing until a decode retires).
+    ``prefill_chunk``: ingest prompts longer than this that many tokens
+    per engine step.  ``plan`` and ``validate=True`` are not ported yet
+    and raise.
     """
 
     def __init__(self, model, params, ctx, *, num_slots: int = 4,
@@ -73,26 +101,36 @@ class ServeEngine:
                  bucket_sizes: Sequence[int] | None = None,
                  eos_id: int | None = None, seed: int = 0, device=None,
                  page_size: int | None = None,
+                 num_pages: int | None = None,
                  prefill_chunk: int | None = None, plan=None,
                  validate: bool = False):
-        for name, val in (("page_size", page_size),
-                          ("prefill_chunk", prefill_chunk), ("plan", plan)):
-            if val is not None:
-                raise NotImplementedError(f"ServeEngine({name}=...) {_SLICE_2}")
+        if plan is not None:
+            raise NotImplementedError(
+                "ServeEngine(plan=...): execution plans are not ported yet "
+                "(ROADMAP.md queue 1 item 2: OpKey, Plan, trace_model)")
         if validate:
-            raise NotImplementedError(f"ServeEngine(validate=True) {_SLICE_2}")
+            raise NotImplementedError(
+                "ServeEngine(validate=True): plan and page-geometry "
+                "validation are not ported yet (ROADMAP.md queue 1 item 13: "
+                "lint_plan, lint_page_geometry)")
         self.device = resolve_device(device)
         self.model = model
         self.params = params
         self.ctx = ctx
         self.num_slots = int(num_slots)
         self.max_len = int(max_len)
+        self.cache_dtype = cache_dtype
         self.steps_per_dispatch = int(steps_per_dispatch)
         if self.steps_per_dispatch < 1:
             raise ValueError(
                 f"steps_per_dispatch must be >= 1, got {steps_per_dispatch}")
         self.eos_id = eos_id
         self.seed = int(seed)
+        self.page_size = None if page_size is None else int(page_size)
+        self._chunk = None if prefill_chunk is None else int(prefill_chunk)
+        if self._chunk is not None and self._chunk < 1:
+            raise ValueError(
+                f"prefill_chunk must be >= 1, got {prefill_chunk}")
         if bucket_sizes is None:
             bucket_sizes, b = [], 8
             while b < max_len:
@@ -101,10 +139,16 @@ class ServeEngine:
             bucket_sizes.append(max_len)
         self.bucket_sizes = tuple(sorted(set(int(b) for b in bucket_sizes)))
 
-        self.cache = model.init_cache(self.num_slots, self.max_len,
-                                      cache_dtype, device=self.device)
+        self._geom: PageGeometry | None = None
+        if self.page_size is None:
+            self.cache = model.init_cache(self.num_slots, self.max_len,
+                                          cache_dtype, device=self.device)
+        else:
+            self._init_paging(num_pages)
         self.cache["pos"] = torch.zeros((self.num_slots,), dtype=torch.int32,
                                         device=self.device)
+        # chunked admissions in flight: slot -> parked state
+        self._chunking: dict[int, dict] = {}
         # per-slot sampling state: a generator per slot (set at
         # admission) and host mirrors of the knobs
         self._gens: list[torch.Generator | None] = [None] * self.num_slots
@@ -121,6 +165,82 @@ class ServeEngine:
         self._last_prefill_s = 0.0
         self._last_dispatch_s = 0.0
 
+    # -- paged KV cache --------------------------------------------------
+    def _init_paging(self, num_pages: int | None) -> None:
+        """Build the page pool in place of the contiguous cache.
+
+        Which leaves page is probed, not hard-coded: ``init_cache`` is
+        evaluated on the meta device (shapes only, nothing allocated) at
+        ``max_len`` and at ``max_len + page_size``, and a leaf that grows
+        by exactly ``page_size`` on the axis right of its batch axis is
+        sequence-extent KV and becomes a ``(..., num_pages, page_size,
+        ...)`` pool."""
+        ps = self.page_size
+        if ps < 1 or self.max_len % ps:
+            raise ValueError(
+                f"page_size {ps} must be >= 1 and divide max_len "
+                f"{self.max_len}")
+        T = self.max_len // ps
+        if num_pages is None:
+            num_pages = self.num_slots * T + 1   # +1: the trash page
+        self._geom = PageGeometry(ps, int(num_pages), T)
+        self._alloc = PageAllocator(self._geom)
+        self._prefix = PrefixCache(self._alloc)
+        self._slot_pages: list[list[int]] = [[] for _ in
+                                             range(self.num_slots)]
+
+        def shapes(max_len: int) -> dict[str, tuple[int, ...]]:
+            c = self.model.init_cache(self.num_slots, max_len,
+                                      self.cache_dtype, device="meta")
+            return {k: tuple(v.shape) for k, v in c.items() if k != "pos"}
+        base, grown = shapes(self.max_len), shapes(self.max_len + ps)
+        # leaf -> page axis (the batch axis is the one left of it)
+        self._paged: dict[str, int] = {}
+        self.cache = {}
+        for name, shape in base.items():
+            diffs = [i for i, (x, y) in enumerate(zip(shape, grown[name]))
+                     if x != y]
+            pax = diffs[0] if len(diffs) == 1 else -1
+            if pax < 1 or grown[name][pax] - shape[pax] != ps \
+                    or shape[pax - 1] != self.num_slots:
+                raise ValueError(
+                    f"cannot page cache leaf {name!r}: shapes {shape} vs "
+                    f"{grown[name]} (expected growth of {ps} on the axis "
+                    f"right of its batch axis)")
+            self._paged[name] = pax
+            pool = list(shape)
+            pool[pax - 1], pool[pax] = self._geom.num_pages, ps
+            self.cache[name] = torch.zeros(pool, dtype=self.cache_dtype,
+                                           device=self.device)
+        # all-zeros table: every slot starts parked on the trash page
+        self.cache["page_table"] = torch.zeros(
+            (self.num_slots, T), dtype=torch.int32, device=self.device)
+
+    def _alloc_pages(self, n: int) -> list[int]:
+        """Atomic n-page allocation, evicting LRU prefix entries under
+        pressure; raises :class:`OutOfPages` only once the prefix cache
+        is empty too."""
+        while True:
+            try:
+                return self._alloc.alloc(n)
+            except OutOfPages:
+                if not self._prefix.evict_lru():
+                    raise
+
+    def _page_gauges(self) -> None:
+        s = self.stats
+        s.pages_in_use = max(s.pages_in_use, self._alloc.in_use)
+        counts = collections.Counter(
+            p for pages in self._slot_pages for p in pages)
+        s.pages_shared = max(
+            s.pages_shared, sum(1 for c in counts.values() if c >= 2))
+
+    @property
+    def pages_in_use_now(self) -> int:
+        """Current page-pool occupancy (0 for the contiguous cache): an
+        instantaneous gauge, unlike ``stats.pages_in_use`` (the peak)."""
+        return self._alloc.in_use if self._geom is not None else 0
+
     # ------------------------------------------------------------------
     def _decode_block(self, tok: torch.Tensor, done: torch.Tensor,
                       budget: torch.Tensor, *, greedy_only: bool
@@ -128,8 +248,9 @@ class ServeEngine:
         """K decode+sample iterations over all slots -> (num_slots, K)
         tokens, with no host sync.  Frozen (done) rows re-feed their last
         token and stop consuming budget; their cache rows still see
-        writes, which land in their own stripe (clamped in bounds) and
-        are overwritten at the slot's next admission.  ``greedy_only``
+        writes, which land in their own stripe (clamped in bounds) or,
+        paged, in their own pages or the trash page, and are overwritten
+        at the slot's next admission.  ``greedy_only``
         is the argmax specialisation of an all-greedy slot pool: no
         sort and no draw."""
         model, ctx, eos = self.model, self.ctx, self.eos_id
@@ -160,6 +281,16 @@ class ServeEngine:
     # ------------------------------------------------------------------
     def submit(self, request: Request) -> None:
         budget = len(request.prompt) + request.max_new_tokens
+        if self._geom is not None:
+            # checked before the budget: a prompt that cannot even be
+            # stored gets the structural error, not the generic one
+            cap = self._geom.table_len * self._geom.page_size
+            if len(request.prompt) > cap:
+                raise ValueError(
+                    f"request {request.rid}: prompt ({len(request.prompt)} "
+                    f"tokens) alone exceeds the page-table capacity {cap} "
+                    f"({self._geom.table_len} pages x "
+                    f"{self._geom.page_size} tokens/page)")
         if budget > self.max_len:
             raise ValueError(f"request {request.rid}: prompt + generation "
                              f"({budget}) exceeds max_len {self.max_len}")
@@ -173,7 +304,8 @@ class ServeEngine:
 
     @property
     def idle(self) -> bool:
-        return not self._pending and all(s is None for s in self._slots)
+        return (not self._pending and not self._chunking
+                and all(s is None for s in self._slots))
 
     def _bucket(self, n: int) -> int:
         for b in self.bucket_sizes:
@@ -183,7 +315,10 @@ class ServeEngine:
                          f"{self.bucket_sizes[-1]}")
 
     def _admit(self, req: Request, slot: int) -> int:
-        """Batch-1 prefill into ``slot``; returns the first token."""
+        """Batch-1 prefill into ``slot``; returns the first token.  Raises
+        :class:`OutOfPages` (paged mode, pool exhausted even after prefix
+        eviction) before any engine state changes, so the caller can
+        requeue the request."""
         n = len(req.prompt)
         toks = torch.zeros((1, self._bucket(n)), dtype=torch.long)
         toks[0, :n] = torch.tensor(req.prompt, dtype=torch.long)
@@ -192,10 +327,58 @@ class ServeEngine:
                                          device=self.device)}
         logits, cache1 = self.model.prefill(self.params, batch, self.ctx,
                                             self.max_len)
-        self.cache["k"][:, slot] = cache1["k"][:, 0].to(self.cache["k"].dtype)
-        self.cache["v"][:, slot] = cache1["v"][:, 0].to(self.cache["v"].dtype)
-        self.cache["pos"][slot] = cache1["pos"][0]
+        self._install(req, slot, cache1)
         return self._first_token(req, slot, logits)
+
+    def _install(self, req: Request, slot: int, cache1) -> None:
+        """Insert a prefilled batch-1 contiguous stripe into ``slot``.
+
+        Contiguous mode: a copy into the slot's stripe.  Paged mode:
+        retain the published prefix pages the prompt hits, allocate the
+        rest (evicting cold prefixes under pressure), copy the stripe's
+        pages into the pool at ``write_ids`` (the trash page for shared
+        prefix pages, which already hold these values and must not be
+        rewritten, and for unallocated tail pages), point the slot's
+        table row at ``table_ids``, and publish the prompt's full pages
+        for later sharing."""
+        if self._geom is None:
+            for name, dst in self.cache.items():
+                if name != "pos":
+                    dst[:, slot] = cache1[name][:, 0].to(dst.dtype)
+            self.cache["pos"][slot] = cache1["pos"][0]
+            return
+        geom = self._geom
+        T, ps = geom.table_len, geom.page_size
+        t_alloc = geom.pages_for(min(len(req.prompt) + req.max_new_tokens,
+                                     self.max_len))
+        _, shared = self._prefix.lookup(req.prompt)
+        shared = shared[:t_alloc]
+        # hold the hits before allocating: eviction under pressure must
+        # not recycle the very pages this admission reuses
+        for p in shared:
+            self._alloc.retain(p)
+        try:
+            own = self._alloc_pages(t_alloc - len(shared))
+        except OutOfPages:
+            self._alloc.release_all(shared)
+            raise
+        pages = shared + own
+        write_ids = np.full((T,), TRASH_PAGE, np.int64)
+        table_ids = np.full((T,), TRASH_PAGE, np.int32)
+        table_ids[:t_alloc] = pages
+        write_ids[len(shared):t_alloc] = own
+        write_ids = torch.from_numpy(write_ids).to(self.device)
+        for name, pax in self._paged.items():
+            # (..., 1, max_len, ...) -> (..., T, ps, ...) on the pool axes
+            src = cache1[name].select(pax - 1, 0).unflatten(pax - 1, (T, ps))
+            dst = self.cache[name]
+            dst.index_copy_(pax - 1, write_ids, src.to(dst.dtype))
+        self.cache["page_table"][slot] = torch.from_numpy(table_ids).to(
+            self.device)
+        self.cache["pos"][slot] = cache1["pos"][0]
+        self._slot_pages[slot] = pages
+        self._prefix.publish(req.prompt, pages)
+        self._page_gauges()
 
     def _first_token(self, req: Request, slot: int, logits) -> int:
         """Sample the first token with the request's own knobs and a
@@ -228,27 +411,127 @@ class ServeEngine:
         self._slots[slot] = None
         self._gens[slot] = None
         self.stats.retired += 1
+        if self._geom is not None and self._slot_pages[slot]:
+            # order matters: point the table row at the trash page first,
+            # then release the pages, so that a page handed to another
+            # request at once never sees this row's frozen decode writes
+            self.cache["page_table"][slot] = TRASH_PAGE
+            self._alloc.release_all(self._slot_pages[slot])
+            self._slot_pages[slot] = []
 
     def _done(self, st: SlotState, tok: int) -> bool:
         return (len(st.tokens) >= st.request.max_new_tokens
                 or (self.eos_id is not None and tok == self.eos_id))
 
+    # -- chunked prefill -------------------------------------------------
+    def _chunkable(self, req: Request) -> bool:
+        return self._chunk is not None and len(req.prompt) > self._chunk
+
+    def _start_chunking(self, req: Request, slot: int, queue_wait: float,
+                        t_submit: float) -> None:
+        """Park ``req`` in ``slot`` as an in-flight chunked admission: its
+        prompt is ingested ``prefill_chunk`` tokens per engine step into
+        a private contiguous stripe, installed when the last chunk
+        lands."""
+        self._chunking[slot] = {
+            "req": req, "off": 0, "n": len(req.prompt),
+            "cache": self.model.init_cache(1, self.max_len, self.cache_dtype,
+                                           device=self.device),
+            "queue_wait": queue_wait, "t_submit": t_submit,
+        }
+
+    def _advance_chunk(self, slot: int) -> list[tuple[int, int]]:
+        """Ingest one more chunk of the admission parked in ``slot``; on
+        the last one, install the stripe, sample the first token and
+        activate the slot.  Returns the streamed events (empty until the
+        first token).  When the pool is full after the last chunk the
+        parked state is kept and the install retried next step, unless
+        nothing is active to ever free a page."""
+        st = self._chunking[slot]
+        req: Request = st["req"]
+        if "logits" not in st:
+            off, n = st["off"], st["n"]
+            end = min(off + self._chunk, n)
+            toks = torch.zeros((1, self._chunk), dtype=torch.long)
+            toks[0, :end - off] = torch.tensor(req.prompt[off:end],
+                                               dtype=torch.long)
+            t0 = _now()
+            logits, st["cache"] = self.model.prefill_chunk(
+                self.params, toks.to(self.device), self.ctx,
+                cache=st["cache"], offset=off,
+                lengths=torch.tensor([end], dtype=torch.int32,
+                                     device=self.device))
+            # unlike the JAX engine, which leaves the chunk in flight,
+            # wait for it: a chunk that is not the last reads nothing
+            # back, so without the wait its device time would land in
+            # the next decode dispatch's ``decode_s`` instead of here
+            _wait(self.device)
+            dt = _now() - t0
+            self.stats.prefill_s += dt
+            self.stats.prefill_chunks += 1
+            self._last_prefill_s = max(self._last_prefill_s, dt)
+            st["off"] = end
+            if end < n:
+                return []
+            st["logits"] = logits
+        try:
+            self._install(req, slot, st["cache"])
+        except OutOfPages:
+            if not any(s is not None for s in self._slots):
+                raise
+            return []
+        tok = self._first_token(req, slot, st["logits"])
+        del self._chunking[slot]
+        self.stats.prefill_tokens += st["n"]
+        self.stats.admitted += 1
+        ttft = _now() - st["t_submit"]
+        self.stats.queue_wait_s.append(st["queue_wait"])
+        self.stats.ttft_s.append(ttft)
+        slot_st = SlotState(request=req, tokens=[tok], next_token=tok,
+                            admitted_step=self._step,
+                            queue_wait_s=st["queue_wait"], ttft_s=ttft)
+        self._slots[slot] = slot_st
+        if self._done(slot_st, tok):
+            self._retire(slot)
+        return [(req.rid, tok)]
+
     # ------------------------------------------------------------------
     def step(self) -> list[tuple[int, int]]:
-        """Admissions + one decode block (K iterations, one host sync).
-        Returns streamed (rid, token) events in emission order."""
+        """Chunks of in-flight chunked admissions, admissions, then one
+        decode block (K iterations, one host sync).  Returns streamed
+        (rid, token) events in emission order."""
         events: list[tuple[int, int]] = []
         self._step += 1
         self._last_prefill_s = 0.0
         self._last_dispatch_s = 0.0
 
+        # one chunk of each in-flight chunked admission per step, between
+        # decode dispatches, so a long prompt never blocks the slots that
+        # are already decoding
+        for slot in sorted(self._chunking):
+            events.extend(self._advance_chunk(slot))
+
+        blocked = False
         for slot in range(self.num_slots):
-            if self._slots[slot] is not None or not self._pending:
+            if (self._slots[slot] is not None or slot in self._chunking
+                    or not self._pending):
                 continue
             req = self._pending.popleft()
             t0 = _now()
             queue_wait = t0 - self._submit_t.pop(req.rid, t0)
-            tok = self._admit(req, slot)
+            if self._chunkable(req):
+                self._start_chunking(req, slot, queue_wait, t0 - queue_wait)
+                events.extend(self._advance_chunk(slot))
+                continue
+            try:
+                tok = self._admit(req, slot)
+            except OutOfPages:
+                # pool exhausted: requeue at the front and stop admitting;
+                # active slots will retire and free pages
+                self._submit_t[req.rid] = t0 - queue_wait
+                self._pending.appendleft(req)
+                blocked = True
+                break
             dt = _now() - t0
             self.stats.prefill_s += dt
             self.stats.prefill_tokens += len(req.prompt)
@@ -266,6 +549,12 @@ class ServeEngine:
                 self._retire(slot)
 
         active = [i for i, s in enumerate(self._slots) if s is not None]
+        if blocked and not active and not self._chunking:
+            raise OutOfPages(
+                f"page pool exhausted: request {self._pending[0].rid} "
+                f"cannot be admitted and no active request remains to free "
+                f"pages (pool: {self._geom.usable_pages} usable pages of "
+                f"{self._geom.page_size} tokens)")
         self.stats.max_concurrent = max(self.stats.max_concurrent,
                                         len(active))
         if not active:

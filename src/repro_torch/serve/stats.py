@@ -1,7 +1,6 @@
-"""Typed engine statistics: aggregate counters, per-request latency
-samples, and derived throughput (port of ``repro.serve.stats`` without
-the deprecated dict-style access and without the paged-cache gauges,
-which come with paged serving)."""
+"""Typed engine statistics: aggregate counters, paged-cache gauges,
+per-request latency samples, and derived throughput (port of
+``repro.serve.stats`` without the deprecated dict-style access)."""
 
 from __future__ import annotations
 
@@ -33,6 +32,12 @@ class EngineStats:
     retired: int = 0
     max_concurrent: int = 0
 
+    # paged-KV gauges (peak values; they stay 0 when the engine runs the
+    # contiguous per-slot cache) and the count of prefill chunks run
+    pages_in_use: int = 0
+    pages_shared: int = 0
+    prefill_chunks: int = 0
+
     ttft_s: list[float] = field(default_factory=list)
     queue_wait_s: list[float] = field(default_factory=list)
     token_latency_s: list[float] = field(default_factory=list)
@@ -61,13 +66,17 @@ class EngineStats:
         }
 
     def snapshot(self) -> dict:
-        """One JSON-safe dict: aggregates, throughput, occupancy, latency."""
+        """One JSON-safe dict: aggregates, throughput, occupancy, page
+        gauges, latency."""
         out = {k: getattr(self, k) for k in _AGGREGATES}
         out.update({
             "num_slots": self.num_slots,
             "prefill_tok_s": self.prefill_tok_s,
             "decode_tok_s": self.decode_tok_s,
             "mean_dispatch_occupancy": self.mean_dispatch_occupancy,
+            "pages_in_use": self.pages_in_use,
+            "pages_shared": self.pages_shared,
+            "prefill_chunks": self.prefill_chunks,
         })
         out.update(self.latency_summary())
         return out

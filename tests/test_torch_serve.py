@@ -221,11 +221,14 @@ def test_request_validation_and_stats():
 
 
 def test_engine_rejects_what_slice_two_brings(gemma):
+    """Paging and chunked prefill came with slice 2 of the port; plans and
+    validation did not, and their refusal names their ROADMAP items."""
     _, _, m, tp = gemma
-    for kw in ({"page_size": 8}, {"prefill_chunk": 4}, {"plan": object()},
-               {"validate": True}):
-        with pytest.raises(NotImplementedError, match="slice 2"):
+    for kw, item in (({"plan": object()}, "queue 1 item 2"),
+                     ({"validate": True}, "queue 1 item 13")):
+        with pytest.raises(NotImplementedError, match=item):
             _engine(m, tp, **kw)
+    _engine(m, tp, page_size=8, prefill_chunk=4)
     engine = _engine(m, tp)
     with pytest.raises(ValueError, match="exceeds max_len"):
         engine.submit(Request(rid=0, prompt=[1] * 30, max_new_tokens=5))
@@ -242,6 +245,19 @@ def test_serve_batch_on_cpu():
                         device="cpu")
     np.testing.assert_array_equal(out["generated"], plain["generated"])
     assert out["stats"]["retired"] == 4
+
+
+def test_serve_batch_paged_and_chunked_on_cpu():
+    kw = dict(batch=4, prompt_len=8, gen_len=8, mixed=True, num_slots=2,
+              steps_per_dispatch=4, device="cpu")
+    base = serve_batch("gemma-7b", **kw)
+    out = serve_batch("gemma-7b", page_size=4, prefill_chunk=3, **kw)
+    np.testing.assert_array_equal(out["generated"], base["generated"])
+    s = out["stats"]
+    # prompts of 8, 4, 2 and 6 tokens in chunks of 3: 3 + 2 + 2 chunks
+    assert s["pages_in_use"] > 0 and s["prefill_chunks"] == 7
+    assert base["stats"]["pages_in_use"] == base["stats"]["prefill_chunks"] \
+        == 0
 
 
 def test_entry_points_raise_without_a_device_when_cuda_is_absent(gemma):
