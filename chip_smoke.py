@@ -9,7 +9,8 @@ Phases, each printed as it runs:
 2. the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, all at once) and its time;
 3. each kernel against its plain PyTorch version on the card at the
-   shapes of the main path (full-width gemma-7b in bf16), plus fp32
+   shapes of the main paths (full-width gemma-7b and olmoe-1b-7b in
+   bf16 and W8A8: the int8 kernels must be bit-equal), plus fp32
    matmul at a ragged shape for every ring depth and grid order, flash
    attention with lengths, offsets, causal and non-causal masks, a
    fully-masked row and, through ``ops.attention``, causal Sq < Skv
@@ -17,12 +18,15 @@ Phases, each printed as it runs:
    5b against a 160-token stripe, and paged attention with scattered
    page ids, a row parked on the trash page, a row with no valid column
    and a row whose length runs past its table, in bf16 at the decode
-   shape and in fp32 with four query heads per kv head;
-4. the reduced gemma-7b and deepseek-coder-33b configs in fp32: the
-   serving engine's greedy tokens through the kernels must equal those
-   of the plain ``backend="torch"`` path, at K = 1 and K = 4, with the
-   contiguous cache, the paged cache, and the paged cache with chunked
-   prefill;
+   shape and in fp32 with four query heads per kv head; the int8 and
+   grouped kernels at a ragged shape in fp32 for every ring depth;
+4. the reduced gemma-7b and deepseek-coder-33b configs in fp32, plain
+   and W8A8, and the reduced olmoe-1b-7b and granite-moe-1b-a400m
+   configs with bf16 weights and W8A8: the serving engine's greedy
+   tokens through the kernels must equal those of the plain
+   ``backend="torch"`` path, at K = 1 and K = 4, with the contiguous
+   cache, the paged cache, and (dense only) the paged cache with
+   chunked prefill;
 5. full-width gemma-7b (28 layers, random weights from a seed) in bf16
    serving 8 mixed-length requests through ``serve_batch``: prefill and
    decode tokens/s, each kernel's launch count against the count the
@@ -37,6 +41,13 @@ Phases, each printed as it runs:
    against the contiguous engine's monolithic prefill, and the first
    decode step's logits on the paged cache (kernel) against the
    contiguous cache (plain einsum);
+5c. full-width olmoe-1b-7b (16 layers, 64 experts, random weights from
+   a seed) in bf16 with phase 5's traffic through ``serve_batch``;
+5d. the same weights quantized W8A8 through ``ServeEngine`` with
+   ``KernelConfig(quant="int8")``, and how far its logits sit from 5c's;
+5e. full-width gemma-7b in W8A8 with phase 5's traffic (each of 5c-5e:
+   tokens/s, launch counts against the path's, the first prefill's
+   logits against the plain path);
 6. each kernel's time at the main-path shapes with CUDA events, beside
    its plain version, its bound on the card and, where one exists, one
    PyTorch library call that computes the same function (a yardstick
@@ -62,7 +73,7 @@ ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 
 BF16_TOL = 2e-2     # relative to the reference's largest magnitude
 FP32_TOL = 2e-5
@@ -89,7 +100,8 @@ def ptxas_summary(report: str) -> str:
     for ln in report.splitlines():
         if "Compiling entry function" in ln:
             mangled = ln.split("'")[1]
-            dtype = "bf16" if "bfloat16" in mangled else "fp32"
+            dtype = ("bf16" if "bfloat16" in mangled else
+                     "int8" if "kernelIa" in mangled else "fp32")
             bits = [f[0] for f in mangled.split("Lb")[1:]]
             entry = dtype + (f" trans_b={bits[0]} vec={bits[1]}"
                              if len(bits) == 2 else "")
@@ -117,7 +129,10 @@ def main() -> int:
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.grouped_matmul import grouped_zero_stall_matmul
     from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.quantized_matmul import (
+        quantized_grouped_zero_stall_matmul, quantized_zero_stall_matmul)
     from repro_torch.kernels.zero_stall_matmul import zero_stall_matmul
 
     # -- 1. card ---------------------------------------------------------
@@ -134,12 +149,24 @@ def main() -> int:
 
     kern = {"zero_stall_matmul": zero_stall_matmul,
             "flash_attention": flash_attention,
-            "paged_attention": paged_attention}
+            "paged_attention": paged_attention,
+            "quantized_zero_stall_matmul": quantized_zero_stall_matmul,
+            "grouped_zero_stall_matmul": grouped_zero_stall_matmul,
+            "quantized_grouped_zero_stall_matmul":
+                quantized_grouped_zero_stall_matmul}
+    t_run = time.perf_counter()
     errs = check_kernels(torch, kern)
+    for name, err in check_new_kernels(torch, kern).items():
+        errs[name] = max(errs.get(name, 0.0), err)
     check_reduced_engines(torch, kern)
     counts = serve_full_width(torch, kern)
     counts.update(serve_paged_full_width(torch, kern))
+    counts.update(serve_moe_full_width(torch, kern))
+    # kernel 4 runs on two paths (5d, 5e); the line reads 5e's, where it
+    # carries every projection, so that each count is that of one run
+    counts["quantized_zero_stall_matmul"] = serve_gemma_w8a8(torch, kern)
     timings = time_kernels(torch, kern)
+    timings.update(time_new_kernels(torch, kern))
 
     kernels = [
         {"name": "zero_stall_matmul", "route": "cuda",
@@ -157,10 +184,30 @@ def main() -> int:
          "replaces": "src/repro/kernels/paged_attention.py:141",
          "launches": counts["paged_attention"],
          "max_abs_err": errs["paged_attention"], **timings["paged"]},
+        {"name": "quantized_zero_stall_matmul", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/quantized_matmul.cu",
+         "replaces": "src/repro/kernels/quantized_matmul.py:187",
+         "launches": counts["quantized_zero_stall_matmul"],
+         "max_abs_err": errs["quantized_zero_stall_matmul"],
+         **timings["quantized"]},
+        {"name": "grouped_zero_stall_matmul", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/zero_stall_matmul.cu",
+         "replaces": "src/repro/kernels/grouped_matmul.py:137",
+         "launches": counts["grouped_zero_stall_matmul"],
+         "max_abs_err": errs["grouped_zero_stall_matmul"],
+         **timings["grouped"]},
+        {"name": "quantized_grouped_zero_stall_matmul", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/quantized_matmul.cu",
+         "replaces": "src/repro/kernels/quantized_matmul.py:317",
+         "launches": counts["quantized_grouped_zero_stall_matmul"],
+         "max_abs_err": errs["quantized_grouped_zero_stall_matmul"],
+         **timings["quantized_grouped"]},
     ]
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "repro.")))
     require(not leaked, f"JAX or the JAX package got imported: {leaked}")
+    print(f"[7] all phases passed in {time.perf_counter() - t_run:.1f} s "
+          f"after the build")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
@@ -174,6 +221,13 @@ def main() -> int:
 # ----------------------------------------------------------------------
 GEMMA = {"d": 3072, "H": 16, "hd": 256, "ff": 24576, "V": 256000,
          "layers": 28, "slots": 4}
+OLMOE = {"d": 2048, "H": 16, "hd": 128, "ff": 1024, "E": 64, "k": 8,
+         "V": 50304, "layers": 16, "slots": 4}
+NEW_KERNELS = ("quantized_zero_stall_matmul", "grouped_zero_stall_matmul",
+               "quantized_grouped_zero_stall_matmul")
+# phase 5's traffic, served again by phases 5c-5e
+SERVE_KW = dict(batch=8, prompt_len=128, gen_len=32, mixed=True,
+                num_slots=4, steps_per_dispatch=4, seed=0)
 
 
 def gemma_matmul_shapes(M: int) -> list[tuple[str, int, int, int, int]]:
@@ -366,6 +420,143 @@ def check_kernels(torch, kern) -> dict:
     return errs
 
 
+def expert_shapes(M: int) -> list[tuple[str, int, int, int, int, int]]:
+    """(name, G, M, K, N, calls per layer) of one olmoe-1b-7b MoE layer
+    over expert buffers of M = C rows: wi and wg, then wo."""
+    o = OLMOE
+    return [("wi/wg", o["E"], M, o["d"], o["ff"], 2),
+            ("wo", o["E"], M, o["ff"], o["d"], 1)]
+
+
+def moe_capacity(tokens: int) -> int:
+    """The expert capacity C of an olmoe-1b-7b call over ``tokens``
+    tokens (capacity factor 1.25, top-8 of 64)."""
+    return max(1, int(1.25 * OLMOE["k"] * tokens / OLMOE["E"]))
+
+
+def check_new_kernels(torch, kern) -> dict:
+    """Phase 3 for the int8 and grouped kernels: bit-equal int8 products
+    at the W8A8 projection and expert shapes of gemma-7b and olmoe-1b-7b,
+    the bf16 grouped kernel at the expert shapes, every ring depth at a
+    ragged fp32 shape, and flash attention at olmoe's prefill shape."""
+    from repro_torch.kernels.ref import (flash_attention_ref,
+                                         grouped_matmul_ref,
+                                         quantized_grouped_matmul_ref,
+                                         quantized_matmul_ref)
+    from repro_torch.quant import quantize, quantize_rows
+    q4 = kern["quantized_zero_stall_matmul"]
+    g5 = kern["grouped_zero_stall_matmul"]
+    q6 = kern["quantized_grouped_zero_stall_matmul"]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    errs = {n: 0.0 for n in NEW_KERNELS}
+    errs["flash_attention"] = 0.0
+    print("[3] int8 kernels against their plain versions: bit-equal; "
+          f"grouped bf16: |err| <= {BF16_TOL} * max|ref|, fp32: |err| <= "
+          f"{FP32_TOL} * max(1, max|ref|)", flush=True)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    def exact(name, what, fn, want):
+        launched = kern[name].launches
+        got = fn()
+        require(kern[name].launches == launched + 1,
+                f"{name} did not launch its kernel")
+        diff = (got.float() - want.float()).abs().max().item()
+        print(f"    {name} {what}: bit-equal {torch.equal(got, want)}, "
+              f"max|err| {diff:.3g}")
+        require(torch.equal(got, want), f"{name} {what} is not bit-equal "
+                f"to its plain version")
+
+    def close(what, got, want, dtype):
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        tol = (BF16_TOL * scale if dtype == torch.bfloat16
+               else FP32_TOL * max(1.0, scale))
+        print(f"    grouped_zero_stall_matmul {what}: max|err| {err:.3g} "
+              f"(tol {tol:.3g})")
+        require(err <= tol, f"grouped_zero_stall_matmul {what} disagrees "
+                f"with its plain version: {err} > {tol}")
+        errs["grouped_zero_stall_matmul"] = max(
+            errs["grouped_zero_stall_matmul"], err)
+
+    # kernel 4: every W8A8 projection of gemma-7b and olmoe-1b-7b
+    od = OLMOE["d"]
+    shapes = [(f"gemma {n}", m, k, n_) for M in (GEMMA["slots"], 128)
+              for n, m, k, n_, _ in gemma_matmul_shapes(M)]
+    shapes += [(f"olmoe wq/wk/wv/wo", M, od, od) for M in (OLMOE["slots"],
+                                                          128)]
+    for what, M, K, N in shapes:
+        x_q, x_s = quantize_rows(rnd(M, K).bfloat16())
+        qw = quantize(rnd(K, N).bfloat16())
+        exact("quantized_zero_stall_matmul", f"{what} M={M} K={K} N={N} "
+              f"bf16 out", lambda: q4(x_q, qw.data, x_s, qw.scale,
+                                      out_dtype=torch.bfloat16),
+              quantized_matmul_ref(x_q, qw.data, x_s, qw.scale,
+                                   torch.bfloat16))
+    # kernels 5 and 6: the olmoe expert banks at decode (C = 1) and at a
+    # 128-token prefill bucket (C = 20)
+    for M in (moe_capacity(OLMOE["slots"]), moe_capacity(128)):
+        for what, G, m, K, N, _ in expert_shapes(M):
+            a, b = rnd(G, m, K).bfloat16(), rnd(G, K, N).bfloat16()
+            launched = g5.launches
+            got = g5(a, b)
+            require(g5.launches == launched + 1, "grouped_zero_stall_matmul "
+                    "did not launch its kernel")
+            close(f"{what} G={G} M={m} K={K} N={N} bf16", got,
+                  grouped_matmul_ref(a, b), torch.bfloat16)
+            x_q, x_s = quantize_rows(a)
+            qw = quantize(b)
+            exact("quantized_grouped_zero_stall_matmul", f"{what} G={G} "
+                  f"M={m} K={K} N={N} bf16 out",
+                  lambda: q6(x_q, qw.data, x_s, qw.scale,
+                             out_dtype=torch.bfloat16),
+                  quantized_grouped_matmul_ref(x_q, qw.data, x_s, qw.scale,
+                                               torch.bfloat16))
+            del a, b, qw
+    # a ragged shape in fp32 at every ring depth (and, for kernel 4, both
+    # grid orders): the element-wise loaders and every mask
+    a, b = rnd(37, 45), rnd(45, 29)
+    ga, gb = rnd(5, 3, 45), rnd(5, 45, 29)
+    x_q, x_s = quantize_rows(a)
+    qw = quantize(b)
+    gx_q, gx_s = quantize_rows(ga)
+    gqw = quantize(gb)
+    for slots in (1, 2, 3):
+        ring = dict(slots=slots, variant="single" if slots == 1 else "dobu")
+        for order in ("ijk", "jik"):
+            exact("quantized_zero_stall_matmul", f"fp32 out 37x45x29 "
+                  f"slots={slots} {order}",
+                  lambda: q4(x_q, qw.data, x_s, qw.scale, bm=32, bn=32,
+                             bk=32, grid_order=order, **ring),
+                  quantized_matmul_ref(x_q, qw.data, x_s, qw.scale))
+        close(f"fp32 5x3x45x29 slots={slots}",
+              g5(ga, gb, bm=16, bn=16, bk=8, **ring),
+              grouped_matmul_ref(ga, gb), torch.float32)
+        exact("quantized_grouped_zero_stall_matmul", f"fp32 out 5x3x45x29 "
+              f"slots={slots}",
+              lambda: q6(gx_q, gqw.data, gx_s, gqw.scale, bm=32, bn=32,
+                         bk=32, **ring),
+              quantized_grouped_matmul_ref(gx_q, gqw.data, gx_s, gqw.scale))
+    # flash attention at olmoe's prefill shape: head dim 128
+    S, H, D = 128, OLMOE["H"], OLMOE["hd"]
+    q, k, v = (rnd(1, H, S, D).bfloat16() for _ in range(3))
+    got = kern["flash_attention"](q, k, v, causal=True)
+    want = flash_attention_ref(q, k, v, causal=True)
+    err = (got.float() - want.float()).abs().amax(-1)
+    tol = BF16_TOL * want.float().abs().amax(-1)
+    print(f"    flash_attention olmoe (1, {H}, {S}, {D}) bf16 causal: "
+          f"max|err| {err.max().item():.3g}, worst row |err|/tol "
+          f"{(err / tol.clamp_min(1e-30)).max().item():.3g}")
+    require(bool((err <= tol).all()), "flash attention at head dim 128 "
+            "disagrees with its plain version in some row")
+    errs["flash_attention"] = err.max().item()
+    torch.cuda.synchronize()
+    return errs
+
+
 # ----------------------------------------------------------------------
 # 4. reduced configs: kernel path vs plain path, token for token
 # ----------------------------------------------------------------------
@@ -373,50 +564,86 @@ REDUCED_MODES = {"contiguous": {}, "paged": {"page_size": 4},
                  "paged+chunked": {"page_size": 4, "prefill_chunk": 4}}
 
 
+REDUCED_CASES = (
+    # (arch, weights): "fp32" dense, "bf16" weights under fp32 compute,
+    # "w8a8" int8 weights and activations
+    ("gemma-7b", "fp32"), ("deepseek-coder-33b", "fp32"),
+    ("gemma-7b", "w8a8"), ("deepseek-coder-33b", "w8a8"),
+    ("olmoe-1b-7b", "bf16"), ("granite-moe-1b-a400m", "bf16"),
+    ("olmoe-1b-7b", "w8a8"), ("granite-moe-1b-a400m", "w8a8"),
+)
+
+
 def check_reduced_engines(torch, kern) -> None:
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.models import Ctx, build_model
+    from repro_torch.plan import KernelConfig
     from repro_torch.serve import Request, ServeEngine
 
-    print("[4] reduced configs in fp32: engine greedy tokens, kernels vs "
-          f"backend='torch', modes {list(REDUCED_MODES)}", flush=True)
-    paged_attention = kern["paged_attention"]
-    for arch in ("gemma-7b", "deepseek-coder-33b"):
+    print("[4] reduced configs in fp32 compute (dense, W8A8, MoE with bf16 "
+          "weights and W8A8): engine greedy tokens, kernels vs "
+          f"backend='torch', modes {list(REDUCED_MODES)} (MoE: no chunked "
+          "prefill)", flush=True)
+    for arch, weights in REDUCED_CASES:
         cfg = get_config(arch, reduced=True)
         model = build_model(cfg)
-        params = model.init(seed=0, dtype=torch.float32, device="cuda")
+        params = model.init(seed=0, device="cuda", dtype=torch.bfloat16
+                            if weights == "bf16" else torch.float32)
+        quant = "int8" if weights == "w8a8" else None
+        if quant:
+            params = model.quantize_weights(params)
+        moe = cfg.family == "moe"
         prompts = [np.random.default_rng(i).integers(0, cfg.vocab_size, n)
                    for i, n in enumerate((5, 11, 3, 8))]
         max_new = [6, 3, 5, 7]
         outs = {}
         for mode, mode_kw in REDUCED_MODES.items():
+            if moe and "prefill_chunk" in mode_kw:
+                continue
             for backend in ("auto", "torch"):
                 for K in (1, 4):
-                    launched = paged_attention.launches
-                    eng = ServeEngine(model, params,
-                                      Ctx(plan=backend, dtype=torch.float32),
-                                      num_slots=2, max_len=32,
-                                      steps_per_dispatch=K, device="cuda",
-                                      **mode_kw)
+                    before = {n: k.launches for n, k in kern.items()}
+                    ctx = Ctx(plan=KernelConfig(backend=backend, quant=quant),
+                              dtype=torch.float32)
+                    eng = ServeEngine(model, params, ctx, num_slots=2,
+                                      max_len=32, steps_per_dispatch=K,
+                                      device="cuda", **mode_kw)
                     res = eng.run([Request(rid=i, prompt=p,
                                            max_new_tokens=m)
                                    for i, (p, m) in enumerate(zip(prompts,
                                                                   max_new))])
                     outs[mode, backend, K] = [res[i].tokens
                                               for i in range(4)]
-                    on_kernel = paged_attention.launches > launched
-                    require(on_kernel == (backend == "auto"
-                                          and "page_size" in mode_kw),
-                            f"{arch} {mode} {backend}: paged_attention "
-                            f"launches do not follow the path")
-        ref = outs["contiguous", "torch", 1]
-        for key, toks in outs.items():
-            require(toks == ref, f"{arch} {key}: tokens {toks} differ from "
-                    f"the plain contiguous path's {ref}")
-        print(f"    {arch}: {sum(map(len, ref))} tokens equal on both paths "
-              f"at K=1 and K=4 in every mode")
+                    launched = {n for n, k in kern.items()
+                                if k.launches > before[n]}
+                    want = set()
+                    if backend == "auto":
+                        want = {"zero_stall_matmul", "flash_attention"}
+                        if "page_size" in mode_kw:
+                            want.add("paged_attention")
+                        if quant:
+                            want.add("quantized_zero_stall_matmul")
+                        if moe:
+                            want.add("quantized_grouped_zero_stall_matmul"
+                                     if quant else
+                                     "grouped_zero_stall_matmul")
+                    require(launched == want, f"{arch} {weights} {mode} "
+                            f"{backend}: launched {sorted(launched)}, the "
+                            f"path implies {sorted(want)}")
+        for (mode, backend, K), toks in outs.items():
+            # MoE routing is batch-global: a slot that idles or re-feeds
+            # its last token inside a K-step block takes expert capacity,
+            # so MoE tokens are held at the same mode and K only
+            ref = outs[(mode, "torch", K) if moe else ("contiguous", "torch",
+                                                       1)]
+            require(toks == ref, f"{arch} {weights} {(mode, backend, K)}: "
+                    f"tokens {toks} differ from the plain path's {ref}")
+        print(f"    {arch} ({weights} weights): "
+              f"{sum(map(len, outs['contiguous', 'torch', 1]))} tokens "
+              f"equal on both paths at K=1 and K=4 in {len(outs) // 4} modes"
+              + (" (each mode and K against itself)" if moe else ""))
 
 
 # ----------------------------------------------------------------------
@@ -429,8 +656,7 @@ def serve_full_width(torch, kern):
     from repro_torch.launch.serve import make_requests, serve_batch
     from repro_torch.models import Ctx, build_model
 
-    kw = dict(batch=8, prompt_len=128, gen_len=32, mixed=True, num_slots=4,
-              steps_per_dispatch=4, seed=0)
+    kw = SERVE_KW
     print(f"[5] gemma-7b full width, 28 layers, bf16, random weights: "
           f"serve_batch({kw})", flush=True)
     for k in kern.values():
@@ -440,8 +666,10 @@ def serve_full_width(torch, kern):
     torch.cuda.synchronize()
     counts = {"zero_stall_matmul": zero_stall_matmul.launches,
               "flash_attention": flash_attention.launches}
-    require(kern["paged_attention"].launches == 0,
-            "the contiguous cache launched the paged kernel")
+    require(all(kern[n].launches == 0 for n in NEW_KERNELS
+                + ("paged_attention",)),
+            "the contiguous bf16 dense path launched the paged, int8 or "
+            "grouped kernels")
     s = out["stats"]
     L = GEMMA["layers"]
     want_mm = (7 * L + 1) * (s["admitted"] + s["decode_steps"])
@@ -563,7 +791,7 @@ def serve_paged_full_width(torch, kern) -> dict:
                                                     + s.decode_steps),
                 "flash_attention": L * (mono + chunks),
                 "paged_attention": L * s.decode_steps if mode == "paged"
-                else 0}
+                else 0, **{n: 0 for n in NEW_KERNELS}}
         print(f"    {mode}: prefill {s.prefill_tok_s:.1f} tok/s over "
               f"{s.prefill_s:.3f} s; decode {s.decode_tok_s:.1f} tok/s over "
               f"{s.decode_s:.3f} s ({s.decode_steps} steps, {s.dispatches} "
@@ -663,6 +891,203 @@ def record_first_logits(eng, out: dict) -> None:
         return first_token(req, slot, logits)
 
     eng._first_token = recording
+
+
+# ----------------------------------------------------------------------
+# 5c-5e. full-width olmoe-1b-7b (bf16, W8A8) and gemma-7b (W8A8)
+# ----------------------------------------------------------------------
+def first_prefill_logits(torch, model, params, ctxs: dict) -> dict:
+    """The first request of phase 5's traffic, prefilled alone at the
+    engine's 128-token bucket (max_len 160) under each of ``ctxs``:
+    {name: (1, 1, V) fp32 logits}."""
+    from repro_torch.launch.serve import make_requests
+    req = make_requests(model.cfg, 0, 8, 128, 32, True)[0]
+    batch = {"tokens": torch.tensor([req.prompt], device="cuda"),
+             "lengths": torch.tensor([len(req.prompt)], dtype=torch.int32,
+                                     device="cuda")}
+    return {name: model.prefill(params, batch, ctx, 160)[0].float()
+            for name, ctx in ctxs.items()}
+
+
+def judge_logits(torch, what: str, got, want) -> float:
+    """Full-width logits: within 5% of the largest plain magnitude (bf16
+    rounding, and W8A8 codes and expert choices that the rounding can
+    move, through every layer)."""
+    require(bool(torch.isfinite(got).all()), f"{what}: non-finite logits")
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    print(f"    {what}: max|kernels - plain| {err:.4g}, max|plain| "
+          f"{scale:.4g} (tol 0.05 * max|plain| = {0.05 * scale:.4g})")
+    require(err <= 0.05 * scale, f"{what}: logits disagree")
+    return err
+
+
+def serve_w8a8(torch, kern, model, qparams, label: str) -> tuple[dict, dict]:
+    """Phase 5's traffic through ``ServeEngine`` on W8A8 params: (launch
+    counts, stats snapshot), the counts set to 0 just before."""
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import Ctx
+    from repro_torch.plan import KernelConfig
+    from repro_torch.serve import ServeEngine
+    kw = SERVE_KW
+    reqs = make_requests(model.cfg, kw["seed"], kw["batch"], kw["prompt_len"],
+                         kw["gen_len"], kw["mixed"])
+    eng = ServeEngine(model, qparams, Ctx(plan=KernelConfig(quant="int8"),
+                                          dtype=torch.bfloat16),
+                      num_slots=kw["num_slots"],
+                      max_len=kw["prompt_len"] + kw["gen_len"],
+                      cache_dtype=torch.bfloat16,
+                      steps_per_dispatch=kw["steps_per_dispatch"],
+                      seed=kw["seed"], device="cuda")
+    for k in kern.values():
+        k.launches = 0
+    res = eng.run(reqs)
+    torch.cuda.synchronize()
+    counts = {n: k.launches for n, k in kern.items()}
+    s = eng.stats
+    require(sorted(res) == list(range(kw["batch"])) and all(
+        len(r.tokens) == kw["gen_len"]
+        and all(0 <= t < model.cfg.vocab_size for t in r.tokens)
+        for r in res.values()), f"{label}: not every request completed")
+    print(f"    {label}: prefill {s.prefill_tok_s:.1f} tok/s over "
+          f"{s.prefill_s:.3f} s; decode {s.decode_tok_s:.1f} tok/s over "
+          f"{s.decode_s:.3f} s ({s.decode_steps} steps, {s.dispatches} "
+          f"dispatches, {s.admitted} admissions)")
+    snap = s.snapshot()
+    del eng, res
+    torch.cuda.empty_cache()
+    return counts, snap
+
+
+def check_counts(label: str, got: dict, want: dict, derivation: str) -> None:
+    print(f"    {label} launches {got}")
+    print(f"      path implies {want}: {derivation}")
+    require(got == want, f"{label}: launch counts differ from the path's")
+
+
+def serve_moe_full_width(torch, kern) -> dict:
+    """5c (bf16 through serve_batch) and 5d (W8A8 through ServeEngine) on
+    one set of olmoe-1b-7b weights; returns the launch counts of the
+    grouped kernels (5c's bf16, 5d's int8)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import Ctx, build_model
+    from repro_torch.plan import KernelConfig
+
+    L, V = OLMOE["layers"], OLMOE["V"]
+    print(f"[5c] olmoe-1b-7b full width, {L} layers, 64 experts top-8, bf16, "
+          f"random weights: serve_batch({SERVE_KW})", flush=True)
+    for k in kern.values():
+        k.launches = 0
+    out = serve_batch("olmoe-1b-7b", reduced=False, dtype=torch.bfloat16,
+                      device="cuda", **SERVE_KW)
+    torch.cuda.synchronize()
+    got = {n: k.launches for n, k in kern.items()}
+    s = out["stats"]
+    passes = s["admitted"] + s["decode_steps"]
+    print(f"    prefill {out['prefill_tok_s']:.1f} tok/s over "
+          f"{out['prefill_s']:.3f} s; decode {out['decode_tok_s']:.1f} tok/s "
+          f"over {out['decode_s']:.3f} s ({s['decode_steps']} steps, "
+          f"{s['dispatches']} dispatches, {s['admitted']} admissions)")
+    want = {n: 0 for n in kern}
+    want.update(zero_stall_matmul=(4 * L + 1) * passes,
+                grouped_zero_stall_matmul=3 * L * passes,
+                flash_attention=L * s["admitted"])
+    check_counts("5c", got, want, f"per pass (each prefill and decode "
+                 f"step) 4 projections (wq, wk, wv, wo) x {L} layers + the "
+                 f"LM head = {4 * L + 1} matmuls and 3 expert banks (wi, "
+                 f"wg, wo) x {L} = {3 * L} grouped matmuls, over "
+                 f"{s['admitted']} + {s['decode_steps']} passes; {L} flash "
+                 f"calls per prefill")
+    gen = out["generated"]
+    require(gen.shape == (8, 32) and (gen >= 0).all() and (gen < V).all(),
+            "5c: not every request completed")
+    counts = {"grouped_zero_stall_matmul": got["grouped_zero_stall_matmul"]}
+    del out
+    torch.cuda.empty_cache()
+
+    cfg = get_config("olmoe-1b-7b")
+    model = build_model(cfg)
+    params = model.init(seed=0, dtype=torch.bfloat16, device="cuda")
+    bf16 = first_prefill_logits(torch, model, params, {
+        "auto": Ctx(plan="auto", dtype=torch.bfloat16),
+        "torch": Ctx(plan="torch", dtype=torch.bfloat16)})
+    judge_logits(torch, f"5c first prefill logits (1, 1, {V})",
+                 bf16["auto"], bf16["torch"])
+
+    torch.cuda.reset_peak_memory_stats()
+    qparams = model.quantize_weights(params)
+    del params
+    torch.cuda.empty_cache()
+    print(f"[5d] olmoe-1b-7b full width, W8A8 (int8 projections and expert "
+          f"banks, bf16 LM head) quantized from the same weights: "
+          f"ServeEngine with KernelConfig(quant='int8'), the traffic of 5c; "
+          f"peak while quantizing "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB, after "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB", flush=True)
+    got, s = serve_w8a8(torch, kern, model, qparams, "5d")
+    passes = s["admitted"] + s["decode_steps"]
+    want = {n: 0 for n in kern}
+    want.update(quantized_zero_stall_matmul=4 * L * passes,
+                zero_stall_matmul=passes,
+                quantized_grouped_zero_stall_matmul=3 * L * passes,
+                flash_attention=L * s["admitted"])
+    check_counts("5d", got, want, f"per pass {4 * L} int8 projections, "
+                 f"1 bf16 LM head and {3 * L} int8 expert banks, over "
+                 f"{s['admitted']} + {s['decode_steps']} passes")
+    counts["quantized_grouped_zero_stall_matmul"] = \
+        got["quantized_grouped_zero_stall_matmul"]
+    w8a8 = first_prefill_logits(torch, model, qparams, {
+        "auto": Ctx(plan=KernelConfig(quant="int8"), dtype=torch.bfloat16),
+        "torch": Ctx(plan=KernelConfig(backend="torch", quant="int8"),
+                     dtype=torch.bfloat16)})
+    judge_logits(torch, f"5d first prefill logits (1, 1, {V})",
+                 w8a8["auto"], w8a8["torch"])
+    dist = (w8a8["auto"] - bf16["auto"]).abs().max().item()
+    scale = bf16["auto"].abs().max().item()
+    print(f"    5d W8A8 logits against 5c's bf16 logits (kernel paths; "
+          f"reported, not gated): max|W8A8 - bf16| {dist:.4g}, "
+          f"max|bf16| {scale:.4g} ({dist / scale:.3%}); same argmax "
+          f"{bool(w8a8['auto'].argmax() == bf16['auto'].argmax())}")
+    del qparams, bf16, w8a8
+    torch.cuda.empty_cache()
+    return counts
+
+
+def serve_gemma_w8a8(torch, kern) -> int:
+    """5e: full-width gemma-7b W8A8 with phase 5's traffic; returns the
+    launches of kernel 4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Ctx, build_model
+    from repro_torch.plan import KernelConfig
+
+    L, V = GEMMA["layers"], GEMMA["V"]
+    model = build_model(get_config("gemma-7b"))
+    params = model.init(seed=0, dtype=torch.bfloat16, device="cuda")
+    qparams = model.quantize_weights(params)
+    del params
+    torch.cuda.empty_cache()
+    print(f"[5e] gemma-7b full width, {L} layers, W8A8 (int8 projections, "
+          f"bf16 tied LM head; {torch.cuda.memory_allocated() / 2 ** 30:.1f}"
+          f" GiB of weights): ServeEngine with KernelConfig(quant='int8'), "
+          f"phase 5's traffic", flush=True)
+    got, s = serve_w8a8(torch, kern, model, qparams, "5e")
+    passes = s["admitted"] + s["decode_steps"]
+    want = {n: 0 for n in kern}
+    want.update(quantized_zero_stall_matmul=7 * L * passes,
+                zero_stall_matmul=passes, flash_attention=L * s["admitted"])
+    check_counts("5e", got, want, f"per pass 7 int8 projections x {L} "
+                 f"layers = {7 * L} and 1 bf16 LM head, over "
+                 f"{s['admitted']} + {s['decode_steps']} passes")
+    logits = first_prefill_logits(torch, model, qparams, {
+        "auto": Ctx(plan=KernelConfig(quant="int8"), dtype=torch.bfloat16),
+        "torch": Ctx(plan=KernelConfig(backend="torch", quant="int8"),
+                     dtype=torch.bfloat16)})
+    judge_logits(torch, f"5e first prefill logits (1, 1, {V})",
+                 logits["auto"], logits["torch"])
+    del qparams, logits
+    torch.cuda.empty_cache()
+    return got["quantized_zero_stall_matmul"]
 
 
 # ----------------------------------------------------------------------
@@ -800,6 +1225,165 @@ def time_kernels(torch, kern) -> dict:
              "library_ms": None}
     return {"matmul": matmul, "attention": attention, "paged": paged}
 
+
+def bound(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
+    """The least time (ms) the card could take: bytes over the HBM rate
+    or operations over the peak rate of ``dtype``, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_new_kernels(torch, kern) -> dict:
+    """Phase 6 for kernels 4-6 at their decode shapes: one gemma-7b W8A8
+    decode step's 196 projections (M = 4), one olmoe-1b-7b decode step's
+    48 expert banks (G = 64, M = C = 1) in bf16 and in int8."""
+    import math
+
+    from repro_torch.kernels.ref import (grouped_matmul_ref,
+                                         quantized_grouped_matmul_ref,
+                                         quantized_matmul_ref)
+    from repro_torch.quant import quantize, quantize_rows
+    q4 = kern["quantized_zero_stall_matmul"]
+    g5 = kern["grouped_zero_stall_matmul"]
+    q6 = kern["quantized_grouped_zero_stall_matmul"]
+    dev = "cuda"
+    out = {}
+
+    def copies(nbytes):
+        return max(1, math.ceil(128 * 2 ** 20 / nbytes))
+
+    # kernel 4: the 196 int8 projections of a gemma-7b decode step
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "nbytes": 0.0,
+           "ops": 0.0}
+    refused = None
+    M = GEMMA["slots"]
+    for name, m, K, N, calls in gemma_matmul_shapes(M):
+        n = calls * GEMMA["layers"]
+        x_q, x_s = quantize_rows(torch.randn(m, K, device=dev))
+        qws = [quantize(torch.randn(K, N, device=dev))
+               for _ in range(copies(K * N))]
+        ms = time_ms(torch, [lambda w=w: q4(x_q, w.data, x_s, w.scale,
+                                            out_dtype=torch.bfloat16)
+                             for w in qws])
+        plain = time_ms(torch, [lambda w=w: quantized_matmul_ref(
+            x_q, w.data, x_s, w.scale, torch.bfloat16) for w in qws],
+            iters=5)
+        try:
+            lib = time_ms(torch, [lambda w=w: torch._int_mm(x_q, w.data)
+                                  for w in qws])
+        except RuntimeError as e:
+            refused = str(e).splitlines()[0][:160]
+            pad = torch.zeros(32, K, dtype=torch.int8, device=dev)
+            pad[:m] = x_q
+            lib = time_ms(torch, [lambda w=w: torch._int_mm(pad, w.data)
+                                  for w in qws])
+            lib_note = f"torch._int_mm refused M={m}; at M=32 {lib:.4f}"
+        else:
+            lib_note = f"torch._int_mm {lib:.4f}"
+        nbytes = m * K + K * N + 4 * (m + N) + 2 * m * N
+        b, by = bound(nbytes, 2 * m * N * K, "int8")
+        print(f"    quantized_zero_stall_matmul gemma {name} M={m} K={K} "
+              f"N={N}: {ms:.4f} ms (plain {plain:.4f}, {lib_note}, bound "
+              f"{b:.4f} by {by}) x {n} a step")
+        for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                       ("nbytes", nbytes), ("ops", 2 * m * N * K)):
+            tot[key] += v * n
+        del qws
+    b, by = bound(tot["nbytes"], tot["ops"], "int8")
+    lib = None if refused else tot["library_ms"]
+    print(f"    quantized_zero_stall_matmul, one gemma-7b W8A8 decode step "
+          f"(M=4), {7 * GEMMA['layers']} launches: {tot['ms']:.3f} ms "
+          f"(plain {tot['plain_ms']:.3f}, torch._int_mm "
+          + (f"refused M=4 ({refused}); padded to M=32 "
+             f"{tot['library_ms']:.3f}" if refused
+             else f"{tot['library_ms']:.3f}")
+          + f", bound {b:.3f} by {by}: "
+          f"{tot['nbytes'] / 1e9:.2f} GB)")
+    out["quantized"] = {"ms": tot["ms"], "plain_ms": tot["plain_ms"],
+                        "bound_ms": b, "bound_by": by, "library_ms": lib}
+
+    # kernels 1 and 4 at olmoe-1b-7b's decode projections (printed for
+    # the breakdown of phases 5c and 5d)
+    M, d, L = OLMOE["slots"], OLMOE["d"], OLMOE["layers"]
+    x = torch.randn(M, d, device=dev)
+    x_q, x_s = quantize_rows(x)
+    ws = [torch.randn(d, d, device=dev) for _ in range(copies(d * d))]
+    qws = [quantize(w) for w in ws]
+    ws = [w.bfloat16() for w in ws]
+    xb = x.bfloat16()
+    mm = time_ms(torch, [lambda w=w: kern["zero_stall_matmul"](xb, w)
+                         for w in ws])
+    qm = time_ms(torch, [lambda w=w: q4(x_q, w.data, x_s, w.scale,
+                                        out_dtype=torch.bfloat16)
+                         for w in qws])
+    head = [torch.randn(d, OLMOE["V"], device=dev).bfloat16()
+            for _ in range(copies(d * OLMOE["V"] * 2))]
+    hm = time_ms(torch, [lambda w=w: kern["zero_stall_matmul"](
+        xb, w, out_dtype=torch.float32) for w in head])
+    print(f"    olmoe projections M={M} K=N={d}: zero_stall_matmul {mm:.4f} "
+          f"ms, quantized_zero_stall_matmul {qm:.4f} ms; LM head (M={M}, "
+          f"N={OLMOE['V']}, fp32 out) {hm:.4f} ms; per decode step "
+          f"{4 * L} projections + the head: bf16 {4 * L * mm + hm:.3f} ms, "
+          f"W8A8 {4 * L * qm + hm:.3f} ms")
+    del ws, qws, head
+
+    # kernels 5 and 6: the 48 expert banks of an olmoe-1b-7b decode step
+    C = moe_capacity(OLMOE["slots"])
+    for key, name, int8 in (("grouped", "grouped_zero_stall_matmul", False),
+                            ("quantized_grouped",
+                             "quantized_grouped_zero_stall_matmul", True)):
+        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+               "nbytes": 0.0, "ops": 0.0}
+        for what, G, m, K, N, calls in expert_shapes(C):
+            n = calls * OLMOE["layers"]
+            a = torch.randn(G, m, K, device=dev)
+            bs = [torch.randn(G, K, N, device=dev)
+                  for _ in range(copies(G * K * N))]
+            if int8:
+                x_q, x_s = quantize_rows(a)
+                qws = [quantize(b) for b in bs]
+                del bs
+                ms = time_ms(torch, [lambda w=w: q6(
+                    x_q, w.data, x_s, w.scale, out_dtype=torch.bfloat16)
+                    for w in qws])
+                plain = time_ms(torch, [lambda w=w: quantized_grouped_matmul_ref(
+                    x_q, w.data, x_s, w.scale, torch.bfloat16) for w in qws],
+                    iters=5)
+                lib, lib_note = 0.0, "no library call"
+                nbytes = G * m * K + G * K * N + 4 * G * (m + N) + 2 * G * m * N
+                del qws
+            else:
+                a = a.bfloat16()
+                bs = [b.bfloat16() for b in bs]
+                ms = time_ms(torch, [lambda b=b: g5(a, b) for b in bs])
+                plain = time_ms(torch, [lambda b=b: grouped_matmul_ref(a, b)
+                                        for b in bs], iters=5)
+                lib = time_ms(torch, [lambda b=b: torch.bmm(a, b)
+                                      for b in bs])
+                lib_note = f"torch.bmm {lib:.4f}"
+                nbytes = 2 * (G * m * K + G * K * N + G * m * N)
+                del bs
+            ops = 2 * G * m * K * N
+            b, by = bound(nbytes, ops, "int8" if int8 else "bfloat16")
+            print(f"    {name} olmoe {what} G={G} M={m} K={K} N={N}: "
+                  f"{ms:.4f} ms (plain {plain:.4f}, {lib_note}, bound "
+                  f"{b:.4f} by {by}) x {n} a step")
+            for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                         ("nbytes", nbytes), ("ops", ops)):
+                tot[k] += v * n
+        b, by = bound(tot["nbytes"], tot["ops"], "int8" if int8
+                      else "bfloat16")
+        print(f"    {name}, one olmoe-1b-7b decode step (C={C}), "
+              f"{3 * OLMOE['layers']} launches: {tot['ms']:.3f} ms (plain "
+              f"{tot['plain_ms']:.3f}"
+              + ("" if int8 else f", torch.bmm {tot['library_ms']:.3f}")
+              + f", bound {b:.3f} by {by}: {tot['nbytes'] / 1e9:.2f} GB)")
+        out[key] = {"ms": tot["ms"], "plain_ms": tot["plain_ms"],
+                    "bound_ms": b, "bound_by": by,
+                    "library_ms": None if int8 else tot["library_ms"]}
+    torch.cuda.empty_cache()
+    return out
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1,7 +1,7 @@
 """Model configuration dataclass and the architecture registry.
 
 The port's own copy of ``repro.configs.base`` limited to what the dense
-decoder family reads (the JAX module imports jax for its input specs).
+and MoE families read (the JAX module imports jax for its input specs).
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ __all__ = ["ModelConfig", "register", "get_config", "list_configs"]
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # dense (other families: later slices)
+    family: str                   # dense | moe (other families: later slices)
     n_layers: int
     d_model: int
     n_heads: int
@@ -25,6 +25,10 @@ class ModelConfig:
     vocab_size: int
     head_dim: int = 0             # 0 -> d_model // n_heads
     mlp_type: str = "swiglu"      # swiglu | geglu
+    # MoE
+    n_experts: int = 0
+    experts_per_token: int = 0
+    capacity_factor: float = 1.25
     rope_theta: float = 1e4
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
@@ -35,13 +39,16 @@ class ModelConfig:
         return self.head_dim or self.d_model // self.n_heads
 
     def param_count(self) -> int:
-        """Total parameters of the dense family (analytic)."""
-        if self.family != "dense":
+        """Total parameters of the dense and MoE families (analytic)."""
+        if self.family not in ("dense", "moe"):
             raise ValueError(self.family)
         d, hd = self.d_model, self.resolved_head_dim
         qkv = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) \
             + (self.n_heads * hd) * d
-        per_layer = qkv + 3 * d * self.d_ff + 2 * d
+        mlp = 3 * d * self.d_ff
+        if self.family == "moe":
+            mlp = self.n_experts * mlp + d * self.n_experts   # + router
+        per_layer = qkv + mlp + 2 * d
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         return self.n_layers * per_layer + emb + d
 
@@ -49,7 +56,8 @@ class ModelConfig:
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
 _REDUCED: dict[str, Callable[[], ModelConfig]] = {}
 
-_ARCH_MODULES = ["gemma_7b", "deepseek_coder_33b"]
+_ARCH_MODULES = ["gemma_7b", "deepseek_coder_33b", "olmoe_1b_7b",
+                 "granite_moe_1b_a400m"]
 
 
 def register(name: str, full: Callable[[], ModelConfig],

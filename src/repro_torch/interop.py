@@ -3,7 +3,12 @@
 The caller turns the JAX pytree into numpy first
 (``jax.tree.map(np.asarray, params)``), so this module needs neither
 JAX nor ml_dtypes: a bfloat16 array is recognised by its dtype name and
-reinterpreted through a uint16 view.
+reinterpreted through a uint16 view, an fp8 (e4m3) array through a uint8
+view.  A quantized tree's ``QTensor`` leaves come through
+``jax.tree.map`` as QTensors holding numpy arrays; they are recognised
+by their attributes (``data``, ``scale``, ``fmt``, ``w8a8``), since
+``repro.quant`` may not be imported here, and become the port's
+:class:`~repro_torch.quant.QTensor` with its K-major codes.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.quant.tensor import QTensor, k_major
 
 __all__ = ["params_from_numpy", "tensor_from_numpy"]
 
@@ -27,34 +33,58 @@ def tensor_from_numpy(a: Any, device=None) -> torch.Tensor:
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
         t = t.view(torch.bfloat16)
+    elif a.dtype.name == "float8_e4m3fn":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint8).copy())
+        t = t.view(torch.float8_e4m3fn)
     else:
         t = torch.from_numpy(np.array(a, copy=True))
     return t.to(device)
 
 
+def _is_qtensor(x: Any) -> bool:
+    # an array is never one; asking a bfloat16 array for its ``data``
+    # buffer raises ValueError, which hasattr does not catch
+    if isinstance(x, (np.ndarray, np.generic)):
+        return False
+    return all(hasattr(x, a) for a in ("data", "scale", "fmt", "w8a8"))
+
+
+def _leaf(x: Any, device, take=lambda a: a) -> Any:
+    """One leaf (``take`` picks its layer slice): an array, or a
+    QTensor-like whose codes are stored K-major."""
+    if _is_qtensor(x):
+        data = tensor_from_numpy(take(np.asarray(x.data)), device)
+        return QTensor(k_major(data),
+                       tensor_from_numpy(take(np.asarray(x.scale)), device),
+                       x.fmt, bool(x.w8a8))
+    return tensor_from_numpy(take(np.asarray(x)), device)
+
+
 def _tree(x: Any, device) -> Any:
     if isinstance(x, dict):
         return {k: _tree(v, device) for k, v in x.items()}
-    return tensor_from_numpy(x, device)
+    return _leaf(x, device)
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, *, device=None) -> dict:
-    """JAX dense-family params (numpy leaves) -> the port's params.
+    """JAX dense- or MoE-family params (numpy leaves) -> the port's params.
 
     The JAX package stacks every per-layer leaf along a leading
     ``n_layers`` axis (``params["layers"]``); the port keeps a list of
-    per-layer dicts, so that axis is unstacked here.  The tensors land
+    per-layer dicts, so that axis is unstacked here (for the MoE router
+    (n_layers, d, E) and expert banks (n_layers, E, d, f) as for any
+    leaf, and for a QTensor's codes and scales alike).  The tensors land
     on ``device`` (None: the card; pass ``device="cpu"`` for the host).
     """
     device = resolve_device(device)
     def unstack(x: Any, i: int) -> Any:
         if isinstance(x, dict):
             return {k: unstack(v, i) for k, v in x.items()}
-        a = np.asarray(x)
-        if a.shape[0] != cfg.n_layers:
-            raise ValueError(f"layer leaf of shape {a.shape} does not lead "
-                             f"with n_layers={cfg.n_layers}")
-        return tensor_from_numpy(a[i], device)
+        lead = np.shape(x.data if _is_qtensor(x) else x)[0]
+        if lead != cfg.n_layers:
+            raise ValueError(f"layer leaf leading with {lead} does not "
+                             f"lead with n_layers={cfg.n_layers}")
+        return _leaf(x, device, lambda a: a[i])
 
     return {
         "embed": _tree(tree["embed"], device),

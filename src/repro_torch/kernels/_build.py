@@ -1,10 +1,11 @@
 """Build the CUDA sources under ``csrc/`` with nvcc and bind them with ctypes.
 
-Each ``csrc/<name>.cu`` becomes one shared library with a plain C
-interface, compiled for ``sm_90a`` into ``build/repro_torch/`` at the
-root of the checkout and keyed by a hash of the sources and flags, so a
-library is rebuilt only when its source changes.  ``build_all`` starts
-one nvcc per source, all at once, and waits for them together.
+Each ``csrc/<name>.cu`` (with the headers it includes) becomes one
+shared library with a plain C interface, compiled for ``sm_90a`` into
+``build/repro_torch/`` at the root of the checkout and keyed by a hash
+of the sources and flags, so a library is rebuilt only when a source
+changes.  ``build_all`` starts one nvcc per source, all at once, and
+waits for them together.
 
 Every C entry point takes its pointers and the stream as ``void*`` and
 returns ``cudaGetLastError()`` after its launch; :func:`check` raises on
@@ -30,7 +31,8 @@ __all__ = ["SOURCES", "build_all", "load", "bind", "check", "on_device",
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = _ROOT / "build" / "repro_torch"
-SOURCES = ("zero_stall_matmul", "flash_attention", "paged_attention")
+SOURCES = ("zero_stall_matmul", "quantized_matmul", "flash_attention",
+           "paged_attention")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -111,12 +113,14 @@ def load(name: str) -> ctypes.CDLL:
         return _LIBS[name]
 
 
-def bind(name: str, argtypes: list) -> ctypes._CFuncPtr:
-    """The C entry point ``name`` of ``csrc/<name>.cu``, built at first use
-    and given its signature once: ``argtypes`` and an ``int`` result."""
+def bind(name: str, argtypes: list, source: str | None = None
+         ) -> ctypes._CFuncPtr:
+    """The C entry point ``name`` of ``csrc/<source>.cu`` (``source``
+    defaults to ``name``), built at first use and given its signature
+    once: ``argtypes`` and an ``int`` result."""
     fn = _FNS.get(name)
     if fn is None:
-        fn = getattr(load(name), name)
+        fn = getattr(load(source or name), name)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         _FNS[name] = fn
     return fn

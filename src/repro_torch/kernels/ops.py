@@ -4,6 +4,8 @@ Model code calls these; they route to
 
   * backend ``"auto"``: the hand-written kernel wrappers
     (:mod:`~repro_torch.kernels.zero_stall_matmul`,
+    :mod:`~repro_torch.kernels.grouped_matmul`,
+    :mod:`~repro_torch.kernels.quantized_matmul`,
     :mod:`~repro_torch.kernels.flash_attention`,
     :mod:`~repro_torch.kernels.paged_attention`), which launch the CUDA
     kernel on a CUDA tensor and run their plain version on a CPU tensor;
@@ -24,12 +26,18 @@ import torch
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import flash_attention as _flash
+from repro_torch.kernels.grouped_matmul import grouped_zero_stall_matmul
 from repro_torch.kernels.paged_attention import paged_attention as _paged
+from repro_torch.kernels.quantized_matmul import (
+    quantized_grouped_zero_stall_matmul, quantized_zero_stall_matmul)
 from repro_torch.kernels.zero_stall_matmul import zero_stall_matmul
 from repro_torch.plan.config import KernelConfig, dtype_from_name
+from repro_torch.quant.tensor import QTensor, quantize_rows
 
-__all__ = ["matmul", "attention", "paged_attention", "as_config", "fallback_counts",
-           "reset_fallback_warnings", "strict_fallbacks", "FallbackError"]
+__all__ = ["matmul", "grouped_matmul", "quantized_matmul",
+           "quantized_grouped_matmul", "attention", "paged_attention",
+           "as_config", "fallback_counts", "reset_fallback_warnings",
+           "strict_fallbacks", "FallbackError"]
 
 
 def as_config(config) -> KernelConfig:
@@ -55,13 +63,91 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, config=None,
     (N, K) row-major and computes A @ B.T (the tied LM head).
     """
     cfg = as_config(config)
-    if out_dtype is None and cfg.out_dtype is not None:
-        out_dtype = dtype_from_name(cfg.out_dtype)
+    out_dtype = _out_dtype(out_dtype, cfg, a.dtype)
     if cfg.backend == "torch":
         return _ref.matmul_ref(a, b.t() if trans_b else b, out_dtype)
     return zero_stall_matmul(a.contiguous(), b, out_dtype=out_dtype,
                              trans_b=trans_b,
                              **cfg.matmul_kwargs(a.dtype))
+
+
+def _out_dtype(out_dtype, cfg: KernelConfig, default: torch.dtype):
+    """The output dtype priority of every matmul entry point: the
+    argument, then the config's ``out_dtype``, then ``default``."""
+    if out_dtype is not None:
+        return out_dtype
+    if cfg.out_dtype is not None:
+        return dtype_from_name(cfg.out_dtype)
+    return default
+
+
+def grouped_matmul(a: torch.Tensor, b: torch.Tensor, *, config=None,
+                   out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """(G, M, K) @ (G, K, N) -> (G, M, N) per-expert matmul through the
+    grouped zero-stall engine (the MoE dispatch path,
+    ``models.moe.moe_mlp``).  Same ``config`` vocabulary and out_dtype
+    priority as :func:`matmul`."""
+    cfg = as_config(config)
+    out_dtype = _out_dtype(out_dtype, cfg, a.dtype)
+    if cfg.backend == "torch":
+        return _ref.grouped_matmul_ref(a, b, out_dtype)
+    return grouped_zero_stall_matmul(
+        a.contiguous(), b.contiguous(), out_dtype=out_dtype,
+        **cfg.matmul_kwargs(a.dtype, grouped=True))
+
+
+def _check_qtensor(qw) -> None:
+    if not isinstance(qw, QTensor):
+        raise TypeError(f"qw must be a QTensor, got {type(qw).__name__}")
+
+
+def quantized_matmul(x: torch.Tensor, qw: QTensor, *, config=None,
+                     out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """C = x @ qw through the int8 zero-stall engine (W8A8).
+
+    ``x`` (M, K) is a full-precision activation, quantized per row here,
+    outside the kernel (:func:`~repro_torch.quant.quantize_rows`, as in
+    the JAX package); ``qw`` a :class:`~repro_torch.quant.QTensor`.  The
+    kernel accumulates in exact int32 and fuses the dequantising
+    epilogue.  The output dtype priority is that of :func:`matmul`.  An
+    fp8 QTensor takes the simulated-fp8 route: dequantize to x's dtype
+    and run :func:`matmul`.
+    """
+    _check_qtensor(qw)
+    if qw.fmt != "int8":
+        return matmul(x, qw.dequantize(x.dtype), config=config,
+                      out_dtype=out_dtype)
+    cfg = as_config(config)
+    out_dtype = _out_dtype(out_dtype, cfg, x.dtype)
+    x_q, x_s = quantize_rows(x)
+    w_s = qw.scale.to(torch.float32)
+    if cfg.backend == "torch":
+        return _ref.quantized_matmul_ref(x_q, qw.data, x_s, w_s, out_dtype)
+    return quantized_zero_stall_matmul(x_q, qw.data, x_s, w_s.contiguous(),
+                                       out_dtype=out_dtype,
+                                       **cfg.matmul_kwargs(torch.int8))
+
+
+def quantized_grouped_matmul(x: torch.Tensor, qw: QTensor, *, config=None,
+                             out_dtype: torch.dtype | None = None
+                             ) -> torch.Tensor:
+    """(G, M, K) activations @ a QTensor (G, K, N) expert bank (W8A8
+    MoE), with the contracts of :func:`quantized_matmul`; an fp8 bank
+    dequantizes onto :func:`grouped_matmul`."""
+    _check_qtensor(qw)
+    if qw.fmt != "int8":
+        return grouped_matmul(x, qw.dequantize(x.dtype), config=config,
+                              out_dtype=out_dtype)
+    cfg = as_config(config)
+    out_dtype = _out_dtype(out_dtype, cfg, x.dtype)
+    x_q, x_s = quantize_rows(x)
+    w_s = qw.scale.to(torch.float32)
+    if cfg.backend == "torch":
+        return _ref.quantized_grouped_matmul_ref(x_q, qw.data, x_s, w_s,
+                                                 out_dtype)
+    return quantized_grouped_zero_stall_matmul(
+        x_q, qw.data, x_s, w_s.contiguous(), out_dtype=out_dtype,
+        **cfg.matmul_kwargs(torch.int8, grouped=True))
 
 
 _FALLBACK_COUNTS: dict[str, int] = {}

@@ -1,0 +1,177 @@
+"""Int8 zero-stall matmuls: the wrappers of ``csrc/quantized_matmul.cu``.
+
+``quantized_zero_stall_matmul`` computes C = (A_q @ B_q) * a_scale *
+b_scale for int8 codes with an exact int32 accumulator and a fused
+dequantising epilogue; ``quantized_grouped_zero_stall_matmul`` does the
+same per group (the W8A8 MoE expert FFNs).  Both run the N-slot
+revolving buffer of ``csrc/zero_stall_ring.cuh`` (see the header notes
+of the CUDA sources for the schedule, its bound on the H100 and what
+the design does about it).  They replace the Pallas TPU kernels of
+``repro.kernels.quantized_matmul``.
+
+B is given with the JAX package's logical (..., K, N) shape, but on the
+card it must be the transposed view of a contiguous (..., N, K) buffer
+(``b.mT.is_contiguous()``), the K-major layout the port's
+:class:`~repro_torch.quant.QTensor` stores: the int8 tensor-core
+fragments of B cannot be loaded transposed.  On a CPU tensor the
+wrappers run the plain versions in :mod:`repro_torch.kernels.ref`, which
+take any layout.  ``.launches`` on each wrapper counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.grouped_matmul import MAX_GROUPS
+from repro_torch.kernels.ref import (quantized_grouped_matmul_ref,
+                                     quantized_matmul_ref)
+from repro_torch.kernels.zero_stall_matmul import _check_config, _vec_ok
+from repro_torch.plan.config import resolve_slots
+
+__all__ = ["quantized_zero_stall_matmul",
+           "quantized_grouped_zero_stall_matmul"]
+
+_OUT_DTYPES = (torch.float32, torch.bfloat16)
+# a, b, a_scale, b_scale, c, then ten ints (M, N, K, bm, bn, bk, slots,
+# jik, fp32 out, vec; grouped: G, M, N, K, bm, bn, bk, slots, fp32 out,
+# vec), then the stream
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+
+
+def _check_operands(kernel: str, a, b, a_scale, b_scale, out_dtype):
+    """Shapes and dtypes of (…, M, K) @ (…, K, N) int8 codes with (…, M, 1)
+    and (…, 1, N) fp32 scales; returns (lead, M, K, N)."""
+    lead, (M, K) = tuple(a.shape[:-2]), a.shape[-2:]
+    K2, N = b.shape[-2:]
+    if tuple(b.shape[:-2]) != lead or K != K2:
+        raise ValueError(f"{kernel}: group/contraction mismatch: "
+                         f"{tuple(a.shape)} @ {tuple(b.shape)}")
+    if a.dtype != torch.int8 or b.dtype != torch.int8:
+        raise ValueError(f"{kernel}: operands must be int8, got {a.dtype} "
+                         f"and {b.dtype}")
+    if (tuple(a_scale.shape) != lead + (M, 1)
+            or tuple(b_scale.shape) != lead + (1, N)):
+        raise ValueError(f"{kernel}: scale shapes {tuple(a_scale.shape)} and "
+                         f"{tuple(b_scale.shape)} must be {lead + (M, 1)} "
+                         f"and {lead + (1, N)}")
+    if a_scale.dtype != torch.float32 or b_scale.dtype != torch.float32:
+        raise ValueError(f"{kernel}: scales must be fp32, got "
+                         f"{a_scale.dtype} and {b_scale.dtype}")
+    if out_dtype not in _OUT_DTYPES:
+        raise ValueError(f"{kernel}: out_dtype must be fp32 or bf16, got "
+                         f"{out_dtype}")
+    return lead, M, K, N
+
+
+def _check_card(kernel: str, a, b, a_scale, b_scale) -> None:
+    """What the kernel needs beyond the math: one CUDA device, contiguous
+    A and scales, K-major B."""
+    ops = (a, b, a_scale, b_scale)
+    if a.device.type != "cuda" or any(t.device != a.device for t in ops):
+        raise ValueError(f"{kernel}: operands on "
+                         f"{sorted({str(t.device) for t in ops})}; the kernel "
+                         f"needs all on one CUDA device")
+    if not (a.is_contiguous() and a_scale.is_contiguous()
+            and b_scale.is_contiguous()):
+        raise ValueError(f"{kernel}: A and the scales must be contiguous")
+    if not b.mT.is_contiguous():
+        raise ValueError(f"{kernel}: B must be K-major, the transposed view "
+                         f"of a contiguous (..., N, K) buffer (as QTensor "
+                         f"stores its codes)")
+
+
+def quantized_zero_stall_matmul(a: torch.Tensor, b: torch.Tensor,
+                                a_scale: torch.Tensor, b_scale: torch.Tensor,
+                                *, bm: int = 128, bn: int = 128,
+                                bk: int = 128, variant: str = "dobu",
+                                slots: int | None = None,
+                                grid_order: str = "ijk",
+                                out_dtype: torch.dtype = torch.float32
+                                ) -> torch.Tensor:
+    """C = (a @ b) * a_scale * b_scale with the zero-stall schedule.
+
+    a: (M, K) int8 codes; b: (K, N) int8 codes (K-major on the card);
+    a_scale (M, 1) and b_scale (1, N) fp32.  ``slots``/``variant`` set the
+    ring depth, ``grid_order`` the rasterisation ("ijk" or "jik").
+    """
+    kernel = "quantized_zero_stall_matmul"
+    if a.dim() != 2 or b.dim() != 2:
+        raise ValueError(f"{kernel}: 2-D operands expected, got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    _, M, K, N = _check_operands(kernel, a, b, a_scale, b_scale, out_dtype)
+    if grid_order not in ("ijk", "jik"):
+        raise ValueError(f"grid_order must be 'ijk' or 'jik', "
+                         f"got {grid_order!r}")
+    slots = resolve_slots(variant, slots)
+    if all(t.device.type == "cpu" for t in (a, b, a_scale, b_scale)):
+        return quantized_matmul_ref(a, b, a_scale, b_scale, out_dtype)
+    _check_card(kernel, a, b, a_scale, b_scale)
+    if max(M, N, K) >= 2 ** 31:
+        raise ValueError(f"{kernel}: dimensions must fit in int32")
+    _check_config(bm, bn, bk, slots, torch.int8, True, kernel)
+    c = torch.empty((M, N), dtype=out_dtype, device=a.device)
+    if M == 0 or N == 0:
+        return c
+    if K == 0:
+        return c.zero_()
+    fn = _build.bind(kernel, _ARGTYPES, source="quantized_matmul")
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    with _build.on_device(a.device):
+        code = fn(a.data_ptr(), b.data_ptr(), a_scale.data_ptr(),
+                  b_scale.data_ptr(), c.data_ptr(), M, N, K, bm, bn, bk,
+                  slots, int(grid_order == "jik"),
+                  int(out_dtype == torch.float32),
+                  int(_vec_ok(a, b, K, N, True)), stream)
+    _build.check("quantized_matmul", code)
+    quantized_zero_stall_matmul.launches += 1
+    return c
+
+
+def quantized_grouped_zero_stall_matmul(a: torch.Tensor, b: torch.Tensor,
+                                        a_scale: torch.Tensor,
+                                        b_scale: torch.Tensor, *,
+                                        bm: int = 128, bn: int = 128,
+                                        bk: int = 128, variant: str = "dobu",
+                                        slots: int | None = None,
+                                        out_dtype: torch.dtype = torch.float32
+                                        ) -> torch.Tensor:
+    """Per-group int8 matmul: a (G, M, K), b (G, K, N) int8 codes (K-major
+    on the card), a_scale (G, M, 1), b_scale (G, 1, N) fp32 ->
+    (G, M, N)."""
+    kernel = "quantized_grouped_zero_stall_matmul"
+    if a.dim() != 3 or b.dim() != 3:
+        raise ValueError(f"{kernel}: 3-D operands expected, got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    (G,), M, K, N = _check_operands(kernel, a, b, a_scale, b_scale,
+                                    out_dtype)
+    slots = resolve_slots(variant, slots)
+    if all(t.device.type == "cpu" for t in (a, b, a_scale, b_scale)):
+        return quantized_grouped_matmul_ref(a, b, a_scale, b_scale,
+                                            out_dtype)
+    _check_card(kernel, a, b, a_scale, b_scale)
+    if G > MAX_GROUPS or max(M * K, K * N, M * N) >= 2 ** 31:
+        raise ValueError(f"{kernel}: at most {MAX_GROUPS} groups of "
+                         f"int32-indexable size, got {(G, M, K, N)}")
+    _check_config(bm, bn, bk, slots, torch.int8, True, kernel)
+    c = torch.empty((G, M, N), dtype=out_dtype, device=a.device)
+    if c.numel() == 0:
+        return c
+    if K == 0:
+        return c.zero_()
+    fn = _build.bind(kernel, _ARGTYPES, source="quantized_matmul")
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    with _build.on_device(a.device):
+        code = fn(a.data_ptr(), b.data_ptr(), a_scale.data_ptr(),
+                  b_scale.data_ptr(), c.data_ptr(), G, M, N, K, bm, bn, bk,
+                  slots, int(out_dtype == torch.float32),
+                  int(_vec_ok(a, b, K, N, True)), stream)
+    _build.check("quantized_matmul", code)
+    quantized_grouped_zero_stall_matmul.launches += 1
+    return c
+
+
+quantized_zero_stall_matmul.launches = 0
+quantized_grouped_zero_stall_matmul.launches = 0

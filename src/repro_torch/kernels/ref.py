@@ -9,8 +9,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["matmul_ref", "flash_attention_ref", "paged_attention_ref",
-           "NEG_INF"]
+__all__ = ["matmul_ref", "grouped_matmul_ref", "quantized_matmul_ref",
+           "quantized_grouped_matmul_ref", "flash_attention_ref",
+           "paged_attention_ref", "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -24,6 +25,52 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor,
     out_dtype = out_dtype or a.dtype
     c = torch.matmul(a.to(torch.float32), b.to(torch.float32))
     return c.to(out_dtype)
+
+
+def grouped_matmul_ref(a: torch.Tensor, b: torch.Tensor,
+                       out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """a: (G, M, K), b: (G, K, N) -> (G, M, N) per-group matmul, with
+    fp32 accumulation as :func:`matmul_ref`."""
+    out_dtype = out_dtype or a.dtype
+    c = torch.matmul(a.to(torch.float32), b.to(torch.float32))
+    return c.to(out_dtype)
+
+
+def _int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The exact int32 product of int8 codes, (..., M, K) @ (..., K, N).
+
+    On the CPU it is an integer matmul.  CUDA has no integer matmul
+    outside ``torch._int_mm`` (a library kernel with shape limits), so on
+    the card the codes go through fp64, which is exact here: every
+    product is at most 127^2 and every partial sum at most K * 127^2,
+    far below 2^53."""
+    if a.device.type == "cpu":
+        return torch.matmul(a.to(torch.int32), b.to(torch.int32))
+    return torch.matmul(a.to(torch.float64),
+                        b.to(torch.float64)).to(torch.int32)
+
+
+def quantized_matmul_ref(a_q: torch.Tensor, b_q: torch.Tensor,
+                         a_scale: torch.Tensor, b_scale: torch.Tensor,
+                         out_dtype: torch.dtype | None = None
+                         ) -> torch.Tensor:
+    """The int8 zero-stall matmul in the kernel's order: the exact int32
+    contraction of the codes, then ``(float(acc) * a_scale) * b_scale`` in
+    fp32, then one cast to ``out_dtype`` (default fp32).  a_q (M, K),
+    b_q (K, N) int8; a_scale (M, 1), b_scale (1, N) fp32."""
+    acc = _int_matmul(a_q, b_q)
+    c = acc.to(torch.float32) * a_scale.to(torch.float32) \
+        * b_scale.to(torch.float32)
+    return c.to(out_dtype or torch.float32)
+
+
+def quantized_grouped_matmul_ref(a_q: torch.Tensor, b_q: torch.Tensor,
+                                 a_scale: torch.Tensor, b_scale: torch.Tensor,
+                                 out_dtype: torch.dtype | None = None
+                                 ) -> torch.Tensor:
+    """(G, M, K) x (G, K, N) int8 codes -> (G, M, N) with per-group
+    (G, M, 1) and (G, 1, N) scales, as :func:`quantized_matmul_ref`."""
+    return quantized_matmul_ref(a_q, b_q, a_scale, b_scale, out_dtype)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -1,7 +1,7 @@
-"""Zero-stall matmul: the wrapper of ``csrc/zero_stall_matmul.cu``.
+"""Zero-stall matmul: the wrapper of ``csrc/zero_stall_matmul.cu`` (G = 1).
 
 C = A @ B through the N-slot shared-memory revolving buffer (see the
-header note of the CUDA source for the schedule, its bound on the H100
+header notes of the CUDA sources for the schedule, its bound on the H100
 and what the design does about it).  Replaces the Pallas TPU kernel
 ``repro.kernels.zero_stall_matmul.zero_stall_matmul``.
 
@@ -27,15 +27,16 @@ SMEM_LIMIT = 232448          # bytes of shared memory one Hopper block may use
 MAX_THREADS = 512            # the kernel's __launch_bounds__
 _IN_DTYPES = (torch.float32, torch.bfloat16)
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
-# a, b, c, M, N, K, bm, bn, bk, slots, jik, bf16, fp32 out, trans_b, vec,
-# stream
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+# a, b, c, G, M, N, K, bm, bn, bk, slots, jik, bf16, fp32 out, trans_b,
+# vec, stream: the C entry shared with the grouped wrapper
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
 
 
 def smem_bytes(bm: int, bn: int, bk: int, slots: int, dtype: torch.dtype,
                trans_b: bool = False) -> int:
-    """Shared memory of one block: ``slots`` (A, B) tile pairs, each row
-    padded by 16 bytes (the same formula as the CUDA source)."""
+    """Shared memory of one block: ``slots`` (A, B) tile pairs of
+    ``dtype`` elements, each row padded by 16 bytes (the same formula as
+    ``csrc/zero_stall_ring.cuh``)."""
     size = torch.empty((), dtype=dtype).element_size()
     pad = 16 // size
     a = bm * (bk + pad)
@@ -49,32 +50,41 @@ def _threads(bm: int, bn: int, dtype: torch.dtype) -> int:
     return (bm // 32) * (bn // 32) * 32
 
 
-def _check_config(bm, bn, bk, slots, dtype, trans_b) -> None:
-    if dtype == torch.bfloat16:
-        if bm % 32 or bn % 32 or bk % 16:
+def _check_config(bm, bn, bk, slots, dtype, trans_b,
+                  kernel: str = "zero_stall_matmul") -> None:
+    """Raise on tiles the ring kernel of ``dtype`` cannot take: the
+    tensor-core types (bf16, int8) need 32 x 32 warp tiles and a k tile of
+    whole 32-byte mma steps; every tile must fit the thread and
+    shared-memory limits of a Hopper block."""
+    if dtype == torch.float32:
+        if bm % 8 or bn % 8 or bk % 4:
             raise ValueError(
-                f"zero_stall_matmul (bf16): tiles must have bm, bn multiples "
-                f"of 32 and bk a multiple of 16, got {(bm, bn, bk)}")
-    elif bm % 8 or bn % 8 or bk % 4:
-        raise ValueError(
-            f"zero_stall_matmul (fp32): tiles must have bm, bn multiples of 8 "
-            f"and bk a multiple of 4, got {(bm, bn, bk)}")
+                f"{kernel} (fp32): tiles must have bm, bn multiples of 8 "
+                f"and bk a multiple of 4, got {(bm, bn, bk)}")
+    else:
+        kstep = 32 // torch.empty((), dtype=dtype).element_size()
+        if bm % 32 or bn % 32 or bk % kstep:
+            raise ValueError(
+                f"{kernel} ({str(dtype).removeprefix('torch.')}): tiles must "
+                f"have bm, bn multiples of 32 and bk a multiple of {kstep}, "
+                f"got {(bm, bn, bk)}")
     threads = _threads(bm, bn, dtype)
     if threads > MAX_THREADS:
         raise ValueError(
-            f"zero_stall_matmul: tile {bm}x{bn} needs {threads} threads, "
+            f"{kernel}: tile {bm}x{bn} needs {threads} threads, "
             f"more than the kernel's {MAX_THREADS}")
     need = smem_bytes(bm, bn, bk, slots, dtype, trans_b)
     if need > SMEM_LIMIT:
         raise ValueError(
-            f"zero_stall_matmul: tiles {(bm, bn, bk)} at slots={slots} in "
+            f"{kernel}: tiles {(bm, bn, bk)} at slots={slots} in "
             f"{dtype} need {need} bytes of shared memory, over the "
             f"{SMEM_LIMIT} a Hopper block can have (lower bk or slots)")
 
 
 def _vec_ok(a: torch.Tensor, b: torch.Tensor, K: int, N: int,
             trans_b: bool) -> bool:
-    """Whether the 16-byte cp.async loader may read A and B."""
+    """Whether the 16-byte cp.async loader may read A and B (and, for a
+    grouped product, every group's slice of them)."""
     v = 16 // a.element_size()
     aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
     return aligned and K % v == 0 and (trans_b or N % v == 0)
@@ -131,8 +141,8 @@ def zero_stall_matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
     fn = _build.bind("zero_stall_matmul", _ARGTYPES)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     with _build.on_device(a.device):
-        code = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K, bm, bn,
-                  bk, slots, int(grid_order == "jik"),
+        code = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), 1, M, N, K, bm,
+                  bn, bk, slots, int(grid_order == "jik"),
                   int(a.dtype == torch.bfloat16),
                   int(out_dtype == torch.float32), int(trans_b),
                   int(_vec_ok(a, b, K, N, trans_b)), stream)

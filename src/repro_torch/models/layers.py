@@ -2,7 +2,8 @@
 
 The port of ``repro.models.layers`` for the dense decoder.  Every
 matmul routes through :mod:`repro_torch.kernels.ops`, so the zero-stall
-kernel is the compute path on the card.  Params are plain nested dicts
+kernels (int8 ones for QTensor weights under ``plan.quant="int8"``) are
+the compute path on the card.  Params are plain nested dicts
 of tensors with the JAX package's names and ``(d_in, d_out)`` weight
 layout; the tied embedding table stays ``(vocab, d_model)`` and the LM
 head reads it through the kernel's transposed-B layout.
@@ -20,6 +21,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.plan.config import KernelConfig
+from repro_torch.quant.tensor import QTensor
 
 __all__ = ["Ctx", "Params", "linear", "rms_norm", "rope", "attention",
            "attention_decode", "attention_decode_paged", "mlp", "embed",
@@ -47,13 +49,27 @@ class Ctx:
 def linear(p: Params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
     """x: (..., d_in) @ w -> (..., d_out) through the zero-stall engine.
 
-    Parameters built by the port already hold the compute dtype, so the
-    cast is a no-op on the serving path (the JAX code casts fp32
+    A :class:`~repro_torch.quant.QTensor` weight
+    (``Model.quantize_weights``) dispatches on ``ctx.plan.quant``:
+    ``"int8"`` runs an int8 W8A8 weight on the int8 kernel (per-row
+    activation quantization, fused dequantising epilogue); anything else
+    dequantizes the weight and runs the standard kernel.  Parameters
+    built by the port already hold the compute dtype, so the cast of a
+    plain weight is a no-op on the serving path (the JAX code casts fp32
     parameters on every call)."""
-    w = p["w"].to(ctx.dtype)
+    w = p["w"]
     lead = x.shape[:-1]
-    y = ops.matmul(x.reshape(-1, x.shape[-1]), w, config=ctx.plan,
-                   out_dtype=ctx.dtype)
+    x2 = x.reshape(-1, x.shape[-1])
+    if isinstance(w, QTensor):
+        if ctx.plan.quant == "int8" and w.fmt == "int8" and w.w8a8:
+            y = ops.quantized_matmul(x2, w, config=ctx.plan,
+                                     out_dtype=ctx.dtype)
+        else:
+            y = ops.matmul(x2, w.dequantize(ctx.dtype), config=ctx.plan,
+                           out_dtype=ctx.dtype)
+    else:
+        y = ops.matmul(x2, w.to(ctx.dtype), config=ctx.plan,
+                       out_dtype=ctx.dtype)
     return y.reshape(*lead, w.shape[-1])
 
 

@@ -6,10 +6,17 @@
     prefill_logits(params, batch, ctx)       -> (B, 1, V) logits
     prefill(params, batch, ctx, max_len)     -> (logits, populated cache)
     prefill_chunk(params, tokens, ctx, *, cache, offset, lengths)
-                                             -> (logits, cache)
+                                             -> (logits, cache), or None
+    quantize_weights(params, fmt="int8")     -> params with QTensor weights
 
 ``batch`` is a dict with ``tokens`` (B, S) and optional ``lengths``
-((B,) ragged valid prefixes).  Only the dense family is ported so far.
+((B,) ragged valid prefixes).  The dense and MoE families are ported.
+``quantize_weights`` is one generic walk for every family
+(:func:`repro_torch.quant.quantize_tree`); pair it with
+``Ctx(plan=KernelConfig(quant="int8"))`` for the W8A8 kernels.
+``prefill_chunk`` is None for the MoE family, as in the JAX package:
+its batch-global routing (the expert capacity depends on every token of
+the call) is not chunk-invariant.
 """
 
 from __future__ import annotations
@@ -18,20 +25,28 @@ import dataclasses
 import functools
 from typing import Any, Callable
 
+import torch
+
+from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import moe, transformer
 from repro_torch.models.layers import Ctx, Params
+from repro_torch.quant.tensor import quantize_tree
 
 __all__ = ["Model", "build_model", "Ctx"]
 
 # where each family not ported yet stands in ROADMAP.md (queue 1)
 _LATER = {
     "vlm": "queue 1 item 4 (dense/vlm: the vlm frontend)",
-    "moe": "queue 1 item 9 (MoE)",
     "ssm": "queue 1 item 10 (the SSM, hybrid and encdec families)",
     "hybrid": "queue 1 item 10 (the SSM, hybrid and encdec families)",
     "encdec": "queue 1 item 10 (the SSM, hybrid and encdec families)",
 }
+
+
+def _quantize_weights(params: Params, fmt: str = "int8") -> Params:
+    """Family-agnostic weight quantization (see :mod:`repro_torch.quant`)."""
+    return quantize_tree(params, fmt=fmt)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,7 +57,16 @@ class Model:
     decode: Callable[..., tuple]
     prefill_logits: Callable[..., Any]
     prefill: Callable[..., tuple]
-    prefill_chunk: Callable[..., tuple]     # chunked prefill
+    quantize_weights: Callable[..., Params] = _quantize_weights
+    # chunked prefill; None where the prompt state is not chunk-invariant
+    prefill_chunk: Callable[..., tuple] | None = None
+
+
+def _moe_mlp_fn(cfg: ModelConfig, ctx: Ctx, token_mask=None) -> Callable:
+    def fn(p, x):
+        return moe.moe_mlp(p, x, cfg, ctx, return_aux=True,
+                           token_mask=token_mask)
+    return fn
 
 
 def build_model(cfg: ModelConfig) -> Model:
@@ -72,6 +96,40 @@ def build_model(cfg: ModelConfig) -> Model:
             prefill=prefill_fn,
             prefill_chunk=prefill_chunk_fn,
         )
+    if fam == "moe":
+        def init(*, seed=0, dtype=torch.float32, device=None):
+            device = resolve_device(device)
+            return transformer.init_params(
+                cfg, seed=seed, dtype=dtype, device=device,
+                init_mlp_fn=lambda g: moe.init_moe_mlp(g, cfg, dtype,
+                                                       device))
+
+        def prefill_logits(params, batch, ctx):
+            return transformer.forward(params, batch["tokens"], cfg, ctx,
+                                       mlp_fn=_moe_mlp_fn(cfg, ctx),
+                                       last_only=True)
+
+        def decode(params, cache, tokens, ctx):
+            # every slot's token is routed, live or not, as in JAX
+            return transformer.decode_step(params, cache, tokens, cfg, ctx,
+                                           mlp_fn=_moe_mlp_fn(cfg, ctx))
+
+        def prefill_fn(params, batch, ctx, max_len):
+            tokens, lens = batch["tokens"], batch.get("lengths")
+            mask = None
+            if lens is not None:
+                # padding rows of a ragged batch take no expert capacity
+                lens = torch.as_tensor(lens, device=tokens.device)
+                mask = (torch.arange(tokens.shape[1], device=tokens.device)
+                        [None, :] < lens.to(torch.int32)[:, None])
+            return transformer.prefill(params, tokens, cfg, ctx, max_len,
+                                       mlp_fn=_moe_mlp_fn(cfg, ctx, mask),
+                                       lengths=lens)
+
+        return Model(cfg=cfg, init=init,
+                     init_cache=functools.partial(transformer.init_cache, cfg),
+                     decode=decode, prefill_logits=prefill_logits,
+                     prefill=prefill_fn)
     if fam in _LATER:
         raise NotImplementedError(
             f"family {fam!r} is not ported to repro_torch yet; see "

@@ -1,7 +1,9 @@
 """Dense decoder-only LM with KV-cache decode (port of ``repro.models.transformer``).
 
-A Python loop over layers replaces ``lax.scan``; there is no remat
-(serving runs no backward pass).  Parameters are a dict with a list of
+Shared by the dense and MoE families (MoE swaps the MLP through the
+``init_mlp_fn`` / ``mlp_fn`` hooks; ``mlp_fn`` has the JAX protocol
+``(params, x) -> (y, aux_loss)``).  A Python loop over layers replaces
+``lax.scan``; there is no remat (serving runs no backward pass).  Parameters are a dict with a list of
 per-layer dicts under ``"layers"``; the KV cache keeps the JAX layout,
 stacked ``(n_layers, B, max_len, KV, D)`` tensors, and is updated in
 place by :func:`decode_step`.
@@ -10,6 +12,8 @@ place by :func:`decode_step`.
 from __future__ import annotations
 
 import torch
+
+from typing import Callable
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -29,7 +33,8 @@ def _dense(g: torch.Generator, d_in: int, d_out: int, dtype, device):
     return (w * d_in ** -0.5).to(dtype)
 
 
-def _layer_params(g, cfg: ModelConfig, dtype, device) -> Params:
+def _layer_params(g, cfg: ModelConfig, dtype, device,
+                  init_mlp_fn: Callable | None = None) -> Params:
     d, hd = cfg.d_model, cfg.resolved_head_dim
 
     def lin(d_in, d_out):
@@ -37,21 +42,26 @@ def _layer_params(g, cfg: ModelConfig, dtype, device) -> Params:
 
     attn = {"wq": lin(d, cfg.n_heads * hd), "wk": lin(d, cfg.n_kv_heads * hd),
             "wv": lin(d, cfg.n_kv_heads * hd), "wo": lin(cfg.n_heads * hd, d)}
-    mlp = {"wi": lin(d, cfg.d_ff), "wg": lin(d, cfg.d_ff),
-           "wo": lin(cfg.d_ff, d)}
+    if init_mlp_fn is None:
+        mlp = {"wi": lin(d, cfg.d_ff), "wg": lin(d, cfg.d_ff),
+               "wo": lin(cfg.d_ff, d)}
+    else:
+        mlp = init_mlp_fn(g)
     ones = torch.ones((d,), dtype=dtype, device=device)
     return {"attn_norm": {"scale": ones}, "attn": attn,
             "mlp_norm": {"scale": ones.clone()}, "mlp": mlp}
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
-                dtype: torch.dtype = torch.float32, device=None) -> Params:
+                dtype: torch.dtype = torch.float32, device=None,
+                init_mlp_fn: Callable | None = None) -> Params:
     """Random parameters made from ``seed`` with a ``torch.Generator`` on
     the target device, each tensor drawn in fp32 and stored directly in
     ``dtype`` (no fp32 copy of the model is kept).  The distributions are
     the JAX package's (truncated normal * d_in^-0.5 for weights, normal *
     0.02 for the embedding, ones for norms); the numbers differ, since
-    the generators differ."""
+    the generators differ.  ``init_mlp_fn(generator) -> params`` replaces
+    each layer's dense MLP (the MoE family's experts)."""
     device = resolve_device(device)
     g = torch.Generator(device=device)
     g.manual_seed(seed)
@@ -64,7 +74,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
         embed["lm_head"] = _dense(g, cfg.d_model, cfg.vocab_size, dtype,
                                   device)
     return {"embed": embed,
-            "layers": [_layer_params(g, cfg, dtype, device)
+            "layers": [_layer_params(g, cfg, dtype, device, init_mlp_fn)
                        for _ in range(cfg.n_layers)],
             "final_norm": {"scale": torch.ones((cfg.d_model,), dtype=dtype,
                                                device=device)}}
@@ -73,17 +83,25 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
 # ----------------------------------------------------------------------
 # forward (prefill logits)
 # ----------------------------------------------------------------------
+def _mlp_fn(cfg: ModelConfig, ctx: Ctx,
+            mlp_fn: Callable | None) -> Callable:
+    """``mlp_fn``, or the dense MLP under the same protocol."""
+    return mlp_fn or (lambda p, v: (L.mlp(p, v, cfg, ctx), 0.0))
+
+
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
-            *, last_only: bool = False) -> torch.Tensor:
+            *, mlp_fn: Callable | None = None,
+            last_only: bool = False) -> torch.Tensor:
     """tokens: (B, S) -> logits (B, S, V), or (B, 1, V) with last_only."""
     x = L.embed(params["embed"], tokens, ctx)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    fn = _mlp_fn(cfg, ctx, mlp_fn)
     for lp in params["layers"]:
         h = L.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
         x = x + L.attention(lp["attn"], h, cfg, ctx, positions=positions)
         h = L.rms_norm(lp["mlp_norm"], x, cfg.norm_eps)
-        x = x + L.mlp(lp["mlp"], h, cfg, ctx)
+        x = x + fn(lp["mlp"], h)[0]
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
@@ -104,7 +122,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
-                cfg: ModelConfig, ctx: Ctx) -> tuple[torch.Tensor, Params]:
+                cfg: ModelConfig, ctx: Ctx, *, mlp_fn: Callable | None = None
+                ) -> tuple[torch.Tensor, Params]:
     """tokens: (B, 1) -> (logits (B, 1, V), cache).  The cache's K/V
     tensors are updated in place; the returned dict carries ``pos + 1``.
 
@@ -117,6 +136,7 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
     pos = cache["pos"]
     page_table = cache.get("page_table")
     x = L.embed(params["embed"], tokens, ctx)
+    fn = _mlp_fn(cfg, ctx, mlp_fn)
     for i, lp in enumerate(params["layers"]):
         h = L.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
         layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
@@ -129,7 +149,7 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
                                             page_table=page_table, pos=pos)
         x = x + a
         h = L.rms_norm(lp["mlp_norm"], x, cfg.norm_eps)
-        x = x + L.mlp(lp["mlp"], h, cfg, ctx)
+        x = x + fn(lp["mlp"], h)[0]
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     logits = L.unembed(params["embed"], x, ctx)
     out = {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
@@ -139,7 +159,8 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
-            max_len: int, *, lengths: torch.Tensor | None = None
+            max_len: int, *, mlp_fn: Callable | None = None,
+            lengths: torch.Tensor | None = None
             ) -> tuple[torch.Tensor, Params]:
     """Run the prompt in one pass: last-valid-position logits and a
     populated ``(n_layers, B, max_len, KV, D)`` cache in ``ctx.dtype``.
@@ -162,6 +183,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
     shape = (cfg.n_layers, B, max_len, cfg.n_kv_heads, hd)
     ck = torch.zeros(shape, dtype=ctx.dtype, device=x.device)
     cv = torch.zeros(shape, dtype=ctx.dtype, device=x.device)
+    fn = _mlp_fn(cfg, ctx, mlp_fn)
     for i, lp in enumerate(params["layers"]):
         h = L.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
         q, k, v = L._qkv(lp["attn"], h, cfg, ctx)
@@ -172,7 +194,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
         x = x + L.linear(lp["attn"]["wo"],
                          o.reshape(B, S, cfg.n_heads * hd), ctx)
         h = L.rms_norm(lp["mlp_norm"], x, cfg.norm_eps)
-        x = x + L.mlp(lp["mlp"], h, cfg, ctx)
+        x = x + fn(lp["mlp"], h)[0]
         ck[i, :, :S] = k
         cv[i, :, :S] = v
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)

@@ -17,6 +17,7 @@ __all__ = ["BACKENDS", "KernelConfig", "resolve_slots", "dtype_name",
            "dtype_from_name"]
 
 BACKENDS = ("auto", "torch")
+_QUANTS = (None, "int8", "fp8")
 _VARIANTS = ("dobu", "single")
 _GRID_ORDERS = ("ijk", "jik")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -69,8 +70,11 @@ class KernelConfig:
     ``slots`` set the revolving-buffer depth, ``grid_order`` the
     rasterisation of output tiles over thread blocks, ``bq/bkv`` the
     flash-attention tiles (32 x 32 by default: at head_dim 256 a 128 x
-    128 tile would need 394 KB of shared memory), ``out_dtype`` an
-    optional output dtype name.
+    128 tile would need 394 KB of shared memory), ``quant`` the
+    quantized execution mode (``"int8"`` runs QTensor int8 weights on
+    the W8A8 kernels; ``None`` or ``"fp8"`` dequantizes QTensor weights
+    onto the standard kernels), ``out_dtype`` an optional output dtype
+    name.
     """
 
     backend: str = "auto"
@@ -82,6 +86,7 @@ class KernelConfig:
     grid_order: str = "ijk"
     bq: int = 32
     bkv: int = 32
+    quant: str | None = None
     out_dtype: str | None = None
 
     def __post_init__(self):
@@ -114,6 +119,10 @@ class KernelConfig:
             raise ValueError(
                 f"KernelConfig.grid_order must be a permutation in "
                 f"{_GRID_ORDERS}, got {self.grid_order!r}")
+        if self.quant not in _QUANTS:
+            raise ValueError(
+                f"KernelConfig.quant must be one of {_QUANTS}, "
+                f"got {self.quant!r}")
         if self.out_dtype is not None:
             name = dtype_name(self.out_dtype)
             dtype_from_name(name)
@@ -125,13 +134,19 @@ class KernelConfig:
         return resolve_slots(self.variant, self.slots)
 
     def resolved_bk(self, dtype: torch.dtype) -> int:
-        """The k tile for inputs of ``dtype`` (see the class docstring)."""
+        """The k tile for inputs of ``dtype`` (see the class docstring;
+        int8 takes 128 as bf16 does, half its shared memory)."""
         if self.bk is not None:
             return self.bk
         return 64 if dtype == torch.float32 else 128
 
-    def matmul_kwargs(self, dtype: torch.dtype) -> dict:
-        """Kwargs for ``kernels.zero_stall_matmul.zero_stall_matmul``."""
-        return {"bm": self.bm, "bn": self.bn, "bk": self.resolved_bk(dtype),
-                "variant": self.variant, "slots": self.slots,
-                "grid_order": self.grid_order}
+    def matmul_kwargs(self, dtype: torch.dtype, *,
+                      grouped: bool = False) -> dict:
+        """Kwargs for the matmul kernel wrappers on inputs of ``dtype``;
+        ``grouped`` leaves out the grid order, which the grouped kernels
+        do not have (their Pallas originals walk "ijk" only)."""
+        kw = {"bm": self.bm, "bn": self.bn, "bk": self.resolved_bk(dtype),
+              "variant": self.variant, "slots": self.slots}
+        if not grouped:
+            kw["grid_order"] = self.grid_order
+        return kw

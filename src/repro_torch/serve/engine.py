@@ -29,7 +29,11 @@ walks the table through the paged-attention kernel on the card or a
 gather on the plain path, which is bitwise equal to contiguous decode.
 Chunked prefill (``prefill_chunk=...``) ingests prompts longer than the
 chunk one chunk per engine step, between decode dispatches, against a
-private contiguous stripe that is installed when the last chunk lands.
+private contiguous stripe that is installed when the last chunk lands;
+it is refused for a model whose ``prefill_chunk`` is None (the MoE
+family, whose batch-global routing is not chunk-invariant).  Quantized
+params (``Model.quantize_weights``) pass through unchanged, and MoE
+decode routes every slot's token, live or not, as in the JAX engine.
 Execution plans and plan validation are not ported yet (ROADMAP.md,
 queue 1 items 2 and 13).
 """
@@ -131,6 +135,11 @@ class ServeEngine:
         if self._chunk is not None and self._chunk < 1:
             raise ValueError(
                 f"prefill_chunk must be >= 1, got {prefill_chunk}")
+        if self._chunk is not None and model.prefill_chunk is None:
+            raise ValueError(
+                f"family {model.cfg.family!r} does not support chunked "
+                "prefill (Model.prefill_chunk is None: its prompt state "
+                "is not chunk-invariant)")
         if bucket_sizes is None:
             bucket_sizes, b = [], 8
             while b < max_len:

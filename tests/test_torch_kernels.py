@@ -24,9 +24,15 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import zero_stall_matmul as zsm_mod
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention import smem_bytes as fa_smem
-from repro_torch.kernels.ref import flash_attention_ref, matmul_ref
+from repro_torch.kernels.grouped_matmul import grouped_zero_stall_matmul
+from repro_torch.kernels.quantized_matmul import (
+    quantized_grouped_zero_stall_matmul, quantized_zero_stall_matmul)
+from repro_torch.kernels.ref import (flash_attention_ref, grouped_matmul_ref,
+                                     matmul_ref, quantized_grouped_matmul_ref,
+                                     quantized_matmul_ref)
 from repro_torch.kernels.zero_stall_matmul import zero_stall_matmul
 from repro_torch.plan import KernelConfig, resolve_slots
+from repro_torch.quant import quantize, quantize_rows
 
 FP32_TOL, BF16_TOL = 2e-5, 2e-2
 J_INTERP_MM = JKernelConfig(backend="interpret", bm=8, bn=8, bk=8)
@@ -344,3 +350,60 @@ def test_attention_causal_unaligned_on_card(cuda):
                                atol=FP32_TOL, rtol=FP32_TOL)
     with pytest.raises(ValueError, match="see no key"):
         ops.attention(k, q, q, causal=True)
+
+
+def _ring_kwargs(slots, bk):
+    return dict(bm=32, bn=32, bk=bk, slots=slots,
+                variant="single" if slots == 1 else "dobu")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slots", [1, 2, 3])
+@pytest.mark.parametrize("grid_order", ["ijk", "jik"])
+def test_quantized_kernel_bit_equal_plain_on_card(cuda, slots, grid_order):
+    """Ragged 37 x 45 x 29 int8 codes (the element-wise loader) and a
+    K = 64 problem (the 16-byte loader): bit-equal, fp32 and bf16 out."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for M, K, N in ((37, 45, 29), (5, 64, 40)):
+        x_q, x_s = quantize_rows(torch.randn(M, K, device=cuda, generator=g))
+        qw = quantize(torch.randn(K, N, device=cuda, generator=g))
+        for out in (torch.float32, torch.bfloat16):
+            before = quantized_zero_stall_matmul.launches
+            got = quantized_zero_stall_matmul(
+                x_q, qw.data, x_s, qw.scale, grid_order=grid_order,
+                out_dtype=out, **_ring_kwargs(slots, 32))
+            assert quantized_zero_stall_matmul.launches == before + 1
+            want = quantized_matmul_ref(x_q, qw.data, x_s, qw.scale, out)
+            assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slots", [1, 2, 3])
+def test_grouped_kernels_match_plain_on_card(cuda, slots):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    G, M, K, N = 5, 3, 45, 29
+    a = torch.randn(G, M, K, device=cuda, generator=g)
+    b = torch.randn(G, K, N, device=cuda, generator=g)
+    got = grouped_zero_stall_matmul(a, b, **_ring_kwargs(slots, 8))
+    torch.testing.assert_close(got, grouped_matmul_ref(a, b), atol=FP32_TOL,
+                               rtol=FP32_TOL)
+    ab, bb = a.bfloat16(), b.bfloat16()
+    got = grouped_zero_stall_matmul(ab, bb, **_ring_kwargs(slots, 16))
+    want = grouped_matmul_ref(ab, bb)
+    assert (got.float() - want.float()).abs().max() <= \
+        BF16_TOL * want.float().abs().max()
+    x_q, x_s = quantize_rows(a)
+    qw = quantize(b)
+    got = quantized_grouped_zero_stall_matmul(x_q, qw.data, x_s, qw.scale,
+                                              **_ring_kwargs(slots, 32))
+    assert torch.equal(got, quantized_grouped_matmul_ref(x_q, qw.data, x_s,
+                                                         qw.scale))
+
+
+@pytest.mark.gpu
+def test_quantized_kernel_refuses_a_row_major_b(cuda):
+    x_q = torch.zeros(4, 32, dtype=torch.int8, device=cuda)
+    w = torch.zeros(32, 8, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="K-major"):
+        quantized_zero_stall_matmul(x_q, w, torch.ones(4, 1, device=cuda),
+                                    torch.ones(1, 8, device=cuda))

@@ -54,7 +54,8 @@ def test_configs_match_jax(arch):
                   "tie_embeddings"):
             assert getattr(mine, f) == getattr(theirs, f), f
         assert mine.param_count() == theirs.param_count()
-    assert list_configs() == sorted(ARCHS)
+    assert list_configs() == sorted(ARCHS + ["olmoe-1b-7b",
+                                             "granite-moe-1b-a400m"])
 
 
 def test_gemma_full_size_is_what_one_card_holds():
@@ -162,7 +163,7 @@ def test_bf16_model_runs_in_compute_dtype():
     assert bool(torch.isfinite(logits).all())
 
 
-@pytest.mark.parametrize("family", ["moe", "ssm", "hybrid", "encdec", "vlm"])
+@pytest.mark.parametrize("family", ["ssm", "hybrid", "encdec", "vlm"])
 def test_other_families_name_their_roadmap_item(family):
     cfg = ModelConfig(name="x", family=family, n_layers=1, d_model=8,
                       n_heads=2, n_kv_heads=2, d_ff=16, vocab_size=32)
