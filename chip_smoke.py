@@ -10,12 +10,17 @@ Phases, each printed as it runs:
    (one nvcc per source, all at once) and its time;
 3. each kernel against its plain PyTorch version on the card at the
    shapes of the main paths (full-width gemma-7b and olmoe-1b-7b in
-   bf16 and W8A8: the int8 kernels must be bit-equal), plus fp32
-   matmul at a ragged shape for every ring depth and grid order, flash
-   attention with lengths, offsets, causal and non-causal masks, a
-   fully-masked row and, through ``ops.attention``, causal Sq < Skv
-   without lengths (end-aligned), the 96-token prefill chunks of phase
-   5b against a 160-token stripe, and paged attention with scattered
+   bf16 and W8A8: the int8 kernels must be bit-equal; every bf16
+   matmul on the TMA + wgmma design, every bf16 flash call on the
+   tensor-core design), plus the bf16 matmul at an aligned non-square
+   shape in both B layouts for every ring depth and grid order, with
+   and without split-k, two calls of a split-k product bitwise equal,
+   fp32 matmul at a ragged shape for every ring depth and grid order,
+   flash attention at head dims 256 and 128 with lengths, offsets,
+   causal and non-causal masks, a fully-masked row and, through
+   ``ops.attention``, causal Sq < Skv without lengths (end-aligned),
+   the 96-token prefill chunks of phase 5b against a 160-token stripe,
+   and paged attention with scattered
    page ids, a row parked on the trash page, a row with no valid column
    and a row whose length runs past its table, in bf16 at the decode
    shape and in fp32 with four query heads per kv head; the int8 and
@@ -30,7 +35,8 @@ Phases, each printed as it runs:
 5. full-width gemma-7b (28 layers, random weights from a seed) in bf16
    serving 8 mixed-length requests through ``serve_batch``: prefill and
    decode tokens/s, each kernel's launch count against the count the
-   path implies, and the first prefill's logits against the plain path;
+   path implies (and, in 5-5e, every bf16 matmul and flash call on its
+   Hopper design), and the first prefill's logits against the plain path;
 5b. full-width gemma-7b paged: 8 requests behind one shared 64-token
    prefix through ``ServeEngine`` with 16-token pages and 96-token
    prefill chunks, run contiguous, paged, paged, contiguous on one copy
@@ -48,10 +54,14 @@ Phases, each printed as it runs:
 5e. full-width gemma-7b in W8A8 with phase 5's traffic (each of 5c-5e:
    tokens/s, launch counts against the path's, the first prefill's
    logits against the plain path);
-6. each kernel's time at the main-path shapes with CUDA events, beside
-   its plain version, its bound on the card and, where one exists, one
-   PyTorch library call that computes the same function (a yardstick
-   only: the port never calls it);
+6. each kernel's time at the main-path shapes with CUDA events over a
+   CUDA graph of many calls (device time, with the host's launch work
+   taken out; operands cycled past the 50 MB L2), beside its plain
+   version, its bound on the card and, where one exists, one PyTorch
+   library call that computes the same function, timed the same way (a
+   yardstick only: the port never calls it); the bf16 matmul's decode
+   step at ring depths 1, 2 and 4, its split counts, and its step timed
+   eagerly (paced by the host) as well;
 7. a ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, ...}`` line.
 
@@ -63,6 +73,7 @@ it is not run from a checkout that holds ``src/repro_torch``.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -92,25 +103,35 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def ptxas_summary(report: str) -> str:
-    """One 'instantiation: registers, spills' item per compiled kernel of
-    an ``nvcc -Xptxas -v`` log (template arguments read off the mangled
-    name: the element type and the Lb0/Lb1 bool flags)."""
-    items, entry, spill = [], "?", ""
+def ptxas_entries(report: str) -> list[tuple[str, str, int]]:
+    """(instantiation, registers, bytes of spill stores) per compiled
+    kernel of an ``nvcc -Xptxas -v`` log; template arguments are read off
+    the mangled name (the element type, the Li<n>E ints and the Lb0/Lb1
+    bool flags)."""
+    items, entry, spill = [], "?", 0
     for ln in report.splitlines():
         if "Compiling entry function" in ln:
             mangled = ln.split("'")[1]
-            dtype = ("bf16" if "bfloat16" in mangled else
-                     "int8" if "kernelIa" in mangled else "fp32")
+            ints = re.findall(r"Li(\d+)E", mangled)
             bits = [f[0] for f in mangled.split("Lb")[1:]]
-            entry = dtype + (f" trans_b={bits[0]} vec={bits[1]}"
-                             if len(bits) == 2 else "")
+            if "sm90_kernel" in mangled:
+                entry = (f"sm90 bn={64 * int(ints[0])} rows={ints[1]} "
+                         f"trans_b={bits[0]}")
+            elif "flash_tc_kernel" in mangled:
+                entry = f"tensor-core D={ints[0]} bkv={ints[1]}"
+            elif "splitk_reduce" in mangled:
+                entry = "split-k reduce"
+            else:
+                dtype = ("bf16" if "bfloat16" in mangled else
+                         "int8" if "kernelIa" in mangled else "fp32")
+                entry = dtype + (f" trans_b={bits[0]} vec={bits[1]}"
+                                 if len(bits) == 2 else "")
         elif "spill stores" in ln:
-            spill = ln.strip().split(",")[1].strip()
-        elif "registers" in ln:
-            regs = ln.split("Used")[1].split("registers")[0].strip()
-            items.append(f"{entry}: {regs} regs, {spill}")
-    return "; ".join(items)
+            spill = int(ln.strip().split(",")[1].split()[0])
+        elif re.search(r"Used \d+ registers", ln):
+            regs = re.search(r"Used (\d+) registers", ln).group(1)
+            items.append((entry, regs, spill))
+    return items
 
 
 def main() -> int:
@@ -145,7 +166,22 @@ def main() -> int:
     print(f"[2] built {', '.join(_build.SOURCES)} for sm_90a in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name in _build.SOURCES:
-        print(f"    {name} ptxas: {ptxas_summary(_build.ptxas_report(name))}")
+        entries = ptxas_entries(_build.ptxas_report(name))
+        print(f"    {name} ptxas: " + "; ".join(
+            f"{e}: {r} regs, {s} bytes spill stores" for e, r, s in entries))
+        # the Hopper designs of the main path keep their accumulators in
+        # registers: a spill would put them in local memory
+        spilled = [e for e, _, s in entries
+                   if s and e.startswith(("sm90", "tensor-core"))]
+        require(not spilled, f"{name}: {spilled} spill registers")
+        remarks = {}
+        for ln in _build.ptxas_report(name).splitlines():
+            code = re.search(r"\((C7\d+)\) (.*?) (?:in|around) ", ln)
+            if code:
+                remarks.setdefault(code.groups(), 0)
+                remarks[code.groups()] += 1
+        for (code, what), n in remarks.items():
+            print(f"      ptxas remark {code} x {n}: {what}")
 
     kern = {"zero_stall_matmul": zero_stall_matmul,
             "flash_attention": flash_attention,
@@ -170,12 +206,15 @@ def main() -> int:
 
     kernels = [
         {"name": "zero_stall_matmul", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/zero_stall_matmul.cu",
+         "source": "src/repro_torch/kernels/csrc/zero_stall_sm90.cu",
+         "design": "bf16: TMA + mbarrier ring, wgmma (swap AB), split-k",
          "replaces": "src/repro/kernels/zero_stall_matmul.py:200",
          "launches": counts["zero_stall_matmul"],
          "max_abs_err": errs["zero_stall_matmul"], **timings["matmul"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "design": "bf16: tensor cores (mma.sync, register accumulators, "
+                   "2-stage cp.async ring)",
          "replaces": "src/repro/kernels/flash_attention.py:164",
          "launches": counts["flash_attention"],
          "max_abs_err": errs["flash_attention"], **timings["attention"]},
@@ -265,6 +304,7 @@ def paged_case(torch, gen, *, B, H, KV, D, ps, T, kv_lens, dtype,
 def check_kernels(torch, kern) -> dict:
     from repro_torch.kernels.ref import (flash_attention_ref, matmul_ref,
                                          paged_attention_ref)
+    from repro_torch.kernels.zero_stall_matmul import split_plan
     zero_stall_matmul = kern["zero_stall_matmul"]
     flash_attention = kern["flash_attention"]
     paged_attention = kern["paged_attention"]
@@ -276,21 +316,24 @@ def check_kernels(torch, kern) -> dict:
         return torch.randn(*shape, device=dev, generator=gen).to(dtype)
 
     errs = {name: 0.0 for name in kern}
-    print(f"[3] kernels against their plain versions (matmul bf16: |err| <= "
-          f"{BF16_TOL} * max|ref|; fp32: |err| <= {FP32_TOL} * max(1, "
-          f"max|ref|); attention, per output row: bf16 |err| <= {BF16_TOL} "
-          f"* that row's max|ref|, fp32 |err| <= {FP32_TOL} * max(1, that "
-          f"row's max|ref|))", flush=True)
+    print(f"[3] kernels against their plain versions, per output row "
+          f"(bf16: |err| <= {BF16_TOL} * that row's max|ref|; fp32: |err| "
+          f"<= {FP32_TOL} * max(1, that row's max|ref|))", flush=True)
 
     def judge(kernel, what, got, want, dtype):
-        err = (got.float() - want.float()).abs().max().item()
-        scale = want.float().abs().max().item()
+        """Per output row: |err| <= tol * that row's largest magnitude
+        (bf16), or tol * max(1, it) (fp32)."""
+        err = (got.float() - want.float()).abs().amax(-1)
+        scale = want.float().abs().amax(-1)
         tol = (BF16_TOL * scale if dtype == torch.bfloat16
-               else FP32_TOL * max(1.0, scale))
-        print(f"    {kernel} {what}: max|err| {err:.3g} (tol {tol:.3g})")
-        require(err <= tol, f"{kernel} {what} disagrees with its plain "
-                f"version: {err} > {tol}")
-        errs[kernel] = max(errs[kernel], err)
+               else FP32_TOL * scale.clamp_min(1.0))
+        worst = (err / tol.clamp_min(1e-30)).max().item()
+        e = err.max().item()
+        print(f"    {kernel} {what}: max|err| {e:.3g}, worst row |err|/tol "
+              f"{worst:.3g}")
+        require(bool((err <= tol).all()), f"{kernel} {what} disagrees with "
+                f"its plain version in some row (worst |err|/tol {worst})")
+        errs[kernel] = max(errs[kernel], e)
 
     def judge_rows(what, got, want, kernel="flash_attention"):
         """Attention per output row: a row that averages many keys is
@@ -310,7 +353,10 @@ def check_kernels(torch, kern) -> dict:
                 f"|err|/tol {worst})")
         errs[kernel] = max(errs[kernel], e)
 
-    # matmul at every gemma-7b projection shape, decode and prefill
+    # bf16 matmul at every gemma-7b projection shape, decode and prefill,
+    # the tied head, olmoe-1b-7b's projections and untied head: all on
+    # the TMA + wgmma design
+    mm_before = dict(zero_stall_matmul.launches_by_design)
     for M in (GEMMA["slots"], 128):
         for name, m, k, n, _ in gemma_matmul_shapes(M):
             a, b = rnd(m, k), rnd(k, n)
@@ -324,6 +370,50 @@ def check_kernels(torch, kern) -> dict:
                                 out_dtype=torch.float32),
               matmul_ref(a, table.t(), torch.float32), torch.bfloat16)
     del table
+    od, oV = OLMOE["d"], OLMOE["V"]
+    for M in (OLMOE["slots"], 128):
+        a, b = rnd(M, od), rnd(od, od)
+        judge("zero_stall_matmul", f"olmoe wq/wk/wv/wo M={M} K=N={od} bf16",
+              zero_stall_matmul(a, b), matmul_ref(a, b), torch.bfloat16)
+    for M in (1, OLMOE["slots"]):
+        a, w = rnd(M, od), rnd(od, oV)
+        judge("zero_stall_matmul", f"olmoe LM head M={M} N={oV} (untied, "
+              f"fp32 out)", zero_stall_matmul(a, w, out_dtype=torch.float32),
+              matmul_ref(a, w, torch.float32), torch.bfloat16)
+    del w
+    # an aligned non-square shape in both B layouts, every ring depth and
+    # grid order, one stage (bk 128) and two split stages (bk 64): TMA
+    # boxes past every edge, the swizzle against the wgmma descriptors
+    a, bt = rnd(4, 72), rnd(200, 72)
+    for trans_b, b in ((False, bt.t().contiguous()), (True, bt)):
+        want = matmul_ref(a, b.t() if trans_b else b)
+        for slots in (1, 2, 3):
+            for order in ("ijk", "jik"):
+                for bk in (128, 64):
+                    got = zero_stall_matmul(
+                        a, b, trans_b=trans_b, bk=bk, slots=slots,
+                        grid_order=order,
+                        variant="single" if slots == 1 else "dobu")
+                    judge("zero_stall_matmul", f"4x72x200 "
+                          f"{'(N, K)' if trans_b else '(K, N)'} B "
+                          f"slots={slots} {order} bk={bk}", got, want,
+                          torch.bfloat16)
+    # split-k is deterministic: two calls give the same bits
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for M in (GEMMA["slots"], 128):
+        K, N = GEMMA["ff"], GEMMA["d"]
+        a, b = rnd(M, K), rnd(K, N)
+        splits, per = split_plan(M, N, K, 128, 128, 128, sms)
+        first, second = zero_stall_matmul(a, b), zero_stall_matmul(a, b)
+        same = torch.equal(first, second)
+        print(f"    zero_stall_matmul mlp wo M={M}: {splits} splits of {per} "
+              f"k stages on {sms} SMs, two calls bitwise equal {same}")
+        require(splits > 1 and same, "split-k is not deterministic")
+    ran = {k: zero_stall_matmul.launches_by_design[k] - mm_before[k]
+           for k in mm_before}
+    print(f"    bf16 matmul checks by design: {ran}")
+    require(ran["ring"] == 0 and ran["sm90"] > 0,
+            "a bf16 matmul of phase 3 did not run the TMA + wgmma design")
     # fp32 at a ragged shape, every ring depth and both grid orders
     a, b = rnd(37, 45, dtype=torch.float32), rnd(45, 29, dtype=torch.float32)
     for slots in (1, 2, 3):
@@ -334,63 +424,74 @@ def check_kernels(torch, kern) -> dict:
             judge("zero_stall_matmul", f"fp32 37x45x29 slots={slots} "
                   f"{order}", got, matmul_ref(a, b), torch.float32)
 
-    # flash attention at the prefill shape (1, 16, bucket, 256)
-    S, H, D = 128, GEMMA["H"], GEMMA["hd"]
-    q, k, v = rnd(1, H, S, D), rnd(1, H, S, D), rnd(1, H, S, D)
-
+    # flash attention at the prefill shape (1, 16, bucket, D), gemma-7b's
+    # D = 256 and olmoe-1b-7b's 128, on the tensor-core design
     def i32(*xs):
         return torch.tensor(xs, dtype=torch.int32, device=dev)
 
-    cases = [
-        ("causal, lengths 96", dict(causal=True, q_lens=i32(96),
-                                    kv_lens=i32(96))),
-        ("causal, full bucket", dict(causal=True)),
-        ("non-causal, lengths 80", dict(causal=False, q_lens=i32(80),
-                                        kv_lens=i32(80))),
-        ("causal, q_offsets 16", dict(causal=True, q_offsets=i32(16),
-                                      q_lens=i32(S + 16), kv_lens=i32(S))),
-        ("masked: kv_len 0", dict(causal=False, q_lens=i32(S),
-                                  kv_lens=i32(0))),
-    ]
-    for what, kw in cases:
-        full = {"q_offsets": i32(0), **kw}
-        full.setdefault("q_lens", full["q_offsets"] + S)
-        full.setdefault("kv_lens", i32(S))
-        got = flash_attention(q, k, v, **kw)
-        judge_rows(what, got, flash_attention_ref(q, k, v, **full))
-        if "masked" in what:
-            require(bool((got == 0).all()), "a fully-masked row is not "
-                    "exact zeros")
-    # causal, fewer queries than keys and no lengths: ops.attention runs
-    # the kernel end-aligned, the reference's convention without lengths
     from repro_torch.kernels import ops
-    launched = flash_attention.launches
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", RuntimeWarning)
-        got = ops.attention(q[:, :, S // 2:].contiguous(), k, v, causal=True)
-    require(flash_attention.launches == launched + 1,
-            "ops.attention with Sq < Skv did not launch the kernel")
-    judge_rows("ops.attention causal Sq=64 < Skv=128, no lengths "
-               "(end-aligned)", got,
-               flash_attention_ref(q[:, :, S // 2:], k, v, causal=True))
-    # the chunked-prefill calls of phase 5b: 96 queries of one chunk
-    # against the whole 160-token stripe, q_offsets at the chunk's start,
-    # q_lens = kv_lens = the prompt's valid end after the chunk (the
-    # second chunk of a 128- or 112-token prompt has 32 or 16 valid rows,
-    # the rest all zeros)
-    C, stripe = 96, 160
-    q, k, v = rnd(1, H, C, D), rnd(1, H, stripe, D), rnd(1, H, stripe, D)
-    for off, end in ((0, 96), (96, 128), (96, 112)):
-        kw = dict(causal=True, q_offsets=i32(off), q_lens=i32(end),
-                  kv_lens=i32(end))
-        judge_rows(f"chunk (1, {H}, {C}, {D}) over a {stripe}-token stripe, "
-                   f"causal, q_offsets {off}, lengths {end}",
-                   flash_attention(q, k, v, **kw),
-                   flash_attention_ref(q, k, v, **kw))
+    fa_before = dict(flash_attention.launches_by_design)
+    S, H = 128, GEMMA["H"]
+    for D in (GEMMA["hd"], OLMOE["hd"]):
+        q, k, v = rnd(1, H, S, D), rnd(1, H, S, D), rnd(1, H, S, D)
+        cases = [
+            ("causal, lengths 96", dict(causal=True, q_lens=i32(96),
+                                        kv_lens=i32(96))),
+            ("causal, full bucket", dict(causal=True)),
+            ("non-causal, lengths 80", dict(causal=False, q_lens=i32(80),
+                                            kv_lens=i32(80))),
+            ("causal, q_offsets 16", dict(causal=True, q_offsets=i32(16),
+                                          q_lens=i32(S + 16),
+                                          kv_lens=i32(S))),
+            ("masked: kv_len 0", dict(causal=False, q_lens=i32(S),
+                                      kv_lens=i32(0))),
+        ]
+        for what, kw in cases:
+            full = {"q_offsets": i32(0), **kw}
+            full.setdefault("q_lens", full["q_offsets"] + S)
+            full.setdefault("kv_lens", i32(S))
+            got = flash_attention(q, k, v, **kw)
+            judge_rows(f"D={D} {what}", got,
+                       flash_attention_ref(q, k, v, **full))
+            if "masked" in what:
+                require(bool((got == 0).all()), "a fully-masked row is not "
+                        "exact zeros")
+        # causal, fewer queries than keys and no lengths: ops.attention
+        # runs the kernel end-aligned, the reference's convention without
+        # lengths
+        launched = flash_attention.launches
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            got = ops.attention(q[:, :, S // 2:].contiguous(), k, v,
+                                causal=True)
+        require(flash_attention.launches == launched + 1,
+                "ops.attention with Sq < Skv did not launch the kernel")
+        judge_rows(f"D={D} ops.attention causal Sq=64 < Skv=128, no "
+                   f"lengths (end-aligned)", got,
+                   flash_attention_ref(q[:, :, S // 2:], k, v, causal=True))
+        # the chunked-prefill calls of phase 5b: 96 queries of one chunk
+        # against the whole 160-token stripe, q_offsets at the chunk's
+        # start, q_lens = kv_lens = the prompt's valid end after the chunk
+        # (the second chunk of a 128- or 112-token prompt has 32 or 16
+        # valid rows, the rest all zeros)
+        C, stripe = 96, 160
+        q, k, v = rnd(1, H, C, D), rnd(1, H, stripe, D), rnd(1, H, stripe, D)
+        for off, end in ((0, 96), (96, 128), (96, 112)):
+            kw = dict(causal=True, q_offsets=i32(off), q_lens=i32(end),
+                      kv_lens=i32(end))
+            judge_rows(f"D={D} chunk (1, {H}, {C}, {D}) over a {stripe}-"
+                       f"token stripe, causal, q_offsets {off}, lengths "
+                       f"{end}", flash_attention(q, k, v, **kw),
+                       flash_attention_ref(q, k, v, **kw))
+    ran = {k: flash_attention.launches_by_design[k] - fa_before[k]
+           for k in fa_before}
+    print(f"    bf16 flash checks by design: {ran}")
+    require(ran["cuda_core"] == 0 and ran["tensor_core"] > 0,
+            "a bf16 flash call of phase 3 did not run the tensor-core design")
 
     # paged attention at the decode shape: 4 slots, 16 heads of 256,
     # 16-token pages, a 10-page table (max_len 160)
-    B, T, ps = GEMMA["slots"], 10, 16
+    B, T, ps, H, D = GEMMA["slots"], 10, 16, GEMMA["H"], GEMMA["hd"]
     cases = [
         ("bf16 (4, 16, 256), ps 16, scattered pages, kv 160/129/80/17",
          dict(B=B, H=H, KV=H, D=D, ps=ps, T=T, kv_lens=[160, 129, 80, 17],
@@ -437,10 +538,9 @@ def moe_capacity(tokens: int) -> int:
 def check_new_kernels(torch, kern) -> dict:
     """Phase 3 for the int8 and grouped kernels: bit-equal int8 products
     at the W8A8 projection and expert shapes of gemma-7b and olmoe-1b-7b,
-    the bf16 grouped kernel at the expert shapes, every ring depth at a
-    ragged fp32 shape, and flash attention at olmoe's prefill shape."""
-    from repro_torch.kernels.ref import (flash_attention_ref,
-                                         grouped_matmul_ref,
+    the bf16 grouped kernel at the expert shapes, and every ring depth at
+    a ragged fp32 shape."""
+    from repro_torch.kernels.ref import (grouped_matmul_ref,
                                          quantized_grouped_matmul_ref,
                                          quantized_matmul_ref)
     from repro_torch.quant import quantize, quantize_rows
@@ -451,7 +551,6 @@ def check_new_kernels(torch, kern) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     errs = {n: 0.0 for n in NEW_KERNELS}
-    errs["flash_attention"] = 0.0
     print("[3] int8 kernels against their plain versions: bit-equal; "
           f"grouped bf16: |err| <= {BF16_TOL} * max|ref|, fp32: |err| <= "
           f"{FP32_TOL} * max(1, max|ref|)", flush=True)
@@ -540,19 +639,6 @@ def check_new_kernels(torch, kern) -> dict:
               lambda: q6(gx_q, gqw.data, gx_s, gqw.scale, bm=32, bn=32,
                          bk=32, **ring),
               quantized_grouped_matmul_ref(gx_q, gqw.data, gx_s, gqw.scale))
-    # flash attention at olmoe's prefill shape: head dim 128
-    S, H, D = 128, OLMOE["H"], OLMOE["hd"]
-    q, k, v = (rnd(1, H, S, D).bfloat16() for _ in range(3))
-    got = kern["flash_attention"](q, k, v, causal=True)
-    want = flash_attention_ref(q, k, v, causal=True)
-    err = (got.float() - want.float()).abs().amax(-1)
-    tol = BF16_TOL * want.float().abs().amax(-1)
-    print(f"    flash_attention olmoe (1, {H}, {S}, {D}) bf16 causal: "
-          f"max|err| {err.max().item():.3g}, worst row |err|/tol "
-          f"{(err / tol.clamp_min(1e-30)).max().item():.3g}")
-    require(bool((err <= tol).all()), "flash attention at head dim 128 "
-            "disagrees with its plain version in some row")
-    errs["flash_attention"] = err.max().item()
     torch.cuda.synchronize()
     return errs
 
@@ -649,6 +735,25 @@ def check_reduced_engines(torch, kern) -> None:
 # ----------------------------------------------------------------------
 # 5. full-width gemma-7b serving
 # ----------------------------------------------------------------------
+def reset_counts(kern) -> None:
+    """Set every kernel's launch count, and its counts by design, to 0."""
+    for k in kern.values():
+        k.launches = 0
+        for design in getattr(k, "launches_by_design", {}):
+            k.launches_by_design[design] = 0
+
+
+def check_designs(label: str, kern) -> None:
+    """Every matmul and flash call of a full-width bf16 run went through
+    the Hopper designs: none took the cp.async ring or the CUDA-core
+    flash kernel."""
+    mm = kern["zero_stall_matmul"].launches_by_design
+    fa = kern["flash_attention"].launches_by_design
+    print(f"      by design: zero_stall_matmul {mm}, flash_attention {fa}")
+    require(mm["ring"] == 0 and fa["cuda_core"] == 0,
+            f"{label}: a bf16 matmul or flash call left the Hopper designs")
+
+
 def serve_full_width(torch, kern):
     zero_stall_matmul = kern["zero_stall_matmul"]
     flash_attention = kern["flash_attention"]
@@ -659,8 +764,7 @@ def serve_full_width(torch, kern):
     kw = SERVE_KW
     print(f"[5] gemma-7b full width, 28 layers, bf16, random weights: "
           f"serve_batch({kw})", flush=True)
-    for k in kern.values():
-        k.launches = 0
+    reset_counts(kern)
     out = serve_batch("gemma-7b", reduced=False, dtype=torch.bfloat16,
                       device="cuda", **kw)
     torch.cuda.synchronize()
@@ -686,6 +790,7 @@ def serve_full_width(torch, kern):
             "matmul launch count differs from the path's")
     require(counts["flash_attention"] == want_fa > 0,
             "flash-attention launch count differs from the path's")
+    check_designs("5", kern)
     gen = out["generated"]
     require(gen.shape == (8, 32) and (gen >= 0).all()
             and (gen < GEMMA["V"]).all(), "not every request completed")
@@ -771,8 +876,7 @@ def serve_paged_full_width(torch, kern) -> dict:
     engine_mod._wait = timed_wait
     counts = {}
     for mode in ("contiguous", "paged", "paged", "contiguous"):
-        for k in kern.values():
-            k.launches = 0
+        reset_counts(kern)
         waited.clear()
         eng = ServeEngine(model, params, ctx, **base,
                           **(paged if mode == "paged" else {}))
@@ -802,6 +906,7 @@ def serve_paged_full_width(torch, kern) -> dict:
         print(f"      launches {got} (path implies {want})")
         require(got == want and got["zero_stall_matmul"] > 0,
                 f"{mode}: launch counts differ from the path's")
+        check_designs(f"5b {mode}", kern)
         if mode == "paged":
             require(s.pages_shared >= 4, "fewer than 4 shared prefix pages")
             require(chunks == want_chunks, f"{chunks} prefill chunks, the "
@@ -939,11 +1044,11 @@ def serve_w8a8(torch, kern, model, qparams, label: str) -> tuple[dict, dict]:
                       cache_dtype=torch.bfloat16,
                       steps_per_dispatch=kw["steps_per_dispatch"],
                       seed=kw["seed"], device="cuda")
-    for k in kern.values():
-        k.launches = 0
+    reset_counts(kern)
     res = eng.run(reqs)
     torch.cuda.synchronize()
     counts = {n: k.launches for n, k in kern.items()}
+    check_designs(label, kern)
     s = eng.stats
     require(sorted(res) == list(range(kw["batch"])) and all(
         len(r.tokens) == kw["gen_len"]
@@ -977,12 +1082,12 @@ def serve_moe_full_width(torch, kern) -> dict:
     L, V = OLMOE["layers"], OLMOE["V"]
     print(f"[5c] olmoe-1b-7b full width, {L} layers, 64 experts top-8, bf16, "
           f"random weights: serve_batch({SERVE_KW})", flush=True)
-    for k in kern.values():
-        k.launches = 0
+    reset_counts(kern)
     out = serve_batch("olmoe-1b-7b", reduced=False, dtype=torch.bfloat16,
                       device="cuda", **SERVE_KW)
     torch.cuda.synchronize()
     got = {n: k.launches for n, k in kern.items()}
+    check_designs("5c", kern)
     s = out["stats"]
     passes = s["admitted"] + s["decode_steps"]
     print(f"    prefill {out['prefill_tok_s']:.1f} tok/s over "
@@ -1093,18 +1198,35 @@ def serve_gemma_w8a8(torch, kern) -> int:
 # ----------------------------------------------------------------------
 # 6. timing
 # ----------------------------------------------------------------------
-def time_ms(torch, fns, iters: int = 20) -> float:
+def time_ms(torch, fns, iters: int = 20, graph: bool = True) -> float:
     """Mean time of one call, cycling over ``fns`` (distinct operands, so
-    that the 50 MB L2 cache does not hold them between calls)."""
+    that the 50 MB L2 cache does not hold them between calls).  Every fn
+    runs once first (the build, shared-memory attributes, a library's
+    refusal of a shape).  Then ``iters`` calls are captured in one CUDA
+    graph and replayed between two events: the device's time, without
+    the host's launch work per call.  ``graph=False`` times the calls
+    as issued one by one, paced by the host wherever the host is slower
+    than the device (as on the serving path)."""
     for f in fns:
         f()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(iters):
-        fns[i % len(fns)]()
-    stop.record()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for i in range(iters):
+                fns[i % len(fns)]()
+        g.replay()
+        torch.cuda.synchronize()
+        start.record()
+        g.replay()
+        stop.record()
+    else:
+        start.record()
+        for i in range(iters):
+            fns[i % len(fns)]()
+        stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
 
@@ -1112,93 +1234,136 @@ def time_ms(torch, fns, iters: int = 20) -> float:
 def time_kernels(torch, kern) -> dict:
     from repro_torch.kernels.ref import (flash_attention_ref, matmul_ref,
                                          paged_attention_ref)
+    from repro_torch.kernels.zero_stall_matmul import split_plan
+    from repro_torch.plan import KernelConfig
     zero_stall_matmul = kern["zero_stall_matmul"]
     flash_attention = kern["flash_attention"]
     paged_attention = kern["paged_attention"]
     dev = "cuda"
     F = torch.nn.functional
-    print("[6] kernel times at main-path shapes (CUDA events; operands "
-          "cycled past L2)", flush=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print("[6] kernel times at main-path shapes (CUDA events over a CUDA "
+          "graph of calls, operands cycled past L2; 'eager': the same "
+          "calls issued one by one, as the path issues them)", flush=True)
 
-    def mm_cell(name, M, K, N, trans_b=False, out=torch.bfloat16):
+    def mm_cell(name, M, K, N, trans_b=False, out=torch.bfloat16,
+                depths=(2,)):
+        """Times of one product at the ring depths ``depths`` (2, the
+        path's, first), eagerly at depth 2, of its plain version and of
+        torch.matmul, and its two bounds."""
         copies = max(1, -(-128 * 2 ** 20 // (K * N * 2)))
         a = torch.randn(M, K, device=dev).to(torch.bfloat16)
         bs = [torch.randn((N, K) if trans_b else (K, N),
                           device=dev).to(torch.bfloat16)
               for _ in range(copies)]
-        ms = time_ms(torch, [lambda b=b: zero_stall_matmul(
-            a, b, trans_b=trans_b, out_dtype=out) for b in bs])
-        plain = time_ms(torch, [lambda b=b: matmul_ref(
-            a, b.t() if trans_b else b, out) for b in bs], iters=5)
-        lib = time_ms(torch, [lambda b=b: torch.matmul(
+
+        def calls(slots):
+            return [lambda b=b: zero_stall_matmul(
+                a, b, trans_b=trans_b, out_dtype=out, slots=slots,
+                variant="single" if slots == 1 else "dobu") for b in bs]
+
+        cell = {f"slots{s}": time_ms(torch, calls(s)) for s in depths}
+        cell["ms"] = cell["slots2"]
+        cell["eager"] = time_ms(torch, calls(2), graph=False)
+        cell["plain"] = time_ms(torch, [lambda b=b: matmul_ref(
+            a, b.t() if trans_b else b, out) for b in bs], iters=5,
+            graph=False)
+        cell["lib"] = time_ms(torch, [lambda b=b: torch.matmul(
             a, b.t() if trans_b else b) for b in bs])
         nbytes = (M * K + K * N) * 2 + M * N * (4 if out == torch.float32
                                                  else 2)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = 2 * M * N * K / PEAK_FLOPS["bfloat16"] * 1e3
-        print(f"    zero_stall_matmul {name} M={M} K={K} N={N}: {ms:.4f} ms "
-              f"(plain {plain:.4f}, torch.matmul {lib:.4f}, bound "
-              f"{max(t_bytes, t_ops):.4f} by "
-              f"{'bytes' if t_bytes >= t_ops else 'operations'})")
+        cell["t_bytes"] = nbytes / HBM_BYTES_PER_S * 1e3
+        cell["t_ops"] = 2 * M * N * K / PEAK_FLOPS["bfloat16"] * 1e3
+        splits, per = split_plan(M, N, K, 128, 128, 128, sms)
+        others = ", ".join(f"slots {s} {cell[f'slots{s}']:.4f}"
+                           for s in depths if s != 2)
+        print(f"    zero_stall_matmul {name} M={M} K={K} N={N}: "
+              f"{cell['ms']:.4f} ms at slots 2 ({others + '; ' if others else ''}"
+              f"eager {cell['eager']:.4f}; {splits} split(s) of {per} k "
+              f"stages; plain {cell['plain']:.4f}, torch.matmul "
+              f"{cell['lib']:.4f}, bound "
+              f"{max(cell['t_bytes'], cell['t_ops']):.4f} by "
+              f"{'bytes' if cell['t_bytes'] >= cell['t_ops'] else 'operations'})")
         del bs
-        return ms, plain, lib, t_bytes, t_ops
+        return cell
 
-    def step_total(M, lm_M):
+    def step_total(M, lm_M, depths):
         """Times of one full pass of the path over M rows: 28 layers of
         seven projections plus the LM head over lm_M rows."""
-        tot = [0.0] * 5
-        for name, m, k, n, calls in gemma_matmul_shapes(M):
-            cell = mm_cell(name, m, k, n)
-            for i in range(5):
-                tot[i] += cell[i] * calls * GEMMA["layers"]
-        cell = mm_cell("LM head", lm_M, GEMMA["d"], GEMMA["V"],
-                       trans_b=True, out=torch.float32)
-        for i in range(5):
-            tot[i] += cell[i]
+        tot = {}
+        cells = [(cell, calls * GEMMA["layers"]) for cell, calls in (
+            (mm_cell(name, m, k, n, depths=depths), calls)
+            for name, m, k, n, calls in gemma_matmul_shapes(M))]
+        cells.append((mm_cell("LM head", lm_M, GEMMA["d"], GEMMA["V"],
+                              trans_b=True, out=torch.float32,
+                              depths=depths), 1))
+        for cell, n in cells:
+            for key, v in cell.items():
+                tot[key] = tot.get(key, 0.0) + v * n
         return tot
 
-    dec = step_total(GEMMA["slots"], GEMMA["slots"])
-    pre = step_total(128, 1)
+    dec = step_total(GEMMA["slots"], GEMMA["slots"], (2, 1, 4))
+    pre = step_total(128, 1, (2,))
     for label, tot in (("decode step (M=4)", dec),
                        ("prefill of 128 tokens", pre)):
         print(f"    zero_stall_matmul, one {label}, 197 launches: "
-              f"{tot[0]:.3f} ms (plain {tot[1]:.3f}, torch.matmul "
-              f"{tot[2]:.3f}, bound {max(tot[3], tot[4]):.3f} by "
-              f"{'bytes' if tot[3] >= tot[4] else 'operations'})")
-    matmul = {"ms": dec[0], "plain_ms": dec[1],
-              "bound_ms": max(dec[3], dec[4]),
-              "bound_by": "bytes" if dec[3] >= dec[4] else "operations",
-              "library_ms": dec[2]}
+              f"{tot['ms']:.3f} ms (eager {tot['eager']:.3f}; plain "
+              f"{tot['plain']:.3f}, torch.matmul {tot['lib']:.3f}, bound "
+              f"{max(tot['t_bytes'], tot['t_ops']):.3f} by "
+              f"{'bytes' if tot['t_bytes'] >= tot['t_ops'] else 'operations'})")
+    print(f"    zero_stall_matmul, one decode step by ring depth (the "
+          f"paper's single against revolving buffers): slots 1 "
+          f"{dec['slots1']:.3f} ms, slots 2 {dec['slots2']:.3f} ms, slots 4 "
+          f"{dec['slots4']:.3f} ms")
+    matmul = {"ms": dec["ms"], "plain_ms": dec["plain"],
+              "bound_ms": max(dec["t_bytes"], dec["t_ops"]),
+              "bound_by": ("bytes" if dec["t_bytes"] >= dec["t_ops"]
+                           else "operations"),
+              "library_ms": dec["lib"]}
 
-    S, H, D = 128, GEMMA["H"], GEMMA["hd"]
-    qs = [tuple(torch.randn(1, H, S, D, device=dev).to(torch.bfloat16)
-                for _ in range(3)) for _ in range(4)]
-    lens = torch.tensor([S], dtype=torch.int32, device=dev)
-    zero = torch.zeros(1, dtype=torch.int32, device=dev)
-    ms = time_ms(torch, [lambda t=t: flash_attention(
-        *t, q_lens=lens, kv_lens=lens, causal=True) for t in qs])
-    plain = time_ms(torch, [lambda t=t: flash_attention_ref(
-        *t, q_lens=lens, kv_lens=lens, q_offsets=zero, causal=True)
-        for t in qs])
-    lib = time_ms(torch, [lambda t=t: F.scaled_dot_product_attention(
-        *t, is_causal=True) for t in qs])
-    t_bytes = 4 * H * S * D * 2 / HBM_BYTES_PER_S * 1e3
-    pairs = S * (S + 1) // 2            # causal (row, col) pairs this data has
-    t_ops = 4 * H * pairs * D / PEAK_FLOPS["bfloat16"] * 1e3
-    print(f"    flash_attention (1, {H}, {S}, {D}) bf16 causal: {ms:.4f} ms "
-          f"(plain {plain:.4f}, scaled_dot_product_attention {lib:.4f}, "
-          f"bound {max(t_bytes, t_ops):.5f} by "
-          f"{'bytes' if t_bytes >= t_ops else 'operations'})")
-    attention = {"ms": ms, "plain_ms": plain,
-                 "bound_ms": max(t_bytes, t_ops),
-                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                 "library_ms": lib}
+    # flash attention at the prefill shapes of gemma-7b (D 256, the
+    # kernels line) and olmoe-1b-7b (D 128), causal, lengths = the bucket
+    bq = KernelConfig().bq
+    attention = None
+    for D in (GEMMA["hd"], OLMOE["hd"]):
+        S, H = 128, GEMMA["H"]
+        per_set = 3 * H * S * D * 2
+        n_sets = -(-128 * 2 ** 20 // per_set)
+        qs = [tuple(torch.randn(1, H, S, D, device=dev).to(torch.bfloat16)
+                    for _ in range(3)) for _ in range(n_sets)]
+        lens = torch.tensor([S], dtype=torch.int32, device=dev)
+        zero = torch.zeros(1, dtype=torch.int32, device=dev)
+        calls = [lambda t=t: flash_attention(
+            *t, q_lens=lens, kv_lens=lens, causal=True) for t in qs]
+        ms = time_ms(torch, calls, iters=n_sets)
+        eager = time_ms(torch, calls, iters=n_sets, graph=False)
+        plain = time_ms(torch, [lambda t=t: flash_attention_ref(
+            *t, q_lens=lens, kv_lens=lens, q_offsets=zero, causal=True)
+            for t in qs], graph=False)
+        lib = time_ms(torch, [lambda t=t: F.scaled_dot_product_attention(
+            *t, is_causal=True) for t in qs], iters=n_sets)
+        t_bytes = 4 * H * S * D * 2 / HBM_BYTES_PER_S * 1e3
+        pairs = S * (S + 1) // 2        # causal (row, col) pairs this data has
+        t_ops = 4 * H * pairs * D / PEAK_FLOPS["bfloat16"] * 1e3
+        print(f"    flash_attention (1, {H}, {S}, {D}) bf16 causal: {ms:.4f} "
+              f"ms on {H * -(-S // bq)} blocks of {bq} query rows (eager "
+              f"{eager:.4f}; plain {plain:.4f}, scaled_dot_product_attention "
+              f"{lib:.4f}, bound {max(t_bytes, t_ops):.5f} by "
+              f"{'bytes' if t_bytes >= t_ops else 'operations'}); {n_sets} "
+              f"operand sets of {per_set / 2 ** 20:.0f} MiB cycled")
+        if attention is None:
+            attention = {"ms": ms, "plain_ms": plain,
+                         "bound_ms": max(t_bytes, t_ops),
+                         "bound_by": ("bytes" if t_bytes >= t_ops
+                                      else "operations"),
+                         "library_ms": lib}
+        del qs
 
     # paged attention at the decode shape of phase 5b: 4 slots, 16 heads
     # of 256, a 41-page pool of 16-token pages, 10-page tables, kv lengths
     # of the four prompts 16 tokens into decode; 8 pool copies (86 MB)
     # cycle past L2
-    B, T, ps = GEMMA["slots"], 10, 16
+    B, T, ps, H, D = GEMMA["slots"], 10, 16, GEMMA["H"], GEMMA["hd"]
     kv = [144, 112, 96, 128]
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -1207,7 +1372,7 @@ def time_kernels(torch, kern) -> dict:
     ms = time_ms(torch, [lambda c=c: paged_attention(*c[:4], kv_lens=c[4])
                          for c in cases])
     plain = time_ms(torch, [lambda c=c: paged_attention_ref(
-        *c[:4], kv_lens=c[4]) for c in cases])
+        *c[:4], kv_lens=c[4]) for c in cases], graph=False)
     keys = sum(min(n, T * ps) for n in kv)
     nbytes = (keys * H * D * 2 * 2          # the K and V rows it must read
               + 2 * B * H * D * 2           # q in, o out
@@ -1268,7 +1433,7 @@ def time_new_kernels(torch, kern) -> dict:
                              for w in qws])
         plain = time_ms(torch, [lambda w=w: quantized_matmul_ref(
             x_q, w.data, x_s, w.scale, torch.bfloat16) for w in qws],
-            iters=5)
+            iters=5, graph=False)
         try:
             lib = time_ms(torch, [lambda w=w: torch._int_mm(x_q, w.data)
                                   for w in qws])
@@ -1349,7 +1514,7 @@ def time_new_kernels(torch, kern) -> dict:
                     for w in qws])
                 plain = time_ms(torch, [lambda w=w: quantized_grouped_matmul_ref(
                     x_q, w.data, x_s, w.scale, torch.bfloat16) for w in qws],
-                    iters=5)
+                    iters=5, graph=False)
                 lib, lib_note = 0.0, "no library call"
                 nbytes = G * m * K + G * K * N + 4 * G * (m + N) + 2 * G * m * N
                 del qws
@@ -1358,7 +1523,7 @@ def time_new_kernels(torch, kern) -> dict:
                 bs = [b.bfloat16() for b in bs]
                 ms = time_ms(torch, [lambda b=b: g5(a, b) for b in bs])
                 plain = time_ms(torch, [lambda b=b: grouped_matmul_ref(a, b)
-                                        for b in bs], iters=5)
+                                        for b in bs], iters=5, graph=False)
                 lib = time_ms(torch, [lambda b=b: torch.bmm(a, b)
                                       for b in bs])
                 lib_note = f"torch.bmm {lib:.4f}"

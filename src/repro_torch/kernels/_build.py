@@ -31,8 +31,8 @@ __all__ = ["SOURCES", "build_all", "load", "bind", "check", "on_device",
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = _ROOT / "build" / "repro_torch"
-SOURCES = ("zero_stall_matmul", "quantized_matmul", "flash_attention",
-           "paged_attention")
+SOURCES = ("zero_stall_matmul", "zero_stall_sm90", "quantized_matmul",
+           "flash_attention", "paged_attention")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -3,14 +3,19 @@
 (B, H, Sq, D) attention with per-sequence valid lengths and query
 offsets, causal masking in absolute positions, an online softmax over
 kv tiles and exact zeros for fully-masked rows (see the header note of
-the CUDA source for its design and bound).  Replaces the Pallas TPU
+the CUDA source for its designs and bound).  Replaces the Pallas TPU
 kernel ``repro.kernels.flash_attention.flash_attention``.
 
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
-tensor it runs the plain version
+The design follows the dtype (:func:`design`): bf16 runs on the tensor
+cores (``mma.sync`` with register accumulators; head dims
+:data:`TC_HEAD_DIMS`, q and kv tiles of 16, 32 or 64 rows, bkv * D <=
+8192), fp32 on the CUDA cores (full fp32, any tile that fits shared
+memory).  On a CUDA tensor the wrapper launches the kernel or raises;
+on a CPU tensor it runs the plain version
 :func:`repro_torch.kernels.ref.flash_attention_ref` with the same
 length operands.  Ragged Sq / Skv are masked inside the kernel.
-``flash_attention.launches`` counts kernel launches.
+``flash_attention.launches`` counts kernel launches and
+``flash_attention.launches_by_design`` splits them by design.
 """
 
 from __future__ import annotations
@@ -22,19 +27,63 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
 
-__all__ = ["flash_attention", "smem_bytes", "SMEM_LIMIT"]
+__all__ = ["flash_attention", "smem_bytes", "design", "fit_tiles",
+           "check_tc_tiles", "SMEM_LIMIT", "TC_HEAD_DIMS", "TC_TILES"]
 
 SMEM_LIMIT = 232448
+TC_HEAD_DIMS = (16, 32, 64, 128, 256)   # instantiated bf16 head dims
+TC_TILES = (16, 32, 64)                 # bf16 q and kv tile sizes
+_TC_REGS = 8192                         # bkv * D: a warp's score and
+#                                         output registers at D = 256
 # q, k, v, o, q_lens, kv_lens, q_offsets, B, H, Sq, Skv, D, bq, bkv, scale,
 # causal, bf16, stream
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
-def smem_bytes(D: int, bq: int, bkv: int) -> int:
-    """Shared memory of one block (the same formula as the CUDA source)."""
+def design(dtype: torch.dtype) -> str:
+    """The kernel design that runs inputs of ``dtype``: "tensor_core"
+    for bf16, "cuda_core" for fp32."""
+    return "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+
+
+def smem_bytes(D: int, bq: int, bkv: int,
+               dtype: torch.dtype = torch.float32) -> int:
+    """Shared memory of one block, the same formulas as the CUDA source:
+    bf16 holds Q and two stages of K and V as bf16 rows padded by 16
+    bytes; fp32 holds q, k, v, the scores and the output accumulator as
+    fp32."""
+    if design(dtype) == "tensor_core":
+        return 2 * (D + 8) * (bq + 4 * bkv)
     ldd = D + 1
     return 4 * (bq * ldd + bkv * ldd + bkv * D + bq * D + bq * bkv + 3 * bq)
+
+
+def fit_tiles(dtype: torch.dtype, Sq: int, Skv: int, bq: int,
+              bkv: int) -> tuple[int, int]:
+    """The (bq, bkv) a call over Sq queries and Skv keys runs at when
+    the configuration asks for (bq, bkv): no tile longer than its
+    sequence, and for the tensor-core design whole 16-row mma steps (a
+    short sequence takes one tile, masked past its end)."""
+    if design(dtype) == "tensor_core":
+        return min(bq, -(-Sq // 16) * 16), min(bkv, -(-Skv // 16) * 16)
+    return min(bq, Sq), min(bkv, Skv)
+
+
+def check_tc_tiles(D: int, bq: int, bkv: int) -> None:
+    """Raise on a head dim or tiles the bf16 tensor-core design does not
+    take (the instantiations of ``csrc/flash_attention.cu``)."""
+    if D not in TC_HEAD_DIMS:
+        raise ValueError(f"flash_attention (bf16): head dim {D} is not "
+                         f"instantiated; the tensor-core kernel takes D in "
+                         f"{TC_HEAD_DIMS}")
+    if bq not in TC_TILES or bkv not in TC_TILES:
+        raise ValueError(f"flash_attention (bf16): tiles (bq, bkv)="
+                         f"{(bq, bkv)} must each be one of {TC_TILES}")
+    if bkv * D > _TC_REGS:
+        raise ValueError(f"flash_attention (bf16): bkv={bkv} at head dim "
+                         f"{D} exceeds the register budget bkv * D <= "
+                         f"{_TC_REGS}")
 
 
 def _lens(x: torch.Tensor | None, default: torch.Tensor) -> torch.Tensor:
@@ -86,7 +135,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if bq < 1 or bkv < 1:
         raise ValueError(f"flash_attention: tiles must be positive, got "
                          f"{(bq, bkv)}")
-    need = smem_bytes(D, bq, bkv)
+    kind = design(q.dtype)
+    if kind == "tensor_core":
+        check_tc_tiles(D, bq, bkv)
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("flash_attention (bf16): q, k, v must start on "
+                             "16-byte boundaries (16-byte cp.async)")
+    need = smem_bytes(D, bq, bkv, q.dtype)
     if need > SMEM_LIMIT:
         raise ValueError(
             f"flash_attention: tiles (bq, bkv)={(bq, bkv)} at head dim {D} "
@@ -107,7 +162,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   int(q.dtype == torch.bfloat16), stream)
     _build.check("flash_attention", code)
     flash_attention.launches += 1
+    flash_attention.launches_by_design[kind] += 1
     return o
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_design = {"tensor_core": 0, "cuda_core": 0}

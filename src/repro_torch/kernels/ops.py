@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import flash_attention as _flash
+from repro_torch.kernels.flash_attention import fit_tiles
 from repro_torch.kernels.grouped_matmul import grouped_zero_stall_matmul
 from repro_torch.kernels.paged_attention import paged_attention as _paged
 from repro_torch.kernels.quantized_matmul import (
@@ -250,7 +251,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                device=q.device)
         q_lens = kv_lens = torch.full((B,), Skv, dtype=torch.int32,
                                       device=q.device)
-    bq, bkv = min(cfg.bq, Sq), min(cfg.bkv, Skv)
+    bq, bkv = fit_tiles(q.dtype, Sq, Skv, cfg.bq, cfg.bkv)
     if Sq % bq or Skv % bkv:
         # ragged tiles: the lengths default to the unragged extents
         # (absolute, so offsets shift them); the kernel masks the edge

@@ -1,19 +1,38 @@
-"""Zero-stall matmul: the wrapper of ``csrc/zero_stall_matmul.cu`` (G = 1).
+"""Zero-stall matmul (G = 1): the wrapper of two designs.
 
-C = A @ B through the N-slot shared-memory revolving buffer (see the
-header notes of the CUDA sources for the schedule, its bound on the H100
-and what the design does about it).  Replaces the Pallas TPU kernel
-``repro.kernels.zero_stall_matmul.zero_stall_matmul``.
+C = A @ B through an N-slot shared-memory revolving buffer.  Replaces
+the Pallas TPU kernel ``repro.kernels.zero_stall_matmul.zero_stall_matmul``.
+One rule picks the design (:func:`select_design`):
 
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
-tensor it runs the plain version :func:`repro_torch.kernels.ref.matmul_ref`.
-Ragged shapes are masked inside the kernel, so no operand is padded.
-``zero_stall_matmul.launches`` counts kernel launches.
+- ``"sm90"`` (``csrc/zero_stall_sm90.cu``): bf16 operands that TMA can
+  address (K % 8 == 0, N % 8 == 0 for a row-major B, 16-byte aligned
+  bases).  A TMA-filled ring with one full/empty mbarrier pair per
+  stage, a producer warp and a consumer warpgroup running ``wgmma``.  It
+  computes C^T = B^T A^T ("swap AB"): the weight's N side fills wgmma's
+  64 rows and the M rows of A are the instruction's N side.  The tile
+  parameters keep their meaning: a block owns at most bm x bn outputs,
+  namely ``min(bm, next power of two of max(M, 8))`` rows of A (bm a
+  power of two in 8..128) by bn (64 or 128) columns; a stage holds bk
+  (a multiple of 64, at most 256) of k; ``slots`` is the stage count.
+  When the output tiles are fewer than the SMs the k stages are split
+  over blocks (:func:`split_plan`) and the fp32 partials summed in a
+  fixed order, so a call gives the same bits every time.
+- ``"ring"`` (``csrc/zero_stall_matmul.cu`` over ``zero_stall_ring.cuh``):
+  fp32, bf16 shapes TMA cannot address, and the grouped launch.  A
+  cp.async ring with mma.sync (bf16) or fp32 FMA, one block per bm x bn
+  tile; ragged edges are masked in the kernel.
+
+On a CUDA tensor the wrapper launches its design's kernel or raises;
+on a CPU tensor it runs the plain version
+:func:`repro_torch.kernels.ref.matmul_ref`.  No operand is padded.
+``zero_stall_matmul.launches`` counts kernel launches and
+``zero_stall_matmul.launches_by_design`` splits them by design.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -21,7 +40,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import matmul_ref
 from repro_torch.plan.config import resolve_slots
 
-__all__ = ["zero_stall_matmul", "smem_bytes", "SMEM_LIMIT", "MAX_THREADS"]
+__all__ = ["zero_stall_matmul", "smem_bytes", "sm90_smem_bytes",
+           "select_design", "sm90_rows", "split_plan", "SMEM_LIMIT",
+           "MAX_THREADS"]
 
 SMEM_LIMIT = 232448          # bytes of shared memory one Hopper block may use
 MAX_THREADS = 512            # the kernel's __launch_bounds__
@@ -30,6 +51,12 @@ _OUT_DTYPES = (torch.float32, torch.bfloat16)
 # a, b, c, G, M, N, K, bm, bn, bk, slots, jik, bf16, fp32 out, trans_b,
 # vec, stream: the C entry shared with the grouped wrapper
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+# a, b, c, workspace, M, N, K, rows, bn, bk, slots, jik, fp32 out,
+# trans_b, splits, steps per split, stream
+_SM90_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 \
+    + [ctypes.c_void_p]
+SM90_ROWS = (8, 16, 32, 64, 128)    # rows of A a block may own
+SM90_BN = (64, 128)                 # columns of C a block may own
 
 
 def smem_bytes(bm: int, bn: int, bk: int, slots: int, dtype: torch.dtype,
@@ -81,6 +108,74 @@ def _check_config(bm, bn, bk, slots, dtype, trans_b,
             f"{SMEM_LIMIT} a Hopper block can have (lower bk or slots)")
 
 
+def select_design(dtype: torch.dtype, K: int, N: int, trans_b: bool,
+                  a_ptr: int = 0, b_ptr: int = 0) -> str:
+    """The design that runs one product (G = 1), by one rule: bf16 and
+    TMA-legal (contiguous rows of 16-byte multiples from 16-byte aligned
+    bases: K % 8 == 0, N % 8 == 0 unless B is (N, K)) -> "sm90"; fp32
+    and other bf16 shapes -> "ring".  The grouped launch (G > 1,
+    :mod:`~repro_torch.kernels.grouped_matmul`) always runs the ring."""
+    legal = (K % 8 == 0 and (trans_b or N % 8 == 0)
+             and a_ptr % 16 == 0 and b_ptr % 16 == 0)
+    return "sm90" if dtype == torch.bfloat16 and legal else "ring"
+
+
+def sm90_rows(M: int, bm: int) -> int:
+    """Rows of A one sm90 block owns: the smallest instantiated wgmma
+    width that holds M, at most bm."""
+    rows = 8
+    while rows < min(M, bm):
+        rows *= 2
+    return min(rows, bm)
+
+
+def sm90_smem_bytes(rows: int, bn: int, bk: int, slots: int) -> int:
+    """Shared memory of one sm90 block (the formula of
+    ``csrc/zero_stall_sm90.cu``): ``slots`` stages of a bn x bk weight
+    tile and a rows x bk activation tile in bf16, 16 bytes of mbarriers
+    a stage, and 1024 bytes to align the stages to the swizzle atom."""
+    return 1024 + slots * ((bn + rows) * bk * 2 + 16)
+
+
+def _check_sm90_config(M: int, bm: int, bn: int, bk: int,
+                       slots: int) -> None:
+    """Raise on tiles the sm90 design cannot take."""
+    if bm not in SM90_ROWS or bn not in SM90_BN or bk % 64 or \
+            not 64 <= bk <= 256:
+        raise ValueError(
+            f"zero_stall_matmul (bf16, sm90): tiles must have bm in "
+            f"{SM90_ROWS}, bn in {SM90_BN} and bk a multiple of 64 up to "
+            f"256, got {(bm, bn, bk)}")
+    need = sm90_smem_bytes(sm90_rows(M, bm), bn, bk, slots)
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"zero_stall_matmul (bf16, sm90): tiles {(bm, bn, bk)} at "
+            f"slots={slots} with M={M} need {need} bytes of shared memory, "
+            f"over the {SMEM_LIMIT} a Hopper block can have (lower bk or "
+            f"slots)")
+
+
+def split_plan(M: int, N: int, K: int, bm: int, bn: int, bk: int,
+               sms: int) -> tuple[int, int]:
+    """(splits, k stages a split) of an sm90 product: when the output
+    tiles are fewer than the ``sms`` SMs, the ceil(K / bk) stages are cut
+    into at most sms // tiles ranges of whole stages, none empty, so
+    that the blocks come as near the SM count as whole stages allow
+    without a second wave; otherwise one split of all stages."""
+    rows = sm90_rows(M, bm)
+    tiles = -(-M // rows) * -(-N // bn)
+    steps = max(1, -(-K // bk))
+    want = max(1, min(steps, sms // max(tiles, 1)))
+    per = -(-steps // want)
+    return -(-steps // per), per
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``, read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _vec_ok(a: torch.Tensor, b: torch.Tensor, K: int, N: int,
             trans_b: bool) -> bool:
     """Whether the 16-byte cp.async loader may read A and B (and, for a
@@ -101,6 +196,8 @@ def zero_stall_matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
     ``slots`` sets the ring depth (None -> 2 for "dobu", 1 for
     "single"); ``grid_order`` the rasterisation ("ijk" rows outer,
     "jik" columns outer).  The result has ``out_dtype`` (default: A's).
+    The design follows :func:`select_design`; tiles that design cannot
+    take raise ``ValueError``.
     """
     if a.dim() != 2 or b.dim() != 2:
         raise ValueError(f"zero_stall_matmul: 2-D operands expected, got "
@@ -132,23 +229,44 @@ def zero_stall_matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
                          "row-major (pass trans_b=True for a (N, K) B)")
     if max(M, N, K) >= 2 ** 31:
         raise ValueError("zero_stall_matmul: dimensions must fit in int32")
-    _check_config(bm, bn, bk, slots, a.dtype, trans_b)
+    kind = select_design(a.dtype, K, N, trans_b, a.data_ptr(), b.data_ptr())
+    if kind == "sm90":
+        _check_sm90_config(M, bm, bn, bk, slots)
+    else:
+        _check_config(bm, bn, bk, slots, a.dtype, trans_b)
     c = torch.empty((M, N), dtype=out_dtype, device=a.device)
     if M == 0 or N == 0:
         return c
     if K == 0:
         return c.zero_()
-    fn = _build.bind("zero_stall_matmul", _ARGTYPES)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    with _build.on_device(a.device):
-        code = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), 1, M, N, K, bm,
-                  bn, bk, slots, int(grid_order == "jik"),
-                  int(a.dtype == torch.bfloat16),
-                  int(out_dtype == torch.float32), int(trans_b),
-                  int(_vec_ok(a, b, K, N, trans_b)), stream)
-    _build.check("zero_stall_matmul", code)
+    jik = int(grid_order == "jik")
+    if kind == "sm90":
+        splits, per = split_plan(M, N, K, bm, bn, bk,
+                                 _sm_count(a.device.index))
+        ws = (torch.empty((splits, M, N), dtype=torch.float32,
+                          device=a.device) if splits > 1 else None)
+        fn = _build.bind("zero_stall_matmul_sm90", _SM90_ARGTYPES,
+                         "zero_stall_sm90")
+        with _build.on_device(a.device):
+            code = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                      None if ws is None else ws.data_ptr(), M, N, K,
+                      sm90_rows(M, bm), bn, bk, slots, jik,
+                      int(out_dtype == torch.float32), int(trans_b), splits,
+                      per, stream)
+        _build.check("zero_stall_sm90", code)
+    else:
+        fn = _build.bind("zero_stall_matmul", _ARGTYPES)
+        with _build.on_device(a.device):
+            code = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), 1, M, N, K,
+                      bm, bn, bk, slots, jik, int(a.dtype == torch.bfloat16),
+                      int(out_dtype == torch.float32), int(trans_b),
+                      int(_vec_ok(a, b, K, N, trans_b)), stream)
+        _build.check("zero_stall_matmul", code)
     zero_stall_matmul.launches += 1
+    zero_stall_matmul.launches_by_design[kind] += 1
     return c
 
 
 zero_stall_matmul.launches = 0
+zero_stall_matmul.launches_by_design = {"sm90": 0, "ring": 0}
