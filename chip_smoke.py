@@ -12,7 +12,8 @@ Phases, each printed as it runs:
    shapes of the main paths (full-width gemma-7b and olmoe-1b-7b in
    bf16 and W8A8: the int8 kernels must be bit-equal; every bf16
    matmul on the TMA + wgmma design, every bf16 flash call on the
-   tensor-core design), plus the bf16 matmul at an aligned non-square
+   tensor-core design, every int8 matmul and bf16 grouped matmul on
+   its TMA + wgmma design), plus the bf16 matmul at an aligned non-square
    shape in both B layouts for every ring depth and grid order, with
    and without split-k, two calls of a split-k product bitwise equal,
    fp32 matmul at a ragged shape for every ring depth and grid order,
@@ -23,8 +24,12 @@ Phases, each printed as it runs:
    and paged attention with scattered
    page ids, a row parked on the trash page, a row with no valid column
    and a row whose length runs past its table, in bf16 at the decode
-   shape and in fp32 with four query heads per kv head; the int8 and
-   grouped kernels at a ragged shape in fp32 for every ring depth;
+   shape and in fp32 with four query heads per kv head; the int8
+   matmul at the aligned non-square (4, 80, 200) for every ring depth,
+   grid order and k tile of 128 and 256 codes, its int32 split-k twice
+   bitwise equal; the bf16 grouped matmul at ragged shapes for every
+   ring depth; the int8 and grouped kernels at a ragged shape in fp32
+   for every ring depth (the cp.async ring);
 4. the reduced gemma-7b and deepseek-coder-33b configs in fp32, plain
    and W8A8, and the reduced olmoe-1b-7b and granite-moe-1b-a400m
    configs with bf16 weights and W8A8: the serving engine's greedy
@@ -35,8 +40,9 @@ Phases, each printed as it runs:
 5. full-width gemma-7b (28 layers, random weights from a seed) in bf16
    serving 8 mixed-length requests through ``serve_batch``: prefill and
    decode tokens/s, each kernel's launch count against the count the
-   path implies (and, in 5-5e, every bf16 matmul and flash call on its
-   Hopper design), and the first prefill's logits against the plain path;
+   path implies (and, in 5-5e, every bf16 matmul, int8 matmul, bf16
+   grouped matmul and flash call on its Hopper design), and the first
+   prefill's logits against the plain path;
 5b. full-width gemma-7b paged: 8 requests behind one shared 64-token
    prefix through ``ServeEngine`` with 16-token pages and 96-token
    prefill chunks, run contiguous, paged, paged, contiguous on one copy
@@ -61,7 +67,10 @@ Phases, each printed as it runs:
    library call that computes the same function, timed the same way (a
    yardstick only: the port never calls it); the bf16 matmul's decode
    step at ring depths 1, 2 and 4, its split counts, and its step timed
-   eagerly (paced by the host) as well;
+   eagerly (paced by the host) as well; the int8 matmul's decode step at
+   ring depths 1, 2 and 4 and k tiles of 128 and 256 codes, its split
+   counts, and a 128-token prefill; the grouped matmul's decode step at
+   ring depths 1, 2 and 4, and a prefill;
 7. a ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, ...}`` line.
 
@@ -115,12 +124,14 @@ def ptxas_entries(report: str) -> list[tuple[str, str, int]]:
             ints = re.findall(r"Li(\d+)E", mangled)
             bits = [f[0] for f in mangled.split("Lb")[1:]]
             if "sm90_kernel" in mangled:
-                entry = (f"sm90 bn={64 * int(ints[0])} rows={ints[1]} "
-                         f"trans_b={bits[0]}")
+                dtype = "int8" if "sm90_kernelIa" in mangled else "bf16"
+                entry = (f"sm90 {dtype} bn={64 * int(ints[0])} "
+                         f"rows={ints[1]} trans_b={bits[0]}")
             elif "flash_tc_kernel" in mangled:
                 entry = f"tensor-core D={ints[0]} bkv={ints[1]}"
             elif "splitk_reduce" in mangled:
-                entry = "split-k reduce"
+                entry = ("split-k reduce "
+                         + ("int8" if "splitk_reduceIa" in mangled else "bf16"))
             else:
                 dtype = ("bf16" if "bfloat16" in mangled else
                          "int8" if "kernelIa" in mangled else "fp32")
@@ -224,13 +235,17 @@ def main() -> int:
          "launches": counts["paged_attention"],
          "max_abs_err": errs["paged_attention"], **timings["paged"]},
         {"name": "quantized_zero_stall_matmul", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/quantized_matmul.cu",
+         "source": "src/repro_torch/kernels/csrc/quantized_sm90.cu",
+         "design": "int8: TMA + mbarrier ring, int8 wgmma (swap AB), "
+                   "int32 split-k",
          "replaces": "src/repro/kernels/quantized_matmul.py:187",
          "launches": counts["quantized_zero_stall_matmul"],
          "max_abs_err": errs["quantized_zero_stall_matmul"],
          **timings["quantized"]},
         {"name": "grouped_zero_stall_matmul", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/zero_stall_matmul.cu",
+         "source": "src/repro_torch/kernels/csrc/zero_stall_sm90.cu",
+         "design": "bf16: TMA + mbarrier ring over rank-3 maps, wgmma "
+                   "(swap AB), persistent walk over the experts' tiles",
          "replaces": "src/repro/kernels/grouped_matmul.py:137",
          "launches": counts["grouped_zero_stall_matmul"],
          "max_abs_err": errs["grouped_zero_stall_matmul"],
@@ -537,23 +552,31 @@ def moe_capacity(tokens: int) -> int:
 
 def check_new_kernels(torch, kern) -> dict:
     """Phase 3 for the int8 and grouped kernels: bit-equal int8 products
-    at the W8A8 projection and expert shapes of gemma-7b and olmoe-1b-7b,
-    the bf16 grouped kernel at the expert shapes, and every ring depth at
-    a ragged fp32 shape."""
+    at the W8A8 projection shapes of gemma-7b and olmoe-1b-7b and the
+    bf16 grouped kernel at the expert shapes, all on the TMA + wgmma
+    design with the path's tiles; the int8 design at an aligned
+    non-square shape for every ring depth, grid order and two k tiles,
+    its split-k twice bitwise equal; the grouped design at ragged shapes
+    for every ring depth; the int8 grouped kernel, and the ring at a
+    ragged fp32 shape for every ring depth."""
     from repro_torch.kernels.ref import (grouped_matmul_ref,
                                          quantized_grouped_matmul_ref,
                                          quantized_matmul_ref)
+    from repro_torch.kernels.zero_stall_matmul import split_plan
+    from repro_torch.plan import KernelConfig
     from repro_torch.quant import quantize, quantize_rows
     q4 = kern["quantized_zero_stall_matmul"]
     g5 = kern["grouped_zero_stall_matmul"]
     q6 = kern["quantized_grouped_zero_stall_matmul"]
+    q4_kw = KernelConfig().matmul_kwargs(torch.int8)       # the path's
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     errs = {n: 0.0 for n in NEW_KERNELS}
     print("[3] int8 kernels against their plain versions: bit-equal; "
-          f"grouped bf16: |err| <= {BF16_TOL} * max|ref|, fp32: |err| <= "
-          f"{FP32_TOL} * max(1, max|ref|)", flush=True)
+          f"grouped bf16: per output row |err| <= {BF16_TOL} * that row's "
+          f"max|ref|, fp32: |err| <= {FP32_TOL} * max(1, max|ref|)",
+          flush=True)
 
     def rnd(*shape):
         return torch.randn(*shape, device=dev, generator=gen)
@@ -568,35 +591,89 @@ def check_new_kernels(torch, kern) -> dict:
               f"max|err| {diff:.3g}")
         require(torch.equal(got, want), f"{name} {what} is not bit-equal "
                 f"to its plain version")
+        return got
 
     def close(what, got, want, dtype):
-        err = (got.float() - want.float()).abs().max().item()
-        scale = want.float().abs().max().item()
+        """bf16 per output row (each row's |err| within BF16_TOL of that
+        row's largest magnitude), fp32 against the whole tensor's."""
+        got, want = got.float().flatten(0, -2), want.float().flatten(0, -2)
+        err = (got - want).abs().amax(-1)
+        scale = want.abs().amax(-1)
         tol = (BF16_TOL * scale if dtype == torch.bfloat16
-               else FP32_TOL * max(1.0, scale))
-        print(f"    grouped_zero_stall_matmul {what}: max|err| {err:.3g} "
-              f"(tol {tol:.3g})")
-        require(err <= tol, f"grouped_zero_stall_matmul {what} disagrees "
-                f"with its plain version: {err} > {tol}")
+               else FP32_TOL * max(1.0, scale.max().item()))
+        worst = (err / tol.clamp_min(1e-30) if dtype == torch.bfloat16
+                 else err / tol).max().item()
+        print(f"    grouped_zero_stall_matmul {what}: max|err| "
+              f"{err.max().item():.3g}, worst row |err|/tol {worst:.3g}")
+        require(bool((err <= tol).all()), f"grouped_zero_stall_matmul "
+                f"{what} disagrees with its plain version (worst |err|/tol "
+                f"{worst})")
         errs["grouped_zero_stall_matmul"] = max(
-            errs["grouped_zero_stall_matmul"], err)
+            errs["grouped_zero_stall_matmul"], err.max().item())
 
-    # kernel 4: every W8A8 projection of gemma-7b and olmoe-1b-7b
+    def by_design(name, before, want):
+        ran = {k: kern[name].launches_by_design[k] - before[k]
+               for k in before}
+        print(f"    {name} checks by design: {ran}")
+        require(ran == {**{k: 0 for k in ran}, **want},
+                f"{name}: designs {ran}, the checks imply {want}")
+
+    # kernel 4: every W8A8 projection of gemma-7b and olmoe-1b-7b with the
+    # path's tiles, then (4, 80, 200) -- the scales under swap AB, TMA
+    # boxes past every edge -- at every ring depth, grid order and k tile
     od = OLMOE["d"]
     shapes = [(f"gemma {n}", m, k, n_) for M in (GEMMA["slots"], 128)
               for n, m, k, n_, _ in gemma_matmul_shapes(M)]
     shapes += [(f"olmoe wq/wk/wv/wo", M, od, od) for M in (OLMOE["slots"],
                                                           128)]
+    before = dict(q4.launches_by_design)
     for what, M, K, N in shapes:
         x_q, x_s = quantize_rows(rnd(M, K).bfloat16())
         qw = quantize(rnd(K, N).bfloat16())
         exact("quantized_zero_stall_matmul", f"{what} M={M} K={K} N={N} "
               f"bf16 out", lambda: q4(x_q, qw.data, x_s, qw.scale,
-                                      out_dtype=torch.bfloat16),
+                                      out_dtype=torch.bfloat16, **q4_kw),
               quantized_matmul_ref(x_q, qw.data, x_s, qw.scale,
                                    torch.bfloat16))
+    x_q, x_s = quantize_rows(rnd(4, 80))
+    qw = quantize(rnd(80, 200))
+    n_odd = 0
+    for slots in (1, 2, 3):
+        for order in ("ijk", "jik"):
+            for bk in (128, 256):
+                for out in (torch.float32, torch.bfloat16):
+                    exact("quantized_zero_stall_matmul",
+                          f"4x80x200 slots={slots} {order} bk={bk} "
+                          f"{str(out).removeprefix('torch.')} out",
+                          lambda: q4(x_q, qw.data, x_s, qw.scale, bk=bk,
+                                     slots=slots, grid_order=order,
+                                     variant="single" if slots == 1
+                                     else "dobu", out_dtype=out),
+                          quantized_matmul_ref(x_q, qw.data, x_s, qw.scale,
+                                               out))
+                    n_odd += 1
+    # int32 split-k is exact and deterministic: two calls, the same bits
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for M in (GEMMA["slots"], 128):
+        K, N = GEMMA["ff"], GEMMA["d"]
+        x_q, x_s = quantize_rows(rnd(M, K))
+        qw = quantize(rnd(K, N))
+        splits, per = split_plan(M, N, K, 128, 128, q4_kw["bk"], sms)
+        first = exact("quantized_zero_stall_matmul", f"mlp wo M={M}, "
+                      f"{splits} splits of {per} k stages",
+                      lambda: q4(x_q, qw.data, x_s, qw.scale, **q4_kw),
+                      quantized_matmul_ref(x_q, qw.data, x_s, qw.scale))
+        exact("quantized_zero_stall_matmul", f"mlp wo M={M}, a second call",
+              lambda: q4(x_q, qw.data, x_s, qw.scale, **q4_kw), first)
+        require(splits > 1, "the int8 mlp wo ran no split-k")
+    by_design("quantized_zero_stall_matmul", before,
+              {"sm90": len(shapes) + n_odd + 4})
+
     # kernels 5 and 6: the olmoe expert banks at decode (C = 1) and at a
-    # 128-token prefill bucket (C = 20)
+    # 128-token prefill bucket (C = 20); kernel 5 on its TMA + wgmma
+    # design, kernel 6 on the ring
+    before = dict(g5.launches_by_design)
+    n_grouped = 0
     for M in (moe_capacity(OLMOE["slots"]), moe_capacity(128)):
         for what, G, m, K, N, _ in expert_shapes(M):
             a, b = rnd(G, m, K).bfloat16(), rnd(G, K, N).bfloat16()
@@ -606,6 +683,7 @@ def check_new_kernels(torch, kern) -> dict:
                     "did not launch its kernel")
             close(f"{what} G={G} M={m} K={K} N={N} bf16", got,
                   grouped_matmul_ref(a, b), torch.bfloat16)
+            n_grouped += 1
             x_q, x_s = quantize_rows(a)
             qw = quantize(b)
             exact("quantized_grouped_zero_stall_matmul", f"{what} G={G} "
@@ -615,8 +693,23 @@ def check_new_kernels(torch, kern) -> dict:
                   quantized_grouped_matmul_ref(x_q, qw.data, x_s, qw.scale,
                                                torch.bfloat16))
             del a, b, qw
+    # ragged K (72 < bk; 136 and 200 past a whole stage), N past a tile, M
+    # past 128 rows: rank-3 boxes zero-fill inside their own group
+    for G, M, K, N in ((5, 3, 72, 200), (5, 3, 200, 72), (3, 130, 136, 264)):
+        a, b = rnd(G, M, K).bfloat16(), rnd(G, K, N).bfloat16()
+        want = grouped_matmul_ref(a, b)
+        for slots in (1, 2, 3):
+            close(f"ragged {G}x{M}x{K}x{N} bf16 slots={slots}",
+                  g5(a, b, slots=slots,
+                     variant="single" if slots == 1 else "dobu"),
+                  want, torch.bfloat16)
+            n_grouped += 1
+    by_design("grouped_zero_stall_matmul", before, {"sm90": n_grouped})
     # a ragged shape in fp32 at every ring depth (and, for kernel 4, both
-    # grid orders): the element-wise loaders and every mask
+    # grid orders): the cp.async ring's element-wise loaders and masks
+    before = {n: dict(kern[n].launches_by_design)
+              for n in ("quantized_zero_stall_matmul",
+                        "grouped_zero_stall_matmul")}
     a, b = rnd(37, 45), rnd(45, 29)
     ga, gb = rnd(5, 3, 45), rnd(5, 45, 29)
     x_q, x_s = quantize_rows(a)
@@ -639,6 +732,10 @@ def check_new_kernels(torch, kern) -> dict:
               lambda: q6(gx_q, gqw.data, gx_s, gqw.scale, bm=32, bn=32,
                          bk=32, **ring),
               quantized_grouped_matmul_ref(gx_q, gqw.data, gx_s, gqw.scale))
+    by_design("quantized_zero_stall_matmul",
+              before["quantized_zero_stall_matmul"], {"ring": 6})
+    by_design("grouped_zero_stall_matmul",
+              before["grouped_zero_stall_matmul"], {"ring": 3})
     torch.cuda.synchronize()
     return errs
 
@@ -744,14 +841,17 @@ def reset_counts(kern) -> None:
 
 
 def check_designs(label: str, kern) -> None:
-    """Every matmul and flash call of a full-width bf16 run went through
-    the Hopper designs: none took the cp.async ring or the CUDA-core
-    flash kernel."""
-    mm = kern["zero_stall_matmul"].launches_by_design
-    fa = kern["flash_attention"].launches_by_design
-    print(f"      by design: zero_stall_matmul {mm}, flash_attention {fa}")
-    require(mm["ring"] == 0 and fa["cuda_core"] == 0,
-            f"{label}: a bf16 matmul or flash call left the Hopper designs")
+    """Every bf16 matmul (plain and grouped), int8 matmul and flash call
+    of a full-width run went through the Hopper designs: none took the
+    cp.async ring or the CUDA-core flash kernel."""
+    designs = {n: kern[n].launches_by_design for n in (
+        "zero_stall_matmul", "quantized_zero_stall_matmul",
+        "grouped_zero_stall_matmul", "flash_attention")}
+    print("      by design: " + ", ".join(f"{n} {d}"
+                                          for n, d in designs.items()))
+    require(all(d.get("ring", 0) == 0 and d.get("cuda_core", 0) == 0
+                for d in designs.values()),
+            f"{label}: a matmul or flash call left the Hopper designs")
 
 
 def serve_full_width(torch, kern):
@@ -1400,73 +1500,110 @@ def bound(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
 
 
 def time_new_kernels(torch, kern) -> dict:
-    """Phase 6 for kernels 4-6 at their decode shapes: one gemma-7b W8A8
-    decode step's 196 projections (M = 4), one olmoe-1b-7b decode step's
-    48 expert banks (G = 64, M = C = 1) in bf16 and in int8."""
+    """Phase 6 for kernels 4-6: one gemma-7b W8A8 decode step's 196
+    projections (M = 4) on the int8 TMA + wgmma design at ring depths 1,
+    2 and 4 (and its stage of 128 codes beside the path's 256), one
+    128-token prefill's; one olmoe-1b-7b decode step's 48 expert banks
+    (G = 64, M = C = 1) in bf16 on the persistent grouped design at ring
+    depths 1, 2 and 4, and a prefill's (C = 20); the int8 banks on the
+    ring."""
     import math
 
     from repro_torch.kernels.ref import (grouped_matmul_ref,
                                          quantized_grouped_matmul_ref,
                                          quantized_matmul_ref)
+    from repro_torch.kernels.zero_stall_matmul import split_plan
+    from repro_torch.plan import KernelConfig
     from repro_torch.quant import quantize, quantize_rows
     q4 = kern["quantized_zero_stall_matmul"]
     g5 = kern["grouped_zero_stall_matmul"]
     q6 = kern["quantized_grouped_zero_stall_matmul"]
+    q4_bk = KernelConfig().matmul_kwargs(torch.int8)["bk"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     dev = "cuda"
     out = {}
 
     def copies(nbytes):
         return max(1, math.ceil(128 * 2 ** 20 / nbytes))
 
-    # kernel 4: the 196 int8 projections of a gemma-7b decode step
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "nbytes": 0.0,
-           "ops": 0.0}
-    refused = None
-    M = GEMMA["slots"]
-    for name, m, K, N, calls in gemma_matmul_shapes(M):
-        n = calls * GEMMA["layers"]
-        x_q, x_s = quantize_rows(torch.randn(m, K, device=dev))
-        qws = [quantize(torch.randn(K, N, device=dev))
-               for _ in range(copies(K * N))]
-        ms = time_ms(torch, [lambda w=w: q4(x_q, w.data, x_s, w.scale,
-                                            out_dtype=torch.bfloat16)
-                             for w in qws])
-        plain = time_ms(torch, [lambda w=w: quantized_matmul_ref(
-            x_q, w.data, x_s, w.scale, torch.bfloat16) for w in qws],
-            iters=5, graph=False)
-        try:
-            lib = time_ms(torch, [lambda w=w: torch._int_mm(x_q, w.data)
-                                  for w in qws])
-        except RuntimeError as e:
-            refused = str(e).splitlines()[0][:160]
-            pad = torch.zeros(32, K, dtype=torch.int8, device=dev)
-            pad[:m] = x_q
-            lib = time_ms(torch, [lambda w=w: torch._int_mm(pad, w.data)
-                                  for w in qws])
-            lib_note = f"torch._int_mm refused M={m}; at M=32 {lib:.4f}"
-        else:
-            lib_note = f"torch._int_mm {lib:.4f}"
-        nbytes = m * K + K * N + 4 * (m + N) + 2 * m * N
-        b, by = bound(nbytes, 2 * m * N * K, "int8")
-        print(f"    quantized_zero_stall_matmul gemma {name} M={m} K={K} "
-              f"N={N}: {ms:.4f} ms (plain {plain:.4f}, {lib_note}, bound "
-              f"{b:.4f} by {by}) x {n} a step")
-        for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
-                       ("nbytes", nbytes), ("ops", 2 * m * N * K)):
-            tot[key] += v * n
-        del qws
-    b, by = bound(tot["nbytes"], tot["ops"], "int8")
-    lib = None if refused else tot["library_ms"]
+    def ring(slots):
+        return dict(slots=slots, variant="single" if slots == 1 else "dobu")
+
+    def add(tot, cell, n):
+        for key, v in cell.items():
+            tot[key] = tot.get(key, 0.0) + v * n
+
+    # kernel 4: the 196 int8 projections of a gemma-7b pass over M rows
+    def int8_step(M, depths, bks, library):
+        tot, refused = {}, None
+        for name, m, K, N, calls in gemma_matmul_shapes(M):
+            n = calls * GEMMA["layers"]
+            x_q, x_s = quantize_rows(torch.randn(m, K, device=dev))
+            qws = [quantize(torch.randn(K, N, device=dev))
+                   for _ in range(copies(K * N))]
+            cell = {}
+            for bk in bks:
+                for slots in depths:
+                    cell[f"bk{bk} slots{slots}"] = time_ms(torch, [
+                        lambda w=w: q4(x_q, w.data, x_s, w.scale, bk=bk,
+                                       out_dtype=torch.bfloat16,
+                                       **ring(slots)) for w in qws])
+            cell["ms"] = cell[f"bk{q4_bk} slots2"]
+            cell["plain_ms"] = time_ms(torch, [lambda w=w: quantized_matmul_ref(
+                x_q, w.data, x_s, w.scale, torch.bfloat16) for w in qws],
+                iters=5, graph=False)
+            lib_note = ""
+            if library:
+                try:
+                    cell["library_ms"] = time_ms(torch, [
+                        lambda w=w: torch._int_mm(x_q, w.data) for w in qws])
+                    lib_note = f"torch._int_mm {cell['library_ms']:.4f}"
+                except RuntimeError as e:
+                    refused = str(e).splitlines()[0][:160]
+                    pad = torch.zeros(32, K, dtype=torch.int8, device=dev)
+                    pad[:m] = x_q
+                    cell["library_ms"] = time_ms(torch, [
+                        lambda w=w: torch._int_mm(pad, w.data) for w in qws])
+                    lib_note = (f"torch._int_mm refused M={m}; at M=32 "
+                                f"{cell['library_ms']:.4f}")
+            cell["nbytes"] = m * K + K * N + 4 * (m + N) + 2 * m * N
+            cell["ops"] = 2 * m * N * K
+            b, by = bound(cell["nbytes"], cell["ops"], "int8")
+            splits, per = split_plan(m, N, K, 128, 128, q4_bk, sms)
+            others = ", ".join(f"{k} {v:.4f}" for k, v in cell.items()
+                               if k.startswith("bk"))
+            print(f"    quantized_zero_stall_matmul gemma {name} M={m} K={K} "
+                  f"N={N}: {cell['ms']:.4f} ms ({others}; {splits} split(s) "
+                  f"of {per} k stages of {q4_bk}; plain "
+                  f"{cell['plain_ms']:.4f}{', ' + lib_note if lib_note else ''}"
+                  f", bound {b:.4f} by {by}) x {n} a pass")
+            add(tot, cell, n)
+            del qws
+        return tot, refused
+
+    dec, refused = int8_step(GEMMA["slots"], (2, 1, 4),
+                             sorted({128, q4_bk}), True)
+    b, by = bound(dec["nbytes"], dec["ops"], "int8")
     print(f"    quantized_zero_stall_matmul, one gemma-7b W8A8 decode step "
-          f"(M=4), {7 * GEMMA['layers']} launches: {tot['ms']:.3f} ms "
-          f"(plain {tot['plain_ms']:.3f}, torch._int_mm "
+          f"(M=4), {7 * GEMMA['layers']} launches: {dec['ms']:.3f} ms (plain "
+          f"{dec['plain_ms']:.3f}, torch._int_mm "
           + (f"refused M=4 ({refused}); padded to M=32 "
-             f"{tot['library_ms']:.3f}" if refused
-             else f"{tot['library_ms']:.3f}")
-          + f", bound {b:.3f} by {by}: "
-          f"{tot['nbytes'] / 1e9:.2f} GB)")
-    out["quantized"] = {"ms": tot["ms"], "plain_ms": tot["plain_ms"],
-                        "bound_ms": b, "bound_by": by, "library_ms": lib}
+             f"{dec['library_ms']:.3f}" if refused
+             else f"{dec['library_ms']:.3f}")
+          + f", bound {b:.3f} by {by}: {dec['nbytes'] / 1e9:.2f} GB)")
+    print(f"    quantized_zero_stall_matmul, one decode step by ring depth "
+          f"and k tile: " + ", ".join(f"{k} {v:.3f} ms" for k, v in
+                                       dec.items() if k.startswith("bk")))
+    out["quantized"] = {"ms": dec["ms"], "plain_ms": dec["plain_ms"],
+                        "bound_ms": b, "bound_by": by,
+                        "library_ms": None if refused
+                        else dec["library_ms"]}
+    pre, _ = int8_step(128, (2,), (q4_bk,), True)
+    b, by = bound(pre["nbytes"], pre["ops"], "int8")
+    print(f"    quantized_zero_stall_matmul, one 128-token W8A8 prefill "
+          f"(M=128), {7 * GEMMA['layers']} launches: {pre['ms']:.3f} ms "
+          f"(plain {pre['plain_ms']:.3f}, torch._int_mm "
+          f"{pre['library_ms']:.3f}, bound {b:.3f} by {by})")
 
     # kernels 1 and 4 at olmoe-1b-7b's decode projections (printed for
     # the breakdown of phases 5c and 5d)
@@ -1479,7 +1616,7 @@ def time_new_kernels(torch, kern) -> dict:
     xb = x.bfloat16()
     mm = time_ms(torch, [lambda w=w: kern["zero_stall_matmul"](xb, w)
                          for w in ws])
-    qm = time_ms(torch, [lambda w=w: q4(x_q, w.data, x_s, w.scale,
+    qm = time_ms(torch, [lambda w=w: q4(x_q, w.data, x_s, w.scale, bk=q4_bk,
                                         out_dtype=torch.bfloat16)
                          for w in qws])
     head = [torch.randn(d, OLMOE["V"], device=dev).bfloat16()
@@ -1493,62 +1630,87 @@ def time_new_kernels(torch, kern) -> dict:
           f"W8A8 {4 * L * qm + hm:.3f} ms")
     del ws, qws, head
 
-    # kernels 5 and 6: the 48 expert banks of an olmoe-1b-7b decode step
-    C = moe_capacity(OLMOE["slots"])
-    for key, name, int8 in (("grouped", "grouped_zero_stall_matmul", False),
-                            ("quantized_grouped",
-                             "quantized_grouped_zero_stall_matmul", True)):
-        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-               "nbytes": 0.0, "ops": 0.0}
+    # kernels 5 and 6: the 48 expert banks of an olmoe-1b-7b pass
+    def banks(C, int8, depths):
+        tot = {}
         for what, G, m, K, N, calls in expert_shapes(C):
             n = calls * OLMOE["layers"]
             a = torch.randn(G, m, K, device=dev)
             bs = [torch.randn(G, K, N, device=dev)
                   for _ in range(copies(G * K * N))]
+            cell = {}
             if int8:
+                name = "quantized_grouped_zero_stall_matmul"
                 x_q, x_s = quantize_rows(a)
                 qws = [quantize(b) for b in bs]
                 del bs
-                ms = time_ms(torch, [lambda w=w: q6(
+                cell["ms"] = time_ms(torch, [lambda w=w: q6(
                     x_q, w.data, x_s, w.scale, out_dtype=torch.bfloat16)
                     for w in qws])
-                plain = time_ms(torch, [lambda w=w: quantized_grouped_matmul_ref(
-                    x_q, w.data, x_s, w.scale, torch.bfloat16) for w in qws],
-                    iters=5, graph=False)
-                lib, lib_note = 0.0, "no library call"
-                nbytes = G * m * K + G * K * N + 4 * G * (m + N) + 2 * G * m * N
+                cell["plain_ms"] = time_ms(torch, [
+                    lambda w=w: quantized_grouped_matmul_ref(
+                        x_q, w.data, x_s, w.scale, torch.bfloat16)
+                    for w in qws], iters=5, graph=False)
+                lib_note = "no library call"
+                cell["nbytes"] = (G * m * K + G * K * N + 4 * G * (m + N)
+                                  + 2 * G * m * N)
                 del qws
             else:
+                name = "grouped_zero_stall_matmul"
                 a = a.bfloat16()
                 bs = [b.bfloat16() for b in bs]
-                ms = time_ms(torch, [lambda b=b: g5(a, b) for b in bs])
-                plain = time_ms(torch, [lambda b=b: grouped_matmul_ref(a, b)
-                                        for b in bs], iters=5, graph=False)
-                lib = time_ms(torch, [lambda b=b: torch.bmm(a, b)
-                                      for b in bs])
-                lib_note = f"torch.bmm {lib:.4f}"
-                nbytes = 2 * (G * m * K + G * K * N + G * m * N)
+                for slots in depths:
+                    cell[f"slots{slots}"] = time_ms(torch, [
+                        lambda b=b: g5(a, b, **ring(slots)) for b in bs])
+                cell["ms"] = cell["slots2"]
+                cell["plain_ms"] = time_ms(torch, [
+                    lambda b=b: grouped_matmul_ref(a, b) for b in bs],
+                    iters=5, graph=False)
+                cell["library_ms"] = time_ms(torch, [
+                    lambda b=b: torch.bmm(a, b) for b in bs])
+                lib_note = f"torch.bmm {cell['library_ms']:.4f}"
+                cell["nbytes"] = 2 * (G * m * K + G * K * N + G * m * N)
                 del bs
-            ops = 2 * G * m * K * N
-            b, by = bound(nbytes, ops, "int8" if int8 else "bfloat16")
+            cell["ops"] = 2 * G * m * K * N
+            b, by = bound(cell["nbytes"], cell["ops"],
+                          "int8" if int8 else "bfloat16")
+            others = ", ".join(f"{k} {v:.4f}" for k, v in cell.items()
+                               if k.startswith("slots"))
             print(f"    {name} olmoe {what} G={G} M={m} K={K} N={N}: "
-                  f"{ms:.4f} ms (plain {plain:.4f}, {lib_note}, bound "
-                  f"{b:.4f} by {by}) x {n} a step")
-            for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
-                         ("nbytes", nbytes), ("ops", ops)):
-                tot[k] += v * n
+                  f"{cell['ms']:.4f} ms ({others + '; ' if others else ''}"
+                  f"plain {cell['plain_ms']:.4f}, {lib_note}, bound "
+                  f"{b:.4f} by {by}) x {n} a pass")
+            add(tot, cell, n)
         b, by = bound(tot["nbytes"], tot["ops"], "int8" if int8
                       else "bfloat16")
+        return tot, b, by
+
+    C = moe_capacity(OLMOE["slots"])
+    for key, name, int8 in (("grouped", "grouped_zero_stall_matmul", False),
+                            ("quantized_grouped",
+                             "quantized_grouped_zero_stall_matmul", True)):
+        tot, b, by = banks(C, int8, (2, 1, 4))
         print(f"    {name}, one olmoe-1b-7b decode step (C={C}), "
               f"{3 * OLMOE['layers']} launches: {tot['ms']:.3f} ms (plain "
               f"{tot['plain_ms']:.3f}"
               + ("" if int8 else f", torch.bmm {tot['library_ms']:.3f}")
               + f", bound {b:.3f} by {by}: {tot['nbytes'] / 1e9:.2f} GB)")
+        if not int8:
+            print(f"    {name}, one decode step by ring depth: "
+                  + ", ".join(f"{k} {v:.3f} ms" for k, v in tot.items()
+                              if k.startswith("slots")))
         out[key] = {"ms": tot["ms"], "plain_ms": tot["plain_ms"],
                     "bound_ms": b, "bound_by": by,
                     "library_ms": None if int8 else tot["library_ms"]}
+    Cp = moe_capacity(128)
+    tot, b, by = banks(Cp, False, (2,))
+    print(f"    grouped_zero_stall_matmul, one olmoe-1b-7b 128-token prefill "
+          f"(C={Cp}), {3 * OLMOE['layers']} launches: {tot['ms']:.3f} ms "
+          f"(plain {tot['plain_ms']:.3f}, torch.bmm {tot['library_ms']:.3f}, "
+          f"bound {b:.3f} by {by})")
     torch.cuda.empty_cache()
     return out
+
 
 if __name__ == "__main__":
     sys.exit(main())

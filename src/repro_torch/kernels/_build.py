@@ -32,7 +32,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = _ROOT / "build" / "repro_torch"
 SOURCES = ("zero_stall_matmul", "zero_stall_sm90", "quantized_matmul",
-           "flash_attention", "paged_attention")
+           "quantized_sm90", "flash_attention", "paged_attention")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

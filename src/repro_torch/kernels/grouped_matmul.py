@@ -1,34 +1,71 @@
-"""Grouped zero-stall matmul: the wrapper of ``csrc/zero_stall_matmul.cu``
-launched over G groups.
-
-C_g = A_g @ B_g for every group g (the MoE expert FFNs) through the
-N-slot revolving buffer of ``csrc/zero_stall_ring.cuh``, one grid axis
-over the groups (see the header notes of the CUDA sources for the
-schedule, its bound on the H100 and what the design does about it).
-Replaces the Pallas TPU kernel
+"""Grouped zero-stall matmul: C_g = A_g @ B_g for G groups (the MoE
+expert FFNs).  Replaces the Pallas TPU kernel
 ``repro.kernels.grouped_matmul.grouped_zero_stall_matmul``.
 
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
-tensor it runs the plain version
+The design follows the rule of
+:func:`~repro_torch.kernels.zero_stall_matmul.select_design`:
+
+- ``"sm90"`` (``csrc/zero_stall_sm90.cu``): bf16 operands whose rows TMA
+  can address (K % 8 == 0, N % 8 == 0, 16-byte aligned bases).  The TMA
+  + wgmma ring of the plain product with rank-3 tensor maps over (G,
+  rows, columns), launched persistent: :func:`grouped_blocks` blocks
+  (about one per SM) each walk the output tiles ``b, b + blocks, ...`` of
+  the g-major (g, i, j) order (:func:`grouped_walk`) and run one ring
+  across their tiles and experts, so the ring never drains between
+  tiles, as the Pallas kernel's ring runs across group boundaries.
+- ``"ring"`` (``csrc/zero_stall_matmul.cu`` over
+  ``zero_stall_ring.cuh``): fp32 and ragged bf16, one cp.async ring a
+  block, one grid axis over the groups.
+
+On a CUDA tensor the wrapper launches its design's kernel or raises; on
+a CPU tensor it runs the plain version
 :func:`repro_torch.kernels.ref.grouped_matmul_ref`.  Ragged shapes are
-masked inside the kernel, so no operand is padded.
-``grouped_zero_stall_matmul.launches`` counts kernel launches.
+masked inside the kernels, so no operand is padded.
+``grouped_zero_stall_matmul.launches`` counts kernel launches and
+``.launches_by_design`` splits them by design.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import grouped_matmul_ref
 from repro_torch.kernels.zero_stall_matmul import (_ARGTYPES, _check_config,
-                                                   _vec_ok)
+                                                   _check_sm90_config,
+                                                   _sm_count, _vec_ok,
+                                                   select_design, sm90_rows)
 from repro_torch.plan.config import resolve_slots
 
-__all__ = ["grouped_zero_stall_matmul", "MAX_GROUPS"]
+__all__ = ["grouped_zero_stall_matmul", "grouped_blocks", "grouped_walk",
+           "MAX_GROUPS"]
 
-MAX_GROUPS = 65535           # gridDim.y
+MAX_GROUPS = 65535           # gridDim.y of the ring's launch
 _DTYPES = (torch.float32, torch.bfloat16)
+# a, b, c, G, M, N, K, rows, bn, bk, slots, fp32 out, blocks, stream
+_SM90_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 \
+    + [ctypes.c_void_p]
+
+
+def grouped_blocks(G: int, M: int, N: int, rows: int, bn: int,
+                   sms: int) -> int:
+    """Blocks of the persistent sm90 launch: one per SM, or one per
+    output tile when the G * ceil(M / rows) * ceil(N / bn) tiles are
+    fewer."""
+    return max(1, min(sms, G * -(-M // rows) * -(-N // bn)))
+
+
+def grouped_walk(G: int, M: int, N: int, rows: int, bn: int,
+                 sms: int) -> list[list[tuple[int, int, int]]]:
+    """The output tiles (g, i, j) that each block of the persistent sm90
+    launch walks, in order: block b takes tiles b, b + blocks, ... of
+    the g-major, then i, then j order, as the kernel's ``locate`` does."""
+    gm, gn = -(-M // rows), -(-N // bn)
+    blocks = grouped_blocks(G, M, N, rows, bn, sms)
+    return [[(t // (gm * gn), t % (gm * gn) // gn, t % gn)
+             for t in range(b, G * gm * gn, blocks)] for b in range(blocks)]
 
 
 def grouped_zero_stall_matmul(a: torch.Tensor, b: torch.Tensor, *,
@@ -40,7 +77,9 @@ def grouped_zero_stall_matmul(a: torch.Tensor, b: torch.Tensor, *,
     """C (G, M, N) = A (G, M, K) @ B (G, K, N) per group.
 
     ``slots`` sets the ring depth (None -> 2 for "dobu", 1 for
-    "single").  The result has ``out_dtype`` (default: A's).
+    "single").  The result has ``out_dtype`` (default: A's).  The design
+    follows :func:`~repro_torch.kernels.zero_stall_matmul.select_design`;
+    tiles that design cannot take raise ``ValueError``.
     """
     if a.dim() != 3 or b.dim() != 3:
         raise ValueError(f"grouped_zero_stall_matmul: 3-D operands expected, "
@@ -71,23 +110,40 @@ def grouped_zero_stall_matmul(a: torch.Tensor, b: torch.Tensor, *,
         raise ValueError(f"grouped_zero_stall_matmul: at most {MAX_GROUPS} "
                          f"groups of int32-indexable size, got "
                          f"{(G, M, K, N)}")
-    _check_config(bm, bn, bk, slots, a.dtype, False,
-                  "grouped_zero_stall_matmul")
+    kind = select_design(a.dtype, K, N, False, a.data_ptr(), b.data_ptr())
+    if kind == "sm90":
+        _check_sm90_config(M, bm, bn, bk, slots,
+                           kernel="grouped_zero_stall_matmul")
+    else:
+        _check_config(bm, bn, bk, slots, a.dtype, False,
+                      "grouped_zero_stall_matmul")
     c = torch.empty((G, M, N), dtype=out_dtype, device=a.device)
     if c.numel() == 0:
         return c
     if K == 0:
         return c.zero_()
-    fn = _build.bind("zero_stall_matmul", _ARGTYPES)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    with _build.on_device(a.device):
-        code = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), G, M, N, K, bm,
-                  bn, bk, slots, 0, int(a.dtype == torch.bfloat16),
-                  int(out_dtype == torch.float32), 0,
-                  int(_vec_ok(a, b, K, N, False)), stream)
-    _build.check("zero_stall_matmul", code)
+    out_f32 = int(out_dtype == torch.float32)
+    if kind == "sm90":
+        rows = sm90_rows(M, bm)
+        blocks = grouped_blocks(G, M, N, rows, bn, _sm_count(a.device.index))
+        fn = _build.bind("grouped_zero_stall_matmul_sm90", _SM90_ARGTYPES,
+                         "zero_stall_sm90")
+        with _build.on_device(a.device):
+            code = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), G, M, N, K,
+                      rows, bn, bk, slots, out_f32, blocks, stream)
+        _build.check("zero_stall_sm90", code)
+    else:
+        fn = _build.bind("zero_stall_matmul", _ARGTYPES)
+        with _build.on_device(a.device):
+            code = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), G, M, N, K,
+                      bm, bn, bk, slots, 0, int(a.dtype == torch.bfloat16),
+                      out_f32, 0, int(_vec_ok(a, b, K, N, False)), stream)
+        _build.check("zero_stall_matmul", code)
     grouped_zero_stall_matmul.launches += 1
+    grouped_zero_stall_matmul.launches_by_design[kind] += 1
     return c
 
 
 grouped_zero_stall_matmul.launches = 0
+grouped_zero_stall_matmul.launches_by_design = {"sm90": 0, "ring": 0}

@@ -1,21 +1,31 @@
-"""Int8 zero-stall matmuls: the wrappers of ``csrc/quantized_matmul.cu``.
+"""Int8 zero-stall matmuls: the wrappers of the int8 kernels.
 
 ``quantized_zero_stall_matmul`` computes C = (A_q @ B_q) * a_scale *
 b_scale for int8 codes with an exact int32 accumulator and a fused
 dequantising epilogue; ``quantized_grouped_zero_stall_matmul`` does the
-same per group (the W8A8 MoE expert FFNs).  Both run the N-slot
-revolving buffer of ``csrc/zero_stall_ring.cuh`` (see the header notes
-of the CUDA sources for the schedule, its bound on the H100 and what
-the design does about it).  They replace the Pallas TPU kernels of
-``repro.kernels.quantized_matmul``.
+same per group (the W8A8 MoE expert FFNs).  They replace the Pallas TPU
+kernels of ``repro.kernels.quantized_matmul``.
+
+``quantized_zero_stall_matmul`` picks its design by the rule of
+:func:`~repro_torch.kernels.zero_stall_matmul.select_design`: codes whose
+rows TMA can address (K % 16 == 0, 16-byte aligned bases) run
+``"sm90"``, the TMA + wgmma ring of ``csrc/quantized_sm90.cu`` (int8
+wgmma with swap AB and int32 split-k, see :func:`split_plan`); other
+shapes run ``"ring"``, the cp.async ring of ``csrc/quantized_matmul.cu``.
+The grouped product runs the ring.  The header notes of the CUDA
+sources give each schedule, its bound on the H100 and what the design
+does about it.
 
 B is given with the JAX package's logical (..., K, N) shape, but on the
 card it must be the transposed view of a contiguous (..., N, K) buffer
 (``b.mT.is_contiguous()``), the K-major layout the port's
-:class:`~repro_torch.quant.QTensor` stores: the int8 tensor-core
-fragments of B cannot be loaded transposed.  On a CPU tensor the
-wrappers run the plain versions in :mod:`repro_torch.kernels.ref`, which
-take any layout.  ``.launches`` on each wrapper counts kernel launches.
+:class:`~repro_torch.quant.QTensor` stores: int8 wgmma and the int8
+tensor-core fragments of the ring read K-major operands only.  On a CPU
+tensor the wrappers run the plain versions in
+:mod:`repro_torch.kernels.ref`, which take any layout.  ``.launches`` on
+each wrapper counts kernel launches, and
+``quantized_zero_stall_matmul.launches_by_design`` splits them by
+design.
 """
 
 from __future__ import annotations
@@ -28,7 +38,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.grouped_matmul import MAX_GROUPS
 from repro_torch.kernels.ref import (quantized_grouped_matmul_ref,
                                      quantized_matmul_ref)
-from repro_torch.kernels.zero_stall_matmul import _check_config, _vec_ok
+from repro_torch.kernels.zero_stall_matmul import (_check_config,
+                                                   _check_sm90_config,
+                                                   _sm_count, _vec_ok,
+                                                   select_design, sm90_rows,
+                                                   split_plan)
 from repro_torch.plan.config import resolve_slots
 
 __all__ = ["quantized_zero_stall_matmul",
@@ -39,6 +53,10 @@ _OUT_DTYPES = (torch.float32, torch.bfloat16)
 # jik, fp32 out, vec; grouped: G, M, N, K, bm, bn, bk, slots, fp32 out,
 # vec), then the stream
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+# a, b, a_scale, b_scale, c, workspace, M, N, K, rows, bn, bk, slots, jik,
+# fp32 out, splits, steps per split, stream
+_SM90_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 \
+    + [ctypes.c_void_p]
 
 
 def _check_operands(kernel: str, a, b, a_scale, b_scale, out_dtype):
@@ -95,7 +113,9 @@ def quantized_zero_stall_matmul(a: torch.Tensor, b: torch.Tensor,
 
     a: (M, K) int8 codes; b: (K, N) int8 codes (K-major on the card);
     a_scale (M, 1) and b_scale (1, N) fp32.  ``slots``/``variant`` set the
-    ring depth, ``grid_order`` the rasterisation ("ijk" or "jik").
+    ring depth, ``grid_order`` the rasterisation ("ijk" or "jik").  The
+    design follows :func:`~repro_torch.kernels.zero_stall_matmul.select_design`;
+    tiles that design cannot take raise ``ValueError``.
     """
     kernel = "quantized_zero_stall_matmul"
     if a.dim() != 2 or b.dim() != 2:
@@ -111,22 +131,42 @@ def quantized_zero_stall_matmul(a: torch.Tensor, b: torch.Tensor,
     _check_card(kernel, a, b, a_scale, b_scale)
     if max(M, N, K) >= 2 ** 31:
         raise ValueError(f"{kernel}: dimensions must fit in int32")
-    _check_config(bm, bn, bk, slots, torch.int8, True, kernel)
+    kind = select_design(torch.int8, K, N, True, a.data_ptr(), b.data_ptr())
+    if kind == "sm90":
+        _check_sm90_config(M, bm, bn, bk, slots, torch.int8, kernel)
+    else:
+        _check_config(bm, bn, bk, slots, torch.int8, True, kernel)
     c = torch.empty((M, N), dtype=out_dtype, device=a.device)
     if M == 0 or N == 0:
         return c
     if K == 0:
         return c.zero_()
-    fn = _build.bind(kernel, _ARGTYPES, source="quantized_matmul")
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    with _build.on_device(a.device):
-        code = fn(a.data_ptr(), b.data_ptr(), a_scale.data_ptr(),
-                  b_scale.data_ptr(), c.data_ptr(), M, N, K, bm, bn, bk,
-                  slots, int(grid_order == "jik"),
-                  int(out_dtype == torch.float32),
-                  int(_vec_ok(a, b, K, N, True)), stream)
-    _build.check("quantized_matmul", code)
+    jik, out_f32 = int(grid_order == "jik"), int(out_dtype == torch.float32)
+    if kind == "sm90":
+        splits, per = split_plan(M, N, K, bm, bn, bk,
+                                 _sm_count(a.device.index))
+        ws = (torch.empty((splits, M, N), dtype=torch.int32,
+                          device=a.device) if splits > 1 else None)
+        fn = _build.bind("quantized_zero_stall_matmul_sm90", _SM90_ARGTYPES,
+                         "quantized_sm90")
+        with _build.on_device(a.device):
+            code = fn(a.data_ptr(), b.data_ptr(), a_scale.data_ptr(),
+                      b_scale.data_ptr(), c.data_ptr(),
+                      None if ws is None else ws.data_ptr(), M, N, K,
+                      sm90_rows(M, bm), bn, bk, slots, jik, out_f32, splits,
+                      per, stream)
+        _build.check("quantized_sm90", code)
+    else:
+        fn = _build.bind(kernel, _ARGTYPES, source="quantized_matmul")
+        with _build.on_device(a.device):
+            code = fn(a.data_ptr(), b.data_ptr(), a_scale.data_ptr(),
+                      b_scale.data_ptr(), c.data_ptr(), M, N, K, bm, bn, bk,
+                      slots, jik, out_f32, int(_vec_ok(a, b, K, N, True)),
+                      stream)
+        _build.check("quantized_matmul", code)
     quantized_zero_stall_matmul.launches += 1
+    quantized_zero_stall_matmul.launches_by_design[kind] += 1
     return c
 
 
@@ -174,4 +214,5 @@ def quantized_grouped_zero_stall_matmul(a: torch.Tensor, b: torch.Tensor,
 
 
 quantized_zero_stall_matmul.launches = 0
+quantized_zero_stall_matmul.launches_by_design = {"sm90": 0, "ring": 0}
 quantized_grouped_zero_stall_matmul.launches = 0

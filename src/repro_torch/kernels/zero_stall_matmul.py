@@ -2,25 +2,28 @@
 
 C = A @ B through an N-slot shared-memory revolving buffer.  Replaces
 the Pallas TPU kernel ``repro.kernels.zero_stall_matmul.zero_stall_matmul``.
-One rule picks the design (:func:`select_design`):
+One rule picks the design (:func:`select_design`), for this product and
+for the grouped and int8 wrappers alike:
 
-- ``"sm90"`` (``csrc/zero_stall_sm90.cu``): bf16 operands that TMA can
-  address (K % 8 == 0, N % 8 == 0 for a row-major B, 16-byte aligned
-  bases).  A TMA-filled ring with one full/empty mbarrier pair per
+- ``"sm90"`` (``csrc/zero_stall_sm90.cu`` over ``zero_stall_sm90.cuh``):
+  tensor-core operands (bf16 here) whose rows TMA can address (16-byte
+  multiples from 16-byte aligned bases: K % 8 == 0, N % 8 == 0 for a
+  row-major B).  A TMA-filled ring with one full/empty mbarrier pair per
   stage, a producer warp and a consumer warpgroup running ``wgmma``.  It
   computes C^T = B^T A^T ("swap AB"): the weight's N side fills wgmma's
   64 rows and the M rows of A are the instruction's N side.  The tile
   parameters keep their meaning: a block owns at most bm x bn outputs,
   namely ``min(bm, next power of two of max(M, 8))`` rows of A (bm a
   power of two in 8..128) by bn (64 or 128) columns; a stage holds bk
-  (a multiple of 64, at most 256) of k; ``slots`` is the stage count.
-  When the output tiles are fewer than the SMs the k stages are split
-  over blocks (:func:`split_plan`) and the fp32 partials summed in a
-  fixed order, so a call gives the same bits every time.
+  of k (a multiple of 128 bytes, at most 512: bk 64..256 in bf16);
+  ``slots`` is the stage count.  When the output tiles are fewer than
+  the SMs the k stages are split over blocks (:func:`split_plan`) and
+  the partials summed in a fixed order, so a call gives the same bits
+  every time.
 - ``"ring"`` (``csrc/zero_stall_matmul.cu`` over ``zero_stall_ring.cuh``):
-  fp32, bf16 shapes TMA cannot address, and the grouped launch.  A
-  cp.async ring with mma.sync (bf16) or fp32 FMA, one block per bm x bn
-  tile; ragged edges are masked in the kernel.
+  fp32 and bf16 shapes TMA cannot address.  A cp.async ring with
+  mma.sync (bf16) or fp32 FMA, one block per bm x bn tile; ragged edges
+  are masked in the kernel.
 
 On a CUDA tensor the wrapper launches its design's kernel or raises;
 on a CPU tensor it runs the plain version
@@ -38,11 +41,11 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import matmul_ref
-from repro_torch.plan.config import resolve_slots
+from repro_torch.plan.config import dtype_name, resolve_slots
 
 __all__ = ["zero_stall_matmul", "smem_bytes", "sm90_smem_bytes",
            "select_design", "sm90_rows", "split_plan", "SMEM_LIMIT",
-           "MAX_THREADS"]
+           "MAX_THREADS", "SM90_DTYPES"]
 
 SMEM_LIMIT = 232448          # bytes of shared memory one Hopper block may use
 MAX_THREADS = 512            # the kernel's __launch_bounds__
@@ -55,6 +58,7 @@ _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
 # trans_b, splits, steps per split, stream
 _SM90_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 \
     + [ctypes.c_void_p]
+SM90_DTYPES = (torch.bfloat16, torch.int8)    # wgmma types of the design
 SM90_ROWS = (8, 16, 32, 64, 128)    # rows of A a block may own
 SM90_BN = (64, 128)                 # columns of C a block may own
 
@@ -110,14 +114,17 @@ def _check_config(bm, bn, bk, slots, dtype, trans_b,
 
 def select_design(dtype: torch.dtype, K: int, N: int, trans_b: bool,
                   a_ptr: int = 0, b_ptr: int = 0) -> str:
-    """The design that runs one product (G = 1), by one rule: bf16 and
-    TMA-legal (contiguous rows of 16-byte multiples from 16-byte aligned
-    bases: K % 8 == 0, N % 8 == 0 unless B is (N, K)) -> "sm90"; fp32
-    and other bf16 shapes -> "ring".  The grouped launch (G > 1,
-    :mod:`~repro_torch.kernels.grouped_matmul`) always runs the ring."""
-    legal = (K % 8 == 0 and (trans_b or N % 8 == 0)
+    """The design that runs a product, plain, grouped or int8, by one
+    rule: a tensor-core type of wgmma (bf16, int8) with TMA-legal rows
+    (contiguous rows of 16-byte multiples from 16-byte aligned bases:
+    K % 8 == 0 in bf16 and K % 16 == 0 in int8, and N the same unless B
+    is (N, K); a group's slice starts on such a row) -> "sm90"; fp32 and
+    other shapes -> "ring".  ``quantized_grouped_zero_stall_matmul`` is
+    not routed here: it runs the ring."""
+    size = dtype.itemsize
+    legal = ((K * size) % 16 == 0 and (trans_b or (N * size) % 16 == 0)
              and a_ptr % 16 == 0 and b_ptr % 16 == 0)
-    return "sm90" if dtype == torch.bfloat16 and legal else "ring"
+    return "sm90" if dtype in SM90_DTYPES and legal else "ring"
 
 
 def sm90_rows(M: int, bm: int) -> int:
@@ -129,27 +136,33 @@ def sm90_rows(M: int, bm: int) -> int:
     return min(rows, bm)
 
 
-def sm90_smem_bytes(rows: int, bn: int, bk: int, slots: int) -> int:
+def sm90_smem_bytes(rows: int, bn: int, bk: int, slots: int,
+                    element_size: int = 2) -> int:
     """Shared memory of one sm90 block (the formula of
-    ``csrc/zero_stall_sm90.cu``): ``slots`` stages of a bn x bk weight
-    tile and a rows x bk activation tile in bf16, 16 bytes of mbarriers
-    a stage, and 1024 bytes to align the stages to the swizzle atom."""
-    return 1024 + slots * ((bn + rows) * bk * 2 + 16)
+    ``csrc/zero_stall_sm90.cuh``): ``slots`` stages of a bn x bk weight
+    tile and a rows x bk activation tile of ``element_size``-byte
+    elements (2: bf16, 1: int8), 16 bytes of mbarriers a stage, and 1024
+    bytes to align the stages to the swizzle atom."""
+    return 1024 + slots * ((bn + rows) * bk * element_size + 16)
 
 
-def _check_sm90_config(M: int, bm: int, bn: int, bk: int,
-                       slots: int) -> None:
-    """Raise on tiles the sm90 design cannot take."""
-    if bm not in SM90_ROWS or bn not in SM90_BN or bk % 64 or \
-            not 64 <= bk <= 256:
+def _check_sm90_config(M: int, bm: int, bn: int, bk: int, slots: int,
+                       dtype: torch.dtype = torch.bfloat16,
+                       kernel: str = "zero_stall_matmul") -> None:
+    """Raise on tiles the sm90 design cannot take: a stage of bk is a
+    whole number of 128-byte TMA boxes, at most four."""
+    size = dtype.itemsize
+    box = 128 // size
+    if bm not in SM90_ROWS or bn not in SM90_BN or bk % box or \
+            not box <= bk <= 4 * box:
         raise ValueError(
-            f"zero_stall_matmul (bf16, sm90): tiles must have bm in "
-            f"{SM90_ROWS}, bn in {SM90_BN} and bk a multiple of 64 up to "
-            f"256, got {(bm, bn, bk)}")
-    need = sm90_smem_bytes(sm90_rows(M, bm), bn, bk, slots)
+            f"{kernel} ({dtype_name(dtype)}, sm90): tiles must have bm in "
+            f"{SM90_ROWS}, bn in {SM90_BN} and bk a multiple of {box} up to "
+            f"{4 * box}, got {(bm, bn, bk)}")
+    need = sm90_smem_bytes(sm90_rows(M, bm), bn, bk, slots, size)
     if need > SMEM_LIMIT:
         raise ValueError(
-            f"zero_stall_matmul (bf16, sm90): tiles {(bm, bn, bk)} at "
+            f"{kernel} ({dtype_name(dtype)}, sm90): tiles {(bm, bn, bk)} at "
             f"slots={slots} with M={M} need {need} bytes of shared memory, "
             f"over the {SMEM_LIMIT} a Hopper block can have (lower bk or "
             f"slots)")
@@ -161,7 +174,8 @@ def split_plan(M: int, N: int, K: int, bm: int, bn: int, bk: int,
     tiles are fewer than the ``sms`` SMs, the ceil(K / bk) stages are cut
     into at most sms // tiles ranges of whole stages, none empty, so
     that the blocks come as near the SM count as whole stages allow
-    without a second wave; otherwise one split of all stages."""
+    without a second wave; otherwise one split of all stages.  bk counts
+    elements of the product's type (bf16 or int8)."""
     rows = sm90_rows(M, bm)
     tiles = -(-M // rows) * -(-N // bn)
     steps = max(1, -(-K // bk))

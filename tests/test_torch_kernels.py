@@ -361,18 +361,22 @@ def _ring_kwargs(slots, bk):
 @pytest.mark.parametrize("slots", [1, 2, 3])
 @pytest.mark.parametrize("grid_order", ["ijk", "jik"])
 def test_quantized_kernel_bit_equal_plain_on_card(cuda, slots, grid_order):
-    """Ragged 37 x 45 x 29 int8 codes (the element-wise loader) and a
-    K = 64 problem (the 16-byte loader): bit-equal, fp32 and bf16 out."""
+    """Ragged 37 x 45 x 29 int8 codes (the ring's element-wise loader)
+    and a K = 64 problem (TMA-legal: the sm90 design, with its tiles):
+    bit-equal, fp32 and bf16 out."""
     g = torch.Generator(device=cuda).manual_seed(0)
-    for M, K, N in ((37, 45, 29), (5, 64, 40)):
+    for (M, K, N), design, tiles in (
+            ((37, 45, 29), "ring", _ring_kwargs(slots, 32)),
+            ((5, 64, 40), "sm90", dict(_ring_kwargs(slots, 128), bn=64))):
         x_q, x_s = quantize_rows(torch.randn(M, K, device=cuda, generator=g))
         qw = quantize(torch.randn(K, N, device=cuda, generator=g))
         for out in (torch.float32, torch.bfloat16):
-            before = quantized_zero_stall_matmul.launches
+            before = quantized_zero_stall_matmul.launches_by_design[design]
             got = quantized_zero_stall_matmul(
                 x_q, qw.data, x_s, qw.scale, grid_order=grid_order,
-                out_dtype=out, **_ring_kwargs(slots, 32))
-            assert quantized_zero_stall_matmul.launches == before + 1
+                out_dtype=out, **tiles)
+            assert quantized_zero_stall_matmul.launches_by_design[design] \
+                == before + 1
             want = quantized_matmul_ref(x_q, qw.data, x_s, qw.scale, out)
             assert torch.equal(got, want)
 

@@ -1,13 +1,16 @@
 """The Hopper designs of the matmul and flash-attention wrappers.
 
-The bf16 matmul of one product runs a TMA + wgmma ring with split-k
-(``csrc/zero_stall_sm90.cu``) and bf16 flash attention runs on the
-tensor cores; fp32, shapes TMA cannot address and the grouped launch
-keep the earlier designs.  What decides the design, the split-k plan,
-the tiles each design takes and the shared-memory formulas are plain
-Python and are held here on the CPU; tests marked ``gpu`` launch the
-kernels and skip without a card.  Parity of the plain versions with the
-JAX package is held in ``tests/test_torch_kernels.py``.
+The bf16 matmul of one product and of G groups runs a TMA + wgmma ring
+(``csrc/zero_stall_sm90.cu``): split-k for one product, a persistent
+walk over the groups' tiles for the grouped one; bf16 flash attention
+runs on the tensor cores; fp32 and shapes TMA cannot address keep the
+earlier designs.  What decides the design, the split-k plan, the
+persistent walk, the tiles each design takes and the shared-memory
+formulas are plain Python and are held here on the CPU; tests marked
+``gpu`` launch the kernels and skip without a card.  Parity of the plain
+versions with the JAX package is held in ``tests/test_torch_kernels.py``
+and ``tests/test_torch_moe.py``; the int8 design in
+``tests/test_torch_kernels_sm90_int8.py``.
 """
 
 import numpy as np
@@ -18,7 +21,11 @@ from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import ops
 from repro_torch.kernels import zero_stall_matmul as zsm_mod
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.ref import flash_attention_ref, matmul_ref
+from repro_torch.kernels.grouped_matmul import (grouped_blocks,
+                                                grouped_walk,
+                                                grouped_zero_stall_matmul)
+from repro_torch.kernels.ref import (flash_attention_ref, grouped_matmul_ref,
+                                     matmul_ref)
 from repro_torch.kernels.zero_stall_matmul import (select_design, sm90_rows,
                                                    split_plan,
                                                    zero_stall_matmul)
@@ -27,7 +34,10 @@ from repro_torch.plan import KernelConfig
 BF16_TOL = 2e-2
 SMS = 132                            # streaming multiprocessors of an H100
 GEMMA = dict(d=3072, qkv=4096, ff=24576, V=256000)
-OLMOE = dict(d=2048, V=50304)
+OLMOE = dict(d=2048, V=50304, E=64, ff=1024)
+# (name, K, N) of an olmoe-1b-7b expert bank; C = 1 row an expert at
+# decode (4 slots), 20 at a 128-token prefill
+EXPERTS = [("wi/wg", OLMOE["d"], OLMOE["ff"]), ("wo", OLMOE["ff"], OLMOE["d"])]
 BF16 = torch.bfloat16
 
 
@@ -54,8 +64,8 @@ def cuda():
 ])
 def test_select_design_rule(case, want):
     """bf16 with TMA-legal rows -> sm90; fp32, ragged or misaligned bf16
-    -> the cp.async ring (the grouped launch, G > 1, always takes the
-    ring: see test_grouped_launch_stays_on_the_ring_on_card)."""
+    -> the cp.async ring.  The grouped wrapper takes the same rule (see
+    test_grouped_launch_stays_on_the_ring_on_card)."""
     assert select_design(**case) == want
 
 
@@ -149,6 +159,68 @@ def test_cpu_matmul_counts_no_design():
     assert zero_stall_matmul.launches_by_design == before
     assert set(before) == {"sm90", "ring"}
     torch.testing.assert_close(got, matmul_ref(a, b))
+
+
+# ----------------------------------------------------------------------
+# grouped matmul: the design, the persistent walk and its memory
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("name,K,N", EXPERTS)
+def test_grouped_expert_banks_run_sm90(name, K, N):
+    """olmoe-1b-7b's bf16 expert banks are TMA-legal (at any capacity C:
+    the rule reads K, N and the bases); fp32 banks and a ragged K stay
+    on the ring."""
+    assert select_design(BF16, K, N, False) == "sm90"
+    assert select_design(torch.float32, K, N, False) == "ring"
+    assert select_design(BF16, K - 3, N, False) == "ring"
+
+
+@pytest.mark.parametrize("sms", [132, 7])
+@pytest.mark.parametrize("C", [1, 20])
+@pytest.mark.parametrize("name,K,N", EXPERTS)
+def test_grouped_walk_covers_every_tile_once(name, K, N, C, sms):
+    """The persistent blocks (one per SM) walk every (g, i, j) tile of
+    the 64 experts exactly once, each block in the g-major order, and no
+    block takes more than one tile beyond another."""
+    G, rows = OLMOE["E"], sm90_rows(C, 128)
+    walk = grouped_walk(G, C, N, rows, 128, sms)
+    tiles = G * -(-C // rows) * -(-N // 128)
+    assert len(walk) == grouped_blocks(G, C, N, rows, 128, sms) \
+        == min(sms, tiles)
+    flat = [t for block in walk for t in block]
+    assert len(flat) == len(set(flat)) == tiles
+    assert set(flat) == {(g, i, j) for g in range(G)
+                         for i in range(-(-C // rows))
+                         for j in range(-(-N // 128))}
+    assert all(block == sorted(block) for block in walk)
+    sizes = [len(block) for block in walk]
+    assert max(sizes) - min(sizes) <= 1
+
+
+def test_grouped_walk_of_few_tiles_is_one_block_a_tile():
+    assert grouped_walk(2, 3, 100, 8, 64, 132) == [
+        [(0, 0, 0)], [(0, 0, 1)], [(1, 0, 0)], [(1, 0, 1)]]
+
+
+@pytest.mark.parametrize("slots", [1, 2, 3, 4])
+@pytest.mark.parametrize("C", [1, 20])
+def test_grouped_sm90_tiles_fit(C, slots):
+    """The path's tiles (128, 128, 128) at decode (8 rows) and prefill
+    (32 rows) fit every ring depth phase 6 times."""
+    rows = sm90_rows(C, 128)
+    assert rows == (8 if C == 1 else 32)
+    zsm_mod._check_sm90_config(C, 128, 128, 128, slots)
+    need = zsm_mod.sm90_smem_bytes(rows, 128, 128, slots)
+    assert need == 1024 + slots * ((128 + rows) * 128 * 2 + 16)
+
+
+def test_cpu_grouped_counts_no_design():
+    a = torch.randn(3, 2, 64).to(BF16)
+    b = torch.randn(3, 64, 32).to(BF16)
+    before = dict(grouped_zero_stall_matmul.launches_by_design)
+    got = grouped_zero_stall_matmul(a, b)
+    assert grouped_zero_stall_matmul.launches_by_design == before
+    assert set(before) == {"sm90", "ring"}
+    torch.testing.assert_close(got, grouped_matmul_ref(a, b))
 
 
 # ----------------------------------------------------------------------
@@ -269,11 +341,10 @@ def test_sm90_split_k_is_deterministic_on_card(cuda, M):
 
 @pytest.mark.gpu
 def test_grouped_launch_stays_on_the_ring_on_card(cuda, monkeypatch):
-    """G > 1 at a bf16 shape the sm90 design would take for G = 1: the
-    grouped wrapper binds the ring's entry point, never the sm90 one."""
+    """The grouped wrapper follows the design rule: bf16 with TMA-legal
+    rows binds the sm90 grouped entry point, fp32 the ring's, and each
+    call counts under its design."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.grouped_matmul import grouped_zero_stall_matmul
-    from repro_torch.kernels.ref import grouped_matmul_ref
     bound = []
     bind = _build.bind
 
@@ -283,15 +354,43 @@ def test_grouped_launch_stays_on_the_ring_on_card(cuda, monkeypatch):
 
     monkeypatch.setattr(_build, "bind", spy)
     g = torch.Generator(device=cuda).manual_seed(3)
-    a = torch.randn(4, 8, 64, device=cuda, generator=g).to(BF16)
-    b = torch.randn(4, 64, 128, device=cuda, generator=g).to(BF16)
-    before = dict(zero_stall_matmul.launches_by_design)
-    got = grouped_zero_stall_matmul(a, b)
-    assert bound == ["zero_stall_matmul"]
-    assert zero_stall_matmul.launches_by_design == before
+    a = torch.randn(4, 8, 64, device=cuda, generator=g)
+    b = torch.randn(4, 64, 128, device=cuda, generator=g)
+    for dtype, design, entry in ((BF16, "sm90",
+                                  "grouped_zero_stall_matmul_sm90"),
+                                 (torch.float32, "ring",
+                                  "zero_stall_matmul")):
+        bound.clear()
+        before = dict(grouped_zero_stall_matmul.launches_by_design)
+        got = grouped_zero_stall_matmul(a.to(dtype), b.to(dtype), bm=16,
+                                        bn=64, bk=64)
+        assert bound == [entry]
+        assert grouped_zero_stall_matmul.launches_by_design[design] == \
+            before[design] + 1
+        want = grouped_matmul_ref(a.to(dtype), b.to(dtype))
+        tol = BF16_TOL if dtype == BF16 else 2e-5
+        assert (got.float() - want.float()).abs().max() <= \
+            tol * want.float().abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slots", [1, 2, 3])
+@pytest.mark.parametrize("shape", [(5, 3, 72, 200), (5, 3, 200, 72),
+                                   (3, 130, 136, 264)])
+def test_grouped_sm90_ragged_on_card(cuda, slots, shape):
+    """Ragged K (72 < bk; 136, 200 past a whole stage), N past a tile
+    and M past 128 rows: rank-3 boxes zero-fill inside their group, so
+    every row is within 2e-2 of its largest reference magnitude."""
+    G, M, K, N = shape
+    g = torch.Generator(device=cuda).manual_seed(4)
+    a = torch.randn(G, M, K, device=cuda, generator=g).to(BF16)
+    b = torch.randn(G, K, N, device=cuda, generator=g).to(BF16)
+    before = grouped_zero_stall_matmul.launches_by_design["sm90"]
+    got = grouped_zero_stall_matmul(a, b, **_ring(slots))
+    assert grouped_zero_stall_matmul.launches_by_design["sm90"] == before + 1
     want = grouped_matmul_ref(a, b)
-    assert (got.float() - want.float()).abs().max() <= \
-        BF16_TOL * want.float().abs().max()
+    err = (got.float() - want.float()).abs().amax(-1)
+    assert bool((err <= BF16_TOL * want.float().abs().amax(-1)).all())
 
 
 @pytest.mark.gpu
