@@ -21,15 +21,20 @@ Phases, each printed as it runs:
    causal and non-causal masks, a fully-masked row and, through
    ``ops.attention``, causal Sq < Skv without lengths (end-aligned),
    the 96-token prefill chunks of phase 5b against a 160-token stripe,
-   and paged attention with scattered
+   and paged attention on its split-KV design with scattered
    page ids, a row parked on the trash page, a row with no valid column
    and a row whose length runs past its table, in bf16 at the decode
-   shape and in fp32 with four query heads per kv head; the int8
+   shape and in fp32 with four query heads per kv head, at a one-page
+   table (one split) and a 7-page one (splits that do not divide it),
+   two calls bitwise equal; the int8
    matmul at the aligned non-square (4, 80, 200) for every ring depth,
    grid order and k tile of 128 and 256 codes, its int32 split-k twice
    bitwise equal; the bf16 grouped matmul at ragged shapes for every
-   ring depth; the int8 and grouped kernels at a ragged shape in fp32
-   for every ring depth (the cp.async ring);
+   ring depth; the int8 grouped matmul on its TMA + wgmma design at the
+   expert banks and at ragged shapes for every ring depth, both k tiles
+   and both output types; the int8 and grouped kernels at a ragged shape
+   in fp32 for every ring depth, and the int8 grouped kernel on codes 8
+   bytes off a 16-byte line (the cp.async ring);
 4. the reduced gemma-7b and deepseek-coder-33b configs in fp32, plain
    and W8A8, and the reduced olmoe-1b-7b and granite-moe-1b-a400m
    configs with bf16 weights and W8A8: the serving engine's greedy
@@ -40,8 +45,8 @@ Phases, each printed as it runs:
 5. full-width gemma-7b (28 layers, random weights from a seed) in bf16
    serving 8 mixed-length requests through ``serve_batch``: prefill and
    decode tokens/s, each kernel's launch count against the count the
-   path implies (and, in 5-5e, every bf16 matmul, int8 matmul, bf16
-   grouped matmul and flash call on its Hopper design), and the first
+   path implies (and, in 5-5e, every bf16 and int8 matmul, plain and
+   grouped, and every flash call on its Hopper design), and the first
    prefill's logits against the plain path;
 5b. full-width gemma-7b paged: 8 requests behind one shared 64-token
    prefix through ``ServeEngine`` with 16-token pages and 96-token
@@ -70,7 +75,12 @@ Phases, each printed as it runs:
    eagerly (paced by the host) as well; the int8 matmul's decode step at
    ring depths 1, 2 and 4 and k tiles of 128 and 256 codes, its split
    counts, and a 128-token prefill; the grouped matmul's decode step at
-   ring depths 1, 2 and 4, and a prefill;
+   ring depths 1, 2 and 4, and a prefill; the int8 grouped matmul's
+   decode step and prefill at ring depths 1, 2 and 4 and k tiles of 128
+   and 256 codes, beside its earlier design, the cp.async ring, on the
+   same operands;
+   paged attention's time a call with its split count, and at other
+   split counts;
 7. a ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, ...}`` line.
 
@@ -129,6 +139,12 @@ def ptxas_entries(report: str) -> list[tuple[str, str, int]]:
                          f"rows={ints[1]} trans_b={bits[0]}")
             elif "flash_tc_kernel" in mangled:
                 entry = f"tensor-core D={ints[0]} bkv={ints[1]}"
+            elif "paged_split_kernel" in mangled:
+                dtype = "bf16" if "bfloat16" in mangled else "fp32"
+                entry = f"paged split {dtype} rows={ints[0]} nv={ints[1]}"
+            elif "paged_combine_kernel" in mangled:
+                entry = ("paged combine "
+                         + ("bf16" if "bfloat16" in mangled else "fp32"))
             elif "splitk_reduce" in mangled:
                 entry = ("split-k reduce "
                          + ("int8" if "splitk_reduceIa" in mangled else "bf16"))
@@ -183,7 +199,7 @@ def main() -> int:
         # the Hopper designs of the main path keep their accumulators in
         # registers: a spill would put them in local memory
         spilled = [e for e, _, s in entries
-                   if s and e.startswith(("sm90", "tensor-core"))]
+                   if s and e.startswith(("sm90", "tensor-core", "paged"))]
         require(not spilled, f"{name}: {spilled} spill registers")
         remarks = {}
         for ln in _build.ptxas_report(name).splitlines():
@@ -231,6 +247,9 @@ def main() -> int:
          "max_abs_err": errs["flash_attention"], **timings["attention"]},
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+         "design": "split-KV: contiguous page ranges a block, cp.async "
+                   "page ring, q and accumulators in registers, a combine "
+                   "pass",
          "replaces": "src/repro/kernels/paged_attention.py:141",
          "launches": counts["paged_attention"],
          "max_abs_err": errs["paged_attention"], **timings["paged"]},
@@ -251,9 +270,12 @@ def main() -> int:
          "max_abs_err": errs["grouped_zero_stall_matmul"],
          **timings["grouped"]},
         {"name": "quantized_grouped_zero_stall_matmul", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/quantized_matmul.cu",
+         "source": "src/repro_torch/kernels/csrc/quantized_sm90.cu",
+         "design": "int8: TMA + mbarrier ring over rank-3 maps, int8 wgmma "
+                   "(swap AB), persistent walk over the experts' tiles",
          "replaces": "src/repro/kernels/quantized_matmul.py:317",
          "launches": counts["quantized_grouped_zero_stall_matmul"],
+         "by_design": counts["quantized_grouped_by_design"],
          "max_abs_err": errs["quantized_grouped_zero_stall_matmul"],
          **timings["quantized_grouped"]},
     ]
@@ -505,7 +527,10 @@ def check_kernels(torch, kern) -> dict:
             "a bf16 flash call of phase 3 did not run the tensor-core design")
 
     # paged attention at the decode shape: 4 slots, 16 heads of 256,
-    # 16-token pages, a 10-page table (max_len 160)
+    # 16-token pages, a 10-page table (max_len 160), on the split-KV
+    # design (splits from B, KV, T and the SM count); then one page (one
+    # split) and a 7-page table (splits that do not divide T)
+    from repro_torch.kernels.paged_attention import paged_splits
     B, T, ps, H, D = GEMMA["slots"], 10, 16, GEMMA["H"], GEMMA["hd"]
     cases = [
         ("bf16 (4, 16, 256), ps 16, scattered pages, kv 160/129/80/17",
@@ -518,20 +543,39 @@ def check_kernels(torch, kern) -> dict:
          "trash page, row 3 kv 0",
          dict(B=B, H=16, KV=4, D=128, ps=ps, T=T, kv_lens=[160, 33, 70, 0],
               dtype=torch.float32, trash_rows=(2,))),
+        ("bf16 T 1, kv 16/9/0/40 > T*ps",
+         dict(B=B, H=H, KV=H, D=D, ps=ps, T=1, kv_lens=[16, 9, 0, 40],
+              dtype=torch.bfloat16)),
+        ("bf16 T 7, kv 112/100/33/17",
+         dict(B=B, H=H, KV=H, D=D, ps=ps, T=7, kv_lens=[112, 100, 33, 17],
+              dtype=torch.bfloat16)),
     ]
     for what, kw in cases:
         ops_in = paged_case(torch, gen, **kw)
+        splits, per = paged_splits(kw["B"], kw["KV"], kw["T"], sms)
         launched = paged_attention.launches
         got = paged_attention(*ops_in[:4], kv_lens=ops_in[4])
         require(paged_attention.launches == launched + 1,
                 "paged_attention did not launch its kernel")
-        judge_rows(what, got, paged_attention_ref(*ops_in[:4],
-                                                  kv_lens=ops_in[4]),
+        judge_rows(f"{what}: {splits} split(s) of {per} page(s)", got,
+                   paged_attention_ref(*ops_in[:4], kv_lens=ops_in[4]),
                    kernel="paged_attention")
+        require((splits == 1) == (kw["T"] == 1), f"paged {what}: {splits} "
+                f"splits")
         for b, n in enumerate(kw["kv_lens"]):
             if n == 0:
                 require(bool((got[b] == 0).all()), "a paged row with no "
                         "valid column is not exact zeros")
+        if kw["T"] == 7:
+            require(kw["T"] % splits != 0, "T 7 is divided by the splits")
+    # the split and its combine are deterministic: two calls, one result
+    ops_in = paged_case(torch, gen, **cases[0][1])
+    first = paged_attention(*ops_in[:4], kv_lens=ops_in[4])
+    same = torch.equal(first, paged_attention(*ops_in[:4],
+                                              kv_lens=ops_in[4]))
+    print(f"    paged_attention {cases[0][0]}: two calls bitwise equal "
+          f"{same}")
+    require(same, "split paged attention is not deterministic")
     torch.cuda.synchronize()
     return errs
 
@@ -569,6 +613,7 @@ def check_new_kernels(torch, kern) -> dict:
     g5 = kern["grouped_zero_stall_matmul"]
     q6 = kern["quantized_grouped_zero_stall_matmul"]
     q4_kw = KernelConfig().matmul_kwargs(torch.int8)       # the path's
+    q6_kw = KernelConfig().matmul_kwargs(torch.int8, grouped=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
@@ -580,6 +625,9 @@ def check_new_kernels(torch, kern) -> dict:
 
     def rnd(*shape):
         return torch.randn(*shape, device=dev, generator=gen)
+
+    def ring_kw(slots):
+        return dict(slots=slots, variant="single" if slots == 1 else "dobu")
 
     def exact(name, what, fn, want):
         launched = kern[name].launches
@@ -670,10 +718,11 @@ def check_new_kernels(torch, kern) -> dict:
               {"sm90": len(shapes) + n_odd + 4})
 
     # kernels 5 and 6: the olmoe expert banks at decode (C = 1) and at a
-    # 128-token prefill bucket (C = 20); kernel 5 on its TMA + wgmma
-    # design, kernel 6 on the ring
+    # 128-token prefill bucket (C = 20), both on their TMA + wgmma designs
+    # with the path's tiles
     before = dict(g5.launches_by_design)
-    n_grouped = 0
+    q6_before = dict(q6.launches_by_design)
+    n_grouped = n_q6 = 0
     for M in (moe_capacity(OLMOE["slots"]), moe_capacity(128)):
         for what, G, m, K, N, _ in expert_shapes(M):
             a, b = rnd(G, m, K).bfloat16(), rnd(G, K, N).bfloat16()
@@ -687,12 +736,31 @@ def check_new_kernels(torch, kern) -> dict:
             x_q, x_s = quantize_rows(a)
             qw = quantize(b)
             exact("quantized_grouped_zero_stall_matmul", f"{what} G={G} "
-                  f"M={m} K={K} N={N} bf16 out",
+                  f"M={m} K={K} N={N} bf16 out, bk {q6_kw['bk']}",
                   lambda: q6(x_q, qw.data, x_s, qw.scale,
-                             out_dtype=torch.bfloat16),
+                             out_dtype=torch.bfloat16, **q6_kw),
                   quantized_grouped_matmul_ref(x_q, qw.data, x_s, qw.scale,
                                                torch.bfloat16))
+            n_q6 += 1
             del a, b, qw
+    # kernel 6 at ragged shapes (K past a stage, N past a tile, M past 128
+    # rows) for every ring depth, both k tiles and both output types
+    for G, M, K, N in ((5, 3, 80, 208), (3, 130, 144, 264)):
+        x_q, x_s = quantize_rows(rnd(G, M, K))
+        qw = quantize(rnd(G, K, N))
+        for slots in (1, 2, 3):
+            for bk in (128, 256):
+                for out in (torch.float32, torch.bfloat16):
+                    exact("quantized_grouped_zero_stall_matmul",
+                          f"ragged {G}x{M}x{K}x{N} slots={slots} bk={bk} "
+                          f"{str(out).removeprefix('torch.')} out",
+                          lambda: q6(x_q, qw.data, x_s, qw.scale, bk=bk,
+                                     out_dtype=out, **ring_kw(slots)),
+                          quantized_grouped_matmul_ref(x_q, qw.data, x_s,
+                                                       qw.scale, out))
+                    n_q6 += 1
+    by_design("quantized_grouped_zero_stall_matmul", q6_before,
+              {"sm90": n_q6})
     # ragged K (72 < bk; 136 and 200 past a whole stage), N past a tile, M
     # past 128 rows: rank-3 boxes zero-fill inside their own group
     for G, M, K, N in ((5, 3, 72, 200), (5, 3, 200, 72), (3, 130, 136, 264)):
@@ -706,10 +774,12 @@ def check_new_kernels(torch, kern) -> dict:
             n_grouped += 1
     by_design("grouped_zero_stall_matmul", before, {"sm90": n_grouped})
     # a ragged shape in fp32 at every ring depth (and, for kernel 4, both
-    # grid orders): the cp.async ring's element-wise loaders and masks
+    # grid orders): the cp.async ring's element-wise loaders and masks;
+    # kernel 6 there and on codes that start 8 bytes off a 16-byte line
     before = {n: dict(kern[n].launches_by_design)
               for n in ("quantized_zero_stall_matmul",
-                        "grouped_zero_stall_matmul")}
+                        "grouped_zero_stall_matmul",
+                        "quantized_grouped_zero_stall_matmul")}
     a, b = rnd(37, 45), rnd(45, 29)
     ga, gb = rnd(5, 3, 45), rnd(5, 45, 29)
     x_q, x_s = quantize_rows(a)
@@ -732,10 +802,22 @@ def check_new_kernels(torch, kern) -> dict:
               lambda: q6(gx_q, gqw.data, gx_s, gqw.scale, bm=32, bn=32,
                          bk=32, **ring),
               quantized_grouped_matmul_ref(gx_q, gqw.data, gx_s, gqw.scale))
+    gx_q, gx_s = quantize_rows(rnd(5, 3, 64))
+    gqw = quantize(rnd(5, 64, 48))
+    off = torch.empty(gx_q.numel() + 8, dtype=torch.int8, device=dev)
+    off = off[8:].view(gx_q.shape)
+    off.copy_(gx_q)
+    require(off.data_ptr() % 16 == 8, "the offset codes are 16-byte aligned")
+    exact("quantized_grouped_zero_stall_matmul", "5x3x64x48, A 8 bytes off "
+          "a 16-byte line", lambda: q6(off, gqw.data, gx_s, gqw.scale,
+                                       **q6_kw),
+          quantized_grouped_matmul_ref(gx_q, gqw.data, gx_s, gqw.scale))
     by_design("quantized_zero_stall_matmul",
               before["quantized_zero_stall_matmul"], {"ring": 6})
     by_design("grouped_zero_stall_matmul",
               before["grouped_zero_stall_matmul"], {"ring": 3})
+    by_design("quantized_grouped_zero_stall_matmul",
+              before["quantized_grouped_zero_stall_matmul"], {"ring": 4})
     torch.cuda.synchronize()
     return errs
 
@@ -841,12 +923,13 @@ def reset_counts(kern) -> None:
 
 
 def check_designs(label: str, kern) -> None:
-    """Every bf16 matmul (plain and grouped), int8 matmul and flash call
-    of a full-width run went through the Hopper designs: none took the
-    cp.async ring or the CUDA-core flash kernel."""
+    """Every bf16 matmul (plain and grouped), int8 matmul (plain and
+    grouped) and flash call of a full-width run went through the Hopper
+    designs: none took the cp.async ring or the CUDA-core flash kernel."""
     designs = {n: kern[n].launches_by_design for n in (
         "zero_stall_matmul", "quantized_zero_stall_matmul",
-        "grouped_zero_stall_matmul", "flash_attention")}
+        "grouped_zero_stall_matmul", "quantized_grouped_zero_stall_matmul",
+        "flash_attention")}
     print("      by design: " + ", ".join(f"{n} {d}"
                                           for n, d in designs.items()))
     require(all(d.get("ring", 0) == 0 and d.get("cuda_core", 0) == 0
@@ -1242,6 +1325,8 @@ def serve_moe_full_width(torch, kern) -> dict:
                  f"{s['admitted']} + {s['decode_steps']} passes")
     counts["quantized_grouped_zero_stall_matmul"] = \
         got["quantized_grouped_zero_stall_matmul"]
+    counts["quantized_grouped_by_design"] = dict(
+        kern["quantized_grouped_zero_stall_matmul"].launches_by_design)
     w8a8 = first_prefill_logits(torch, model, qparams, {
         "auto": Ctx(plan=KernelConfig(quant="int8"), dtype=torch.bfloat16),
         "torch": Ctx(plan=KernelConfig(backend="torch", quant="int8"),
@@ -1332,6 +1417,8 @@ def time_ms(torch, fns, iters: int = 20, graph: bool = True) -> float:
 
 
 def time_kernels(torch, kern) -> dict:
+    from repro_torch.kernels.paged_attention import (paged_splits,
+                                                     paged_stages)
     from repro_torch.kernels.ref import (flash_attention_ref, matmul_ref,
                                          paged_attention_ref)
     from repro_torch.kernels.zero_stall_matmul import split_plan
@@ -1473,22 +1560,87 @@ def time_kernels(torch, kern) -> dict:
                          for c in cases])
     plain = time_ms(torch, [lambda c=c: paged_attention_ref(
         *c[:4], kv_lens=c[4]) for c in cases], graph=False)
+    eager = time_ms(torch, [lambda c=c: paged_attention(*c[:4], kv_lens=c[4])
+                            for c in cases], graph=False)
     keys = sum(min(n, T * ps) for n in kv)
     nbytes = (keys * H * D * 2 * 2          # the K and V rows it must read
               + 2 * B * H * D * 2           # q in, o out
               + B * T * 4 + B * 4)          # page table, kv_lens
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 4 * H * D * keys / PEAK_FLOPS["bfloat16"] * 1e3
+    splits, per = paged_splits(B, H, T, sms)
     print(f"    paged_attention ({B}, {H}, {D}) bf16 over {keys} keys "
-          f"(kv {kv}, 16-token pages): {ms:.4f} ms (plain {plain:.4f}, no "
-          f"single PyTorch call reads a page table; bound "
-          f"{max(t_bytes, t_ops):.5f} by "
+          f"(kv {kv}, 16-token pages): {ms:.4f} ms on {B * H} x {splits} "
+          f"blocks ({splits} splits of {per} pages, "
+          f"{paged_stages(per, D, ps, 1, 2)} ring stages; eager "
+          f"{eager:.4f}; plain {plain:.4f}, no single PyTorch call reads a "
+          f"page table; bound {max(t_bytes, t_ops):.5f} by "
           f"{'bytes' if t_bytes >= t_ops else 'operations'}); per decode "
           f"step ({GEMMA['layers']} calls) {GEMMA['layers'] * ms:.3f} ms")
+    # the same calls at other split counts (the C entry bound directly,
+    # with the tiles the wrapper would give each count)
+    by_split = {}
+    for want in (1, 2, 4, 10):
+        per = -(-T // want)
+        by_split[-(-T // per)] = time_ms(torch, [
+            lambda c=c: paged_at(c, -(-T // per), per) for c in cases])
+    print(f"    paged_attention by split count (the path's {splits} "
+          f"{ms:.4f}): " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                     sorted(by_split.items())) + " ms")
+    # other points of a 5b decode: its start, a later step, its end
+    for mix in ([81, 97, 113, 129], [112, 128, 144, 160], [160] * B):
+        other = [paged_case(torch, gen, B=B, H=H, KV=H, D=D, ps=ps, T=T,
+                            kv_lens=mix, dtype=torch.bfloat16)
+                 for _ in range(8)]
+        t = time_ms(torch, [lambda c=c: paged_attention(*c[:4],
+                                                        kv_lens=c[4])
+                            for c in other])
+        print(f"    paged_attention at kv {mix}: {t:.4f} ms")
+        del other
+    # the same tables with every kv_len 0: no copy and no key, only what
+    # the design costs whatever the data (two launches, the merges, the
+    # workspace round trip)
+    empty = [paged_case(torch, gen, B=B, H=H, KV=H, D=D, ps=ps, T=T,
+                        kv_lens=[0] * B, dtype=torch.bfloat16)
+             for _ in range(8)]
+    fixed = time_ms(torch, [lambda c=c: paged_attention(*c[:4], kv_lens=c[4])
+                            for c in empty])
+    print(f"    paged_attention with every kv_len 0 (no copy, no key): "
+          f"{fixed:.4f} ms")
+    del empty
     paged = {"ms": ms, "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
              "library_ms": None}
     return {"matmul": matmul, "attention": attention, "paged": paged}
+
+
+def paged_at(case, splits: int, per: int):
+    """Kernel 3 on ``case`` (``paged_case``'s operands) at a given split
+    count: the C entry of ``csrc/paged_attention.cu`` bound directly,
+    with the wrapper's rows and ring for that split; a yardstick for the
+    wrapper's choice (``paged_splits``)."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.paged_attention import (_ARGTYPES, paged_rows,
+                                                     paged_stages)
+    q, kp, vp, table, lens = case
+    B, H, D = q.shape
+    _, ps, KV, _ = kp.shape
+    rep, elt = H // KV, q.element_size()
+    o = torch.empty_like(q)
+    ws = (torch.empty(B * KV * splits * rep * (D + 2), dtype=torch.float32,
+                      device=q.device) if splits > 1 else None)
+    fn = _build.bind("paged_attention", _ARGTYPES)
+    code = fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(), o.data_ptr(),
+              table.data_ptr(), lens.data_ptr(),
+              None if ws is None else ws.data_ptr(), B, KV, table.shape[1],
+              ps, D, rep, paged_rows(rep, D, elt), splits, per,
+              paged_stages(per, D, ps, rep, elt), D ** -0.5,
+              int(q.dtype == torch.bfloat16),
+              torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check("paged_attention", code)
+    return o
 
 
 def bound(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
@@ -1505,8 +1657,10 @@ def time_new_kernels(torch, kern) -> dict:
     2 and 4 (and its stage of 128 codes beside the path's 256), one
     128-token prefill's; one olmoe-1b-7b decode step's 48 expert banks
     (G = 64, M = C = 1) in bf16 on the persistent grouped design at ring
-    depths 1, 2 and 4, and a prefill's (C = 20); the int8 banks on the
-    ring."""
+    depths 1, 2 and 4, and a prefill's (C = 20); the int8 banks on their
+    persistent TMA + wgmma design at ring depths 1, 2 and 4 and k tiles
+    of 128 and 256 codes, at decode and at a prefill, beside the
+    cp.async ring (its earlier design) on the same operands."""
     import math
 
     from repro_torch.kernels.ref import (grouped_matmul_ref,
@@ -1519,6 +1673,7 @@ def time_new_kernels(torch, kern) -> dict:
     g5 = kern["grouped_zero_stall_matmul"]
     q6 = kern["quantized_grouped_zero_stall_matmul"]
     q4_bk = KernelConfig().matmul_kwargs(torch.int8)["bk"]
+    q6_bk = KernelConfig().matmul_kwargs(torch.int8, grouped=True)["bk"]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     dev = "cuda"
     out = {}
@@ -1644,14 +1799,27 @@ def time_new_kernels(torch, kern) -> dict:
                 x_q, x_s = quantize_rows(a)
                 qws = [quantize(b) for b in bs]
                 del bs
-                cell["ms"] = time_ms(torch, [lambda w=w: q6(
-                    x_q, w.data, x_s, w.scale, out_dtype=torch.bfloat16)
-                    for w in qws])
+                for bk in (128, 256):
+                    for slots in depths:
+                        cell[f"bk{bk} slots{slots}"] = time_ms(torch, [
+                            lambda w=w: q6(x_q, w.data, x_s, w.scale, bk=bk,
+                                           out_dtype=torch.bfloat16,
+                                           **ring(slots)) for w in qws])
+                cell["ms"] = cell[f"bk{q6_bk} slots2"]
+                w = qws[0]
+                require(torch.equal(
+                    ring_q6(x_q, w.data, x_s, w.scale),
+                    quantized_grouped_matmul_ref(x_q, w.data, x_s, w.scale,
+                                                 torch.bfloat16)),
+                        "the cp.async ring's grouped int8 product disagrees")
+                cell["ring"] = time_ms(torch, [lambda w=w: ring_q6(
+                    x_q, w.data, x_s, w.scale) for w in qws])
                 cell["plain_ms"] = time_ms(torch, [
                     lambda w=w: quantized_grouped_matmul_ref(
                         x_q, w.data, x_s, w.scale, torch.bfloat16)
                     for w in qws], iters=5, graph=False)
-                lib_note = "no library call"
+                lib_note = (f"the cp.async ring (bk 128, slots 2) "
+                            f"{cell['ring']:.4f}, no library call")
                 cell["nbytes"] = (G * m * K + G * K * N + 4 * G * (m + N)
                                   + 2 * G * m * N)
                 del qws
@@ -1675,7 +1843,7 @@ def time_new_kernels(torch, kern) -> dict:
             b, by = bound(cell["nbytes"], cell["ops"],
                           "int8" if int8 else "bfloat16")
             others = ", ".join(f"{k} {v:.4f}" for k, v in cell.items()
-                               if k.startswith("slots"))
+                               if k.startswith(("slots", "bk")))
             print(f"    {name} olmoe {what} G={G} M={m} K={K} N={N}: "
                   f"{cell['ms']:.4f} ms ({others + '; ' if others else ''}"
                   f"plain {cell['plain_ms']:.4f}, {lib_note}, bound "
@@ -1685,7 +1853,7 @@ def time_new_kernels(torch, kern) -> dict:
                       else "bfloat16")
         return tot, b, by
 
-    C = moe_capacity(OLMOE["slots"])
+    C, Cp = moe_capacity(OLMOE["slots"]), moe_capacity(128)
     for key, name, int8 in (("grouped", "grouped_zero_stall_matmul", False),
                             ("quantized_grouped",
                              "quantized_grouped_zero_stall_matmul", True)):
@@ -1693,23 +1861,52 @@ def time_new_kernels(torch, kern) -> dict:
         print(f"    {name}, one olmoe-1b-7b decode step (C={C}), "
               f"{3 * OLMOE['layers']} launches: {tot['ms']:.3f} ms (plain "
               f"{tot['plain_ms']:.3f}"
-              + ("" if int8 else f", torch.bmm {tot['library_ms']:.3f}")
+              + (f", the cp.async ring {tot['ring']:.3f}" if int8
+                 else f", torch.bmm {tot['library_ms']:.3f}")
               + f", bound {b:.3f} by {by}: {tot['nbytes'] / 1e9:.2f} GB)")
-        if not int8:
-            print(f"    {name}, one decode step by ring depth: "
-                  + ", ".join(f"{k} {v:.3f} ms" for k, v in tot.items()
-                              if k.startswith("slots")))
+        print(f"    {name}, one decode step by "
+              + ("k tile and ring depth: " if int8 else "ring depth: ")
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in tot.items()
+                          if k.startswith(("slots", "bk"))))
         out[key] = {"ms": tot["ms"], "plain_ms": tot["plain_ms"],
                     "bound_ms": b, "bound_by": by,
                     "library_ms": None if int8 else tot["library_ms"]}
-    Cp = moe_capacity(128)
-    tot, b, by = banks(Cp, False, (2,))
-    print(f"    grouped_zero_stall_matmul, one olmoe-1b-7b 128-token prefill "
-          f"(C={Cp}), {3 * OLMOE['layers']} launches: {tot['ms']:.3f} ms "
-          f"(plain {tot['plain_ms']:.3f}, torch.bmm {tot['library_ms']:.3f}, "
-          f"bound {b:.3f} by {by})")
+        tot, b, by = banks(Cp, int8, (2, 1, 4) if int8 else (2,))
+        print(f"    {name}, one olmoe-1b-7b 128-token prefill (C={Cp}), "
+              f"{3 * OLMOE['layers']} launches: {tot['ms']:.3f} ms (plain "
+              f"{tot['plain_ms']:.3f}"
+              + (f", the cp.async ring {tot['ring']:.3f}" if int8
+                 else f", torch.bmm {tot['library_ms']:.3f}")
+              + f", bound {b:.3f} by {by})")
+        if int8:
+            print(f"    {name}, one prefill by k tile and ring depth: "
+                  + ", ".join(f"{k} {v:.3f} ms" for k, v in tot.items()
+                              if k.startswith("bk")))
     torch.cuda.empty_cache()
     return out
+
+
+def ring_q6(x_q, w, x_s, w_s):
+    """The earlier design of kernel 6 at its path tiles (bm 128, bn 128, bk
+    128 codes, slots 2): the cp.async ring's grouped int8 entry of
+    ``csrc/quantized_matmul.cu``, bound directly (the wrapper sends only
+    ragged and misaligned shapes there), as a yardstick: bf16 out."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.quantized_matmul import _ARGTYPES
+    from repro_torch.kernels.zero_stall_matmul import _vec_ok
+    G, M, K = x_q.shape
+    N = w.shape[-1]
+    c = torch.empty((G, M, N), dtype=torch.bfloat16, device=x_q.device)
+    fn = _build.bind("quantized_grouped_zero_stall_matmul", _ARGTYPES,
+                     "quantized_matmul")
+    code = fn(x_q.data_ptr(), w.data_ptr(), x_s.data_ptr(), w_s.data_ptr(),
+              c.data_ptr(), G, M, N, K, 128, 128, 128, 2, 0,
+              int(_vec_ok(x_q, w, K, N, True)),
+              torch.cuda.current_stream(x_q.device).cuda_stream)
+    _build.check("quantized_matmul", code)
+    return c
 
 
 if __name__ == "__main__":

@@ -17,12 +17,14 @@
 // the order of the plain version, so kernel and plain version agree bit
 // for bit.
 //
+// The wrappers send here only what the TMA design of quantized_sm90.cu
+// cannot take: K % 16 != 0 or a base that is not 16-byte aligned.
+//
 // Bound on the H100: at decode every weight byte is read once for a few
 // rows, far below the 591 int8 operations a byte the tensor cores need:
 // bytes at 3.35 TB/s, half the bytes of bf16.  What the design does about
 // it: 1-byte tiles halve the shared memory of a slot (128 x 128 x 128 at
-// 2 slots is 74 KB), the ring keeps slots-1 copies in flight per block;
-// TMA, wgmma and split-k are still to come (see PERF.md for the times).
+// 2 slots is 74 KB), the ring keeps slots-1 copies in flight per block.
 // The activation codes and row scales come from quantize_rows, plain
 // PyTorch outside the kernel, as in the JAX package.
 

@@ -2,17 +2,27 @@
 
 One decode query per sequence, q (B, H, D), against a shared page pool
 (P, ps, KV, D) through an int32 page table (B, T) and valid lengths
-``kv_lens`` (B,); grouped-query heads ride the rows of one block per
-(b, kv head).  Columns at or past ``kv_len`` are masked, pages past it
-are skipped, the page walk never leaves the table, and a row with
-``kv_len <= 0`` is exact zeros (see the header note of the CUDA source
-for its design and bound).  Replaces the Pallas TPU kernel
+``kv_lens`` (B,); the grouped-query heads of one kv head are the rows of
+one block.  Columns at or past ``kv_len`` are masked, pages past it are
+skipped, the page walk never leaves the table, and a row with
+``kv_len <= 0`` is exact zeros.  Replaces the Pallas TPU kernel
 ``repro.kernels.paged_attention.paged_attention``.
+
+The kernel splits the page axis (split-KV): :func:`paged_splits` cuts
+the T logical pages into contiguous ranges from B, KV, T and the SM
+count alone, never from ``kv_lens`` (they live on the card: reading them
+would sync the host in every layer and break CUDA-graph capture); each
+block streams its range through a ring of :func:`paged_stages` pages and
+keeps q and its accumulator in registers (:func:`paged_rows` query rows a
+block), and a second launch combines the splits.  The pages arrive by
+bulk copies of the TMA engine, one a K or V row.  See the header note of
+the CUDA source for the design and its bound.
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
 tensor it runs the plain version
 :func:`repro_torch.kernels.ref.paged_attention_ref`.
-``paged_attention.launches`` counts kernel launches.
+``paged_attention.launches`` counts calls that launched the kernel (one
+a call, the combine pass included).
 """
 
 from __future__ import annotations
@@ -23,20 +33,62 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import paged_attention_ref
+from repro_torch.kernels.zero_stall_matmul import _sm_count
 
-__all__ = ["paged_attention", "smem_bytes", "SMEM_LIMIT"]
+__all__ = ["paged_attention", "paged_splits", "paged_stages", "paged_rows",
+           "smem_bytes", "SMEM_LIMIT", "MAX_ROW_BYTES"]
 
 SMEM_LIMIT = 232448
-# q, k_pool, v_pool, o, page_table, kv_lens, B, KV, T, ps, D, rep, scale,
-# bf16, stream
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
+MAX_ROW_BYTES = 1024         # a head's row: at most two 16-byte vectors a lane
+_WARPS = 4                   # warps of a block
+_LANE_FLOATS = 64            # q (or accumulator) floats a lane may hold
+# q, k_pool, v_pool, o, page_table, kv_lens, workspace, B, KV, T, ps, D,
+# rep, rows, splits, per, stages, scale, bf16, stream
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 \
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
-def smem_bytes(D: int, ps: int, rep: int, elt: int) -> int:
+def paged_splits(B: int, KV: int, T: int, sms: int) -> tuple[int, int]:
+    """(splits, pages a split) of the page axis: about two blocks an SM
+    over the B * KV rows, at most one split a page, none empty of table
+    pages.  It reads no ``kv_lens``: a split past a row's length is
+    skipped on the card."""
+    if T <= 0:
+        return 1, 1
+    want = max(1, min(T, -(-2 * sms // max(1, B * KV))))
+    per = -(-T // want)
+    return -(-T // per), per
+
+
+def paged_rows(rep: int, D: int, elt: int) -> int:
+    """Query rows a block holds (1, 2, 4 or 8): all ``rep`` rows of a kv
+    head up to 8, fewer when a lane's share of q would pass 64 floats
+    (rep > 8 takes several blocks a kv head)."""
+    vec = 16 // elt
+    lane = -(-(D * elt // 16) // 32) * vec     # floats of a row a lane
+    rows = 1
+    while rows < min(rep, 8) and 2 * rows * lane <= _LANE_FLOATS:
+        rows *= 2
+    return rows
+
+
+def smem_bytes(D: int, ps: int, rep: int, elt: int, stages: int = 2) -> int:
     """Shared memory of one block (the same formula as the CUDA source):
-    two stages of a K and a V page, then the fp32 per-row state."""
-    return 4 * ps * D * elt + 4 * (2 * rep * D + rep * ps + 3 * rep)
+    a ring of ``stages`` K and V pages, or, if larger, the four warps'
+    fp32 (acc, m, l) of the block's query rows, which the merge writes
+    over the ring; then room for four 8-byte mbarriers."""
+    ring = stages * 2 * ps * D * elt
+    merge = _WARPS * paged_rows(rep, D, elt) * (D + 2) * 4
+    return max(ring, merge) + 32
+
+
+def paged_stages(per: int, D: int, ps: int, rep: int, elt: int) -> int:
+    """Pages of the ring: two windows of W pages, W = 2 (a window's keys
+    in one pass) unless a split has one page or shared memory runs out,
+    then W = 1."""
+    if per >= 2 and smem_bytes(D, ps, rep, elt, 4) <= SMEM_LIMIT:
+        return 4
+    return 2
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -91,6 +143,10 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"paged_attention: the kernel copies pool rows in "
                          f"16-byte pieces; head dim {D} x {elt} bytes must be "
                          f"a multiple of 16 and the pools 16-byte aligned")
+    if D * elt > MAX_ROW_BYTES:
+        raise ValueError(f"paged_attention: head dim {D} x {elt} bytes is "
+                         f"over the {MAX_ROW_BYTES} bytes a row the kernel "
+                         f"keeps in registers")
     need = smem_bytes(D, ps, rep, elt)
     if need > SMEM_LIMIT:
         raise ValueError(
@@ -100,12 +156,17 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     o = torch.empty_like(q)
     if B == 0:
         return o
+    splits, per = paged_splits(B, KV, T, _sm_count(dev.index))
+    ws = (torch.empty(B * KV * splits * rep * (D + 2), dtype=torch.float32,
+                      device=dev) if splits > 1 else None)
     fn = _build.bind("paged_attention", _ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with _build.on_device(dev):
         code = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                   o.data_ptr(), page_table.data_ptr(), kv_lens.data_ptr(),
-                  B, KV, T, ps, D, rep, float(scale),
+                  None if ws is None else ws.data_ptr(), B, KV, T, ps, D,
+                  rep, paged_rows(rep, D, elt), splits, per,
+                  paged_stages(per, D, ps, rep, elt), float(scale),
                   int(q.dtype == torch.bfloat16), stream)
     _build.check("paged_attention", code)
     paged_attention.launches += 1

@@ -6,15 +6,18 @@ dequantising epilogue; ``quantized_grouped_zero_stall_matmul`` does the
 same per group (the W8A8 MoE expert FFNs).  They replace the Pallas TPU
 kernels of ``repro.kernels.quantized_matmul``.
 
-``quantized_zero_stall_matmul`` picks its design by the rule of
+Both pick their design by the rule of
 :func:`~repro_torch.kernels.zero_stall_matmul.select_design`: codes whose
 rows TMA can address (K % 16 == 0, 16-byte aligned bases) run
 ``"sm90"``, the TMA + wgmma ring of ``csrc/quantized_sm90.cu`` (int8
-wgmma with swap AB and int32 split-k, see :func:`split_plan`); other
-shapes run ``"ring"``, the cp.async ring of ``csrc/quantized_matmul.cu``.
-The grouped product runs the ring.  The header notes of the CUDA
-sources give each schedule, its bound on the H100 and what the design
-does about it.
+wgmma with swap AB; int32 split-k for one product, see
+:func:`split_plan`; the persistent walk of
+:func:`~repro_torch.kernels.grouped_matmul.grouped_blocks` blocks over
+the experts' tiles for the grouped one); other shapes run ``"ring"``,
+the cp.async ring of ``csrc/quantized_matmul.cu``.  The choice is made
+by shape: a failed build or launch raises.  The header notes of the
+CUDA sources give each schedule, its bound on the H100 and what the
+design does about it.
 
 B is given with the JAX package's logical (..., K, N) shape, but on the
 card it must be the transposed view of a contiguous (..., N, K) buffer
@@ -23,9 +26,8 @@ card it must be the transposed view of a contiguous (..., N, K) buffer
 tensor-core fragments of the ring read K-major operands only.  On a CPU
 tensor the wrappers run the plain versions in
 :mod:`repro_torch.kernels.ref`, which take any layout.  ``.launches`` on
-each wrapper counts kernel launches, and
-``quantized_zero_stall_matmul.launches_by_design`` splits them by
-design.
+each wrapper counts kernel launches, and ``.launches_by_design`` splits
+them by design.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.grouped_matmul import MAX_GROUPS
+from repro_torch.kernels.grouped_matmul import MAX_GROUPS, grouped_blocks
 from repro_torch.kernels.ref import (quantized_grouped_matmul_ref,
                                      quantized_matmul_ref)
 from repro_torch.kernels.zero_stall_matmul import (_check_config,
@@ -56,6 +58,10 @@ _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 # a, b, a_scale, b_scale, c, workspace, M, N, K, rows, bn, bk, slots, jik,
 # fp32 out, splits, steps per split, stream
 _SM90_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 \
+    + [ctypes.c_void_p]
+# a, b, a_scale, b_scale, c, G, M, N, K, rows, bn, bk, slots, fp32 out,
+# blocks, stream
+_GROUPED_SM90_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 \
     + [ctypes.c_void_p]
 
 
@@ -180,7 +186,9 @@ def quantized_grouped_zero_stall_matmul(a: torch.Tensor, b: torch.Tensor,
                                         ) -> torch.Tensor:
     """Per-group int8 matmul: a (G, M, K), b (G, K, N) int8 codes (K-major
     on the card), a_scale (G, M, 1), b_scale (G, 1, N) fp32 ->
-    (G, M, N)."""
+    (G, M, N).  The design follows
+    :func:`~repro_torch.kernels.zero_stall_matmul.select_design`; tiles
+    that design cannot take raise ``ValueError``."""
     kernel = "quantized_grouped_zero_stall_matmul"
     if a.dim() != 3 or b.dim() != 3:
         raise ValueError(f"{kernel}: 3-D operands expected, got "
@@ -195,24 +203,43 @@ def quantized_grouped_zero_stall_matmul(a: torch.Tensor, b: torch.Tensor,
     if G > MAX_GROUPS or max(M * K, K * N, M * N) >= 2 ** 31:
         raise ValueError(f"{kernel}: at most {MAX_GROUPS} groups of "
                          f"int32-indexable size, got {(G, M, K, N)}")
-    _check_config(bm, bn, bk, slots, torch.int8, True, kernel)
+    kind = select_design(torch.int8, K, N, True, a.data_ptr(), b.data_ptr())
+    if kind == "sm90":
+        _check_sm90_config(M, bm, bn, bk, slots, torch.int8, kernel)
+    else:
+        _check_config(bm, bn, bk, slots, torch.int8, True, kernel)
     c = torch.empty((G, M, N), dtype=out_dtype, device=a.device)
     if c.numel() == 0:
         return c
     if K == 0:
         return c.zero_()
-    fn = _build.bind(kernel, _ARGTYPES, source="quantized_matmul")
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    with _build.on_device(a.device):
-        code = fn(a.data_ptr(), b.data_ptr(), a_scale.data_ptr(),
-                  b_scale.data_ptr(), c.data_ptr(), G, M, N, K, bm, bn, bk,
-                  slots, int(out_dtype == torch.float32),
-                  int(_vec_ok(a, b, K, N, True)), stream)
-    _build.check("quantized_matmul", code)
+    out_f32 = int(out_dtype == torch.float32)
+    if kind == "sm90":
+        rows = sm90_rows(M, bm)
+        blocks = grouped_blocks(G, M, N, rows, bn, _sm_count(a.device.index))
+        fn = _build.bind("quantized_grouped_zero_stall_matmul_sm90",
+                         _GROUPED_SM90_ARGTYPES, "quantized_sm90")
+        with _build.on_device(a.device):
+            code = fn(a.data_ptr(), b.data_ptr(), a_scale.data_ptr(),
+                      b_scale.data_ptr(), c.data_ptr(), G, M, N, K, rows, bn,
+                      bk, slots, out_f32, blocks, stream)
+        _build.check("quantized_sm90", code)
+    else:
+        fn = _build.bind(kernel, _ARGTYPES, source="quantized_matmul")
+        with _build.on_device(a.device):
+            code = fn(a.data_ptr(), b.data_ptr(), a_scale.data_ptr(),
+                      b_scale.data_ptr(), c.data_ptr(), G, M, N, K, bm, bn,
+                      bk, slots, out_f32, int(_vec_ok(a, b, K, N, True)),
+                      stream)
+        _build.check("quantized_matmul", code)
     quantized_grouped_zero_stall_matmul.launches += 1
+    quantized_grouped_zero_stall_matmul.launches_by_design[kind] += 1
     return c
 
 
 quantized_zero_stall_matmul.launches = 0
 quantized_zero_stall_matmul.launches_by_design = {"sm90": 0, "ring": 0}
 quantized_grouped_zero_stall_matmul.launches = 0
+quantized_grouped_zero_stall_matmul.launches_by_design = {"sm90": 0,
+                                                          "ring": 0}

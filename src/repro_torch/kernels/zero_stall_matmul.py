@@ -119,8 +119,7 @@ def select_design(dtype: torch.dtype, K: int, N: int, trans_b: bool,
     (contiguous rows of 16-byte multiples from 16-byte aligned bases:
     K % 8 == 0 in bf16 and K % 16 == 0 in int8, and N the same unless B
     is (N, K); a group's slice starts on such a row) -> "sm90"; fp32 and
-    other shapes -> "ring".  ``quantized_grouped_zero_stall_matmul`` is
-    not routed here: it runs the ring."""
+    other shapes -> "ring"."""
     size = dtype.itemsize
     legal = ((K * size) % 16 == 0 and (trans_b or (N * size) % 16 == 0)
              and a_ptr % 16 == 0 and b_ptr % 16 == 0)

@@ -56,7 +56,8 @@ def linear(p: Params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
     dequantizes the weight and runs the standard kernel.  Parameters
     built by the port already hold the compute dtype, so the cast of a
     plain weight is a no-op on the serving path (the JAX code casts fp32
-    parameters on every call)."""
+    parameters on every call).  A ``b`` leaf (``init_linear(bias=True)``)
+    is cast to ``ctx.dtype`` and added after the product, as in JAX."""
     w = p["w"]
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
@@ -70,7 +71,10 @@ def linear(p: Params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
     else:
         y = ops.matmul(x2, w.to(ctx.dtype), config=ctx.plan,
                        out_dtype=ctx.dtype)
-    return y.reshape(*lead, w.shape[-1])
+    y = y.reshape(*lead, w.shape[-1])
+    if "b" in p:
+        y = y + p["b"].to(ctx.dtype)
+    return y
 
 
 def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -37,10 +37,10 @@ __all__ = ["Model", "build_model", "Ctx"]
 
 # where each family not ported yet stands in ROADMAP.md (queue 1)
 _LATER = {
-    "vlm": "queue 1 item 4 (dense/vlm: the vlm frontend)",
-    "ssm": "queue 1 item 10 (the SSM, hybrid and encdec families)",
-    "hybrid": "queue 1 item 10 (the SSM, hybrid and encdec families)",
-    "encdec": "queue 1 item 10 (the SSM, hybrid and encdec families)",
+    "vlm": "queue 1 item 4 (the SSM, hybrid, encdec and vlm families)",
+    "ssm": "queue 1 item 4 (the SSM, hybrid, encdec and vlm families)",
+    "hybrid": "queue 1 item 4 (the SSM, hybrid, encdec and vlm families)",
+    "encdec": "queue 1 item 4 (the SSM, hybrid, encdec and vlm families)",
 }
 
 

@@ -20,8 +20,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import Ctx, Params
 
-__all__ = ["init_params", "forward", "init_cache", "prefill", "prefill_chunk",
-           "decode_step"]
+__all__ = ["init_linear", "init_params", "forward", "init_cache", "prefill",
+           "prefill_chunk", "decode_step"]
 
 
 # ----------------------------------------------------------------------
@@ -33,12 +33,23 @@ def _dense(g: torch.Generator, d_in: int, d_out: int, dtype, device):
     return (w * d_in ** -0.5).to(dtype)
 
 
+def init_linear(g: torch.Generator, d_in: int, d_out: int, *,
+                bias: bool = False, dtype=torch.float32,
+                device=None) -> Params:
+    """A linear layer's params: ``w`` (d_in, d_out) drawn as ``_dense``,
+    and with ``bias`` a ``b`` (d_out,) of zeros, as JAX's init_linear."""
+    p = {"w": _dense(g, d_in, d_out, dtype, device)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return p
+
+
 def _layer_params(g, cfg: ModelConfig, dtype, device,
                   init_mlp_fn: Callable | None = None) -> Params:
     d, hd = cfg.d_model, cfg.resolved_head_dim
 
     def lin(d_in, d_out):
-        return {"w": _dense(g, d_in, d_out, dtype, device)}
+        return init_linear(g, d_in, d_out, dtype=dtype, device=device)
 
     attn = {"wq": lin(d, cfg.n_heads * hd), "wk": lin(d, cfg.n_kv_heads * hd),
             "wv": lin(d, cfg.n_kv_heads * hd), "wo": lin(cfg.n_heads * hd, d)}

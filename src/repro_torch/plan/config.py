@@ -67,9 +67,8 @@ class KernelConfig:
     ``bm/bn/bk`` are the matmul tiles; ``bk=None`` takes 256 bytes of k
     a stage: 64 for fp32 inputs (a 128-deep fp32 ring at ``slots=2``
     needs more shared memory than a Hopper block has), 128 for bf16 and
-    256 for int8, so an int8 stage of the TMA ring carries the bytes of
-    a bf16 one; the grouped int8 product keeps 128 (its cp.async ring
-    then fits three blocks an SM).  ``variant``/
+    256 for int8, plain or grouped, so an int8 stage of the TMA ring
+    carries the bytes of a bf16 one.  ``variant``/
     ``slots`` set the revolving-buffer depth, ``grid_order`` the
     rasterisation of output tiles over thread blocks, ``bq/bkv`` the
     flash-attention tiles (32 x 32 by default: at head_dim 256 a 128 x
@@ -136,12 +135,12 @@ class KernelConfig:
         """Buffer depth: explicit ``slots`` wins, else variant default."""
         return resolve_slots(self.variant, self.slots)
 
-    def resolved_bk(self, dtype: torch.dtype, grouped: bool = False) -> int:
+    def resolved_bk(self, dtype: torch.dtype) -> int:
         """The k tile for inputs of ``dtype`` (see the class docstring)."""
         if self.bk is not None:
             return self.bk
         if dtype == torch.int8:
-            return 128 if grouped else 256
+            return 256
         return 64 if dtype == torch.float32 else 128
 
     def matmul_kwargs(self, dtype: torch.dtype, *,
@@ -150,7 +149,7 @@ class KernelConfig:
         ``grouped`` leaves out the grid order, which the grouped kernels
         do not have (their Pallas originals walk "ijk" only)."""
         kw = {"bm": self.bm, "bn": self.bn,
-              "bk": self.resolved_bk(dtype, grouped),
+              "bk": self.resolved_bk(dtype),
               "variant": self.variant, "slots": self.slots}
         if not grouped:
             kw["grid_order"] = self.grid_order

@@ -35,7 +35,7 @@ family, whose batch-global routing is not chunk-invariant).  Quantized
 params (``Model.quantize_weights``) pass through unchanged, and MoE
 decode routes every slot's token, live or not, as in the JAX engine.
 Execution plans and plan validation are not ported yet (ROADMAP.md,
-queue 1 items 2 and 13).
+queue 1 items 5 and 8).
 """
 
 from __future__ import annotations
@@ -111,11 +111,11 @@ class ServeEngine:
         if plan is not None:
             raise NotImplementedError(
                 "ServeEngine(plan=...): execution plans are not ported yet "
-                "(ROADMAP.md queue 1 item 2: OpKey, Plan, trace_model)")
+                "(ROADMAP.md queue 1 item 5: OpKey, Plan, trace_model)")
         if validate:
             raise NotImplementedError(
                 "ServeEngine(validate=True): plan and page-geometry "
-                "validation are not ported yet (ROADMAP.md queue 1 item 13: "
+                "validation are not ported yet (ROADMAP.md queue 1 item 8: "
                 "lint_plan, lint_page_geometry)")
         self.device = resolve_device(device)
         self.model = model

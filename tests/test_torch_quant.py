@@ -279,8 +279,8 @@ def test_quantized_wrappers_validate_before_launch():
 def test_int8_shared_memory_budget():
     """int8 tiles take half the shared memory of bf16: 128^3 at 2 slots
     is about 74 KB (K-major B), and bk = 256 fits too.  The default k
-    tile is 256 bytes: 256 codes for one product (the TMA ring's stage
-    of a bf16 product), 128 for the grouped product's cp.async ring."""
+    tile is 256 bytes: 256 codes for one product and for the grouped
+    product (the TMA ring's stage of a bf16 product)."""
     need = zsm_mod.smem_bytes(128, 128, 128, 2, torch.int8, trans_b=True)
     assert need == 2 * (128 + 128) * (128 + 16) == 73728
     zsm_mod._check_config(128, 128, 256, 2, torch.int8, True)
@@ -289,7 +289,7 @@ def test_int8_shared_memory_budget():
     with pytest.raises(ValueError, match="multiple of 32"):
         zsm_mod._check_config(128, 128, 16, 2, torch.int8, True)
     assert KernelConfig().matmul_kwargs(torch.int8)["bk"] == 256
-    assert KernelConfig().matmul_kwargs(torch.int8, grouped=True)["bk"] == 128
+    assert KernelConfig().matmul_kwargs(torch.int8, grouped=True)["bk"] == 256
 
 
 def test_kernel_config_quant_is_validated():

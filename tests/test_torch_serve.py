@@ -224,8 +224,8 @@ def test_engine_rejects_what_slice_two_brings(gemma):
     """Paging and chunked prefill came with slice 2 of the port; plans and
     validation did not, and their refusal names their ROADMAP items."""
     _, _, m, tp = gemma
-    for kw, item in (({"plan": object()}, "queue 1 item 2"),
-                     ({"validate": True}, "queue 1 item 13")):
+    for kw, item in (({"plan": object()}, "queue 1 item 5:"),
+                     ({"validate": True}, "queue 1 item 8:")):
         with pytest.raises(NotImplementedError, match=item):
             _engine(m, tp, **kw)
     _engine(m, tp, page_size=8, prefill_chunk=4)
