@@ -41,13 +41,20 @@ Phases, each printed as it runs:
    tokens through the kernels must equal those of the plain
    ``backend="torch"`` path, at K = 1 and K = 4, with the contiguous
    cache, the paged cache, and (dense only) the paged cache with
-   chunked prefill;
+   chunked prefill; and, sampled (temperature 0.9, top-k 20, top-p
+   0.95, seeded and engine-derived keys), the tokens of the engine's
+   CUDA graph must equal those of its eager block, bit for bit, at
+   K = 1 and K = 4 (dense: K = 1's equal K = 4's);
 5. full-width gemma-7b (28 layers, random weights from a seed) in bf16
    serving 8 mixed-length requests through ``serve_batch``: prefill and
    decode tokens/s, each kernel's launch count against the count the
    path implies (and, in 5-5e, every bf16 and int8 matmul, plain and
    grouped, and every flash call on its Hopper design), and the first
-   prefill's logits against the plain path;
+   prefill's logits against the plain path; then, on the logits
+   check's weights, the same traffic through ``ServeEngine``, its
+   decode step under the block's CUDA graph against the eager loop of
+   the same block, and the device-busy share of one graphed and one
+   eager dispatch (``torch.profiler``);
 5b. full-width gemma-7b paged: 8 requests behind one shared 64-token
    prefix through ``ServeEngine`` with 16-token pages and 96-token
    prefill chunks, run contiguous, paged, paged, contiguous on one copy
@@ -64,7 +71,12 @@ Phases, each printed as it runs:
    ``KernelConfig(quant="int8")``, and how far its logits sit from 5c's;
 5e. full-width gemma-7b in W8A8 with phase 5's traffic (each of 5c-5e:
    tokens/s, launch counts against the path's, the first prefill's
-   logits against the plain path);
+   logits against the plain path; 5d and 5e: the decode step under the
+   graph against the eager loop);
+5f. full-width gemma-7b bf16 on phase 5's weights with phase 5's
+   requests sampled (temperature 0.8, top-k 50, top-p 0.95, a seed
+   each) at K = 4: tokens equal to the eager block's and to K = 1's,
+   launch counts against the path's, decode tokens/s;
 6. each kernel's time at the main-path shapes with CUDA events over a
    CUDA graph of many calls (device time, with the host's launch work
    taken out; operands cycled past the 50 MB L2), beside its plain
@@ -83,6 +95,11 @@ Phases, each printed as it runs:
    split counts;
 7. a ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, ...}`` line.
+
+On the card the engine decodes through one CUDA graph a variant
+(greedy only, sampled), captured after the variant's first dispatch;
+every serving phase prints its engines' captures and their pool bytes,
+and each wrapper's launch count counts the launches a replay runs.
 
 Any failed check raises, so the script exits non-zero and prints no
 ``ok`` line.  It exits non-zero at once without a CUDA device, or when
@@ -185,7 +202,8 @@ def main() -> int:
 
     # -- 1. card ---------------------------------------------------------
     card = card_line()
-    print(f"[1] card: {card}", flush=True)
+    print(f"[1] card: {card}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}", flush=True)
 
     # -- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
@@ -234,7 +252,8 @@ def main() -> int:
     kernels = [
         {"name": "zero_stall_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/zero_stall_sm90.cu",
-         "design": "bf16: TMA + mbarrier ring, wgmma (swap AB), split-k",
+         "design": "bf16: TMA + mbarrier ring, wgmma (swap AB), split-k; "
+                   "decode replays it inside the engine's CUDA graph",
          "replaces": "src/repro/kernels/zero_stall_matmul.py:200",
          "launches": counts["zero_stall_matmul"],
          "max_abs_err": errs["zero_stall_matmul"], **timings["matmul"]},
@@ -247,9 +266,10 @@ def main() -> int:
          "max_abs_err": errs["flash_attention"], **timings["attention"]},
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
-         "design": "split-KV: contiguous page ranges a block, cp.async "
-                   "page ring, q and accumulators in registers, a combine "
-                   "pass",
+         "design": "split-KV: contiguous page ranges a block, TMA bulk "
+                   "row copies into a ring of page windows, q and "
+                   "accumulators in registers, a programmatic-dependent "
+                   "combine launch",
          "replaces": "src/repro/kernels/paged_attention.py:141",
          "launches": counts["paged_attention"],
          "max_abs_err": errs["paged_attention"], **timings["paged"]},
@@ -839,6 +859,18 @@ REDUCED_CASES = (
 )
 
 
+def variants(eng) -> list[str]:
+    """The variants (greedy, sampled) of the CUDA graphs ``eng`` captured,
+    in capture order."""
+    return [c["variant"] for c in eng.captures]
+
+
+def print_captures(label: str, captures: list[dict]) -> None:
+    print(f"    {label}: {len(captures)} CUDA graph capture(s): " + "; ".join(
+        f"{c['variant']}, pool {c['pool_bytes'] / 2 ** 20:.1f} MiB, "
+        f"captured in {1e3 * c['capture_s']:.1f} ms" for c in captures))
+
+
 def check_reduced_engines(torch, kern) -> None:
     import numpy as np
 
@@ -863,7 +895,7 @@ def check_reduced_engines(torch, kern) -> None:
         prompts = [np.random.default_rng(i).integers(0, cfg.vocab_size, n)
                    for i, n in enumerate((5, 11, 3, 8))]
         max_new = [6, 3, 5, 7]
-        outs = {}
+        outs, sampled = {}, {}
         for mode, mode_kw in REDUCED_MODES.items():
             if moe and "prefill_chunk" in mode_kw:
                 continue
@@ -897,6 +929,39 @@ def check_reduced_engines(torch, kern) -> None:
                     require(launched == want, f"{arch} {weights} {mode} "
                             f"{backend}: launched {sorted(launched)}, the "
                             f"path implies {sorted(want)}")
+                    require(variants(eng) == ["greedy"]
+                            and eng.stats.dispatches > 1,
+                            f"{arch} {weights} {mode} {backend} K={K}: "
+                            f"captures {eng.captures}, not one greedy graph "
+                            f"replayed")
+            # sampled: the graph against the eager block, same keys (rids
+            # 0 and 2 seeded, 1 and 3 derived from the engine seed)
+            for K in (1, 4):
+                for eager in (False, True):
+                    eng = ServeEngine(
+                        model, params, Ctx(plan=KernelConfig(quant=quant),
+                                           dtype=torch.float32),
+                        num_slots=2, max_len=32, steps_per_dispatch=K,
+                        seed=3, device="cuda", **mode_kw)
+                    if eager:
+                        eng._capture = lambda greedy_only: None
+                    res = eng.run([Request(rid=i, prompt=p, max_new_tokens=m,
+                                           temperature=0.9, top_k=20,
+                                           top_p=0.95,
+                                           seed=None if i % 2 else 10 + i)
+                                   for i, (p, m) in enumerate(zip(prompts,
+                                                                  max_new))])
+                    sampled[mode, K, eager] = [res[i].tokens
+                                               for i in range(4)]
+                    require(variants(eng) == ([] if eager else ["sampled"]),
+                            f"{arch} {weights} {mode} sampled K={K}: "
+                            f"captures {eng.captures}")
+                require(sampled[mode, K, False] == sampled[mode, K, True],
+                        f"{arch} {weights} {mode} sampled K={K}: graph "
+                        f"tokens {sampled[mode, K, False]} differ from the "
+                        f"eager block's {sampled[mode, K, True]}")
+            require(moe or sampled[mode, 1, False] == sampled[mode, 4, False],
+                    f"{arch} {weights} {mode} sampled: K=1 and K=4 differ")
         for (mode, backend, K), toks in outs.items():
             # MoE routing is batch-global: a slot that idles or re-feeds
             # its last token inside a K-step block takes expert capacity,
@@ -908,7 +973,9 @@ def check_reduced_engines(torch, kern) -> None:
         print(f"    {arch} ({weights} weights): "
               f"{sum(map(len, outs['contiguous', 'torch', 1]))} tokens "
               f"equal on both paths at K=1 and K=4 in {len(outs) // 4} modes"
-              + (" (each mode and K against itself)" if moe else ""))
+              + (" (each mode and K against itself)" if moe else "")
+              + "; sampled, graph == eager block at K=1 and K=4"
+              + ("" if moe else ", K=1 == K=4"))
 
 
 # ----------------------------------------------------------------------
@@ -974,6 +1041,9 @@ def serve_full_width(torch, kern):
     require(counts["flash_attention"] == want_fa > 0,
             "flash-attention launch count differs from the path's")
     check_designs("5", kern)
+    print_captures("serve_batch's engine", out["captures"])
+    require([c["variant"] for c in out["captures"]] == ["greedy"],
+            "5: the engine did not decode through one greedy CUDA graph")
     gen = out["generated"]
     require(gen.shape == (8, 32) and (gen >= 0).all()
             and (gen < GEMMA["V"]).all(), "not every request completed")
@@ -1002,9 +1072,227 @@ def serve_full_width(torch, kern):
           f"plain| {err:.4g}, max|plain| {scale:.4g} (tol 0.05 * max|plain| "
           f"= {tol:.4g}: bf16 rounding through 28 layers)")
     require(err <= tol, "full-width prefill logits disagree")
-    del params, logits
+    del logits
+    greedy = serve_block_full_width(torch, kern, model, params, gen)
+    serve_sampled_full_width(torch, kern, model, params, greedy)
+    del params
     torch.cuda.empty_cache()
     return counts
+
+
+def engine_for(torch, model, params, ctx, *, K: int, eager: bool = False,
+               **kw):
+    """A ``ServeEngine`` with phase 5's slots and length on the card; with
+    ``eager`` it never captures, so every dispatch runs the block's eager
+    loop (the engine's private hook; no public switch exists)."""
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(model, params, ctx, num_slots=SERVE_KW["num_slots"],
+                      max_len=SERVE_KW["prompt_len"] + SERVE_KW["gen_len"],
+                      cache_dtype=torch.bfloat16, steps_per_dispatch=K,
+                      seed=SERVE_KW["seed"], device="cuda", **kw)
+    if eager:
+        eng._capture = lambda greedy_only: None
+    return eng
+
+
+def block_step_ms(torch, eng, n: int = 3, greedy_only: bool = True
+                  ) -> dict:
+    """ms a decode step of a dispatch of ``eng``'s block (the greedy or
+    the sampled variant, with the knobs of the slots' last requests) with
+    every slot active, under the block's CUDA graph and as the eager loop
+    of the same block (the private ``_block``, which reads the operands
+    the graphed dispatch loaded), in turns graph, eager, eager, graph;
+    each turn ``n`` dispatches, each ending in the host's read of the
+    tile.  The launch counters are left as the served run left them."""
+    import numpy as np
+
+    from repro_torch.kernels import launches
+    from repro_torch.serve.engine import _host
+    before = launches.snapshot()
+    S, K = eng.num_slots, eng.steps_per_dispatch
+    args = (np.zeros(S, np.int32), np.zeros(S, bool),
+            np.full(S, 2 ** 30, np.int32))
+    fns = {"graph": lambda: eng._decode_block(*args,
+                                              greedy_only=greedy_only),
+           "eager": lambda: eng._block(greedy_only)}
+    fns["graph"]()
+    fns["graph"]()      # captured by now, whatever ran before
+    torch.cuda.synchronize()
+    times = {"graph": [], "eager": []}
+    for how in ("graph", "eager", "eager", "graph"):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            _host(fns[how]())
+        times[how].append(1e3 * (time.perf_counter() - t0) / (n * K))
+    launches.add(launches.since(before), -1)
+    return times
+
+
+def print_step_ms(label: str, times: dict) -> None:
+    g, e = (sum(times[k]) / len(times[k]) for k in ("graph", "eager"))
+    print(f"    {label} decode step, all slots active (ms; turns graph, "
+          f"eager, eager, graph): CUDA graph "
+          f"{' / '.join(f'{t:.3f}' for t in times['graph'])}, eager loop "
+          f"{' / '.join(f'{t:.3f}' for t in times['eager'])}: "
+          f"{e / g:.2f}x")
+
+
+def busy_share(torch, eng, times: dict) -> None:
+    """The device-busy share of one graphed and one eager dispatch of
+    ``eng``'s greedy block: the union of the device events that
+    ``torch.profiler`` records over the dispatch (kernels and copies),
+    against the dispatch's host time under the profiler and against the
+    unprofiled step time of :func:`block_step_ms`.  The launch counters
+    are left as the served run left them."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import launches
+    from repro_torch.serve.engine import _host
+    before = launches.snapshot()
+    S, K = eng.num_slots, eng.steps_per_dispatch
+    args = (np.zeros(S, np.int32), np.zeros(S, bool),
+            np.full(S, 2 ** 30, np.int32))
+    fns = {"graph": lambda: _host(eng._decode_block(*args,
+                                                     greedy_only=True)),
+           "eager": lambda: _host(eng._block(True))}
+    for how, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if not dev:
+            print(f"    {how} dispatch: the profiler recorded no device "
+                  f"event: device-busy share not measured")
+            continue
+        busy, end = 0.0, float("-inf")
+        for a, b in sorted((e.time_range.start, e.time_range.end)
+                           for e in dev):
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        by_name: dict[str, float] = {}
+        for e in dev:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us()
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        step_us = 1e3 * K * sum(times[how]) / len(times[how])
+        print(f"    {how} dispatch (K={K}) under torch.profiler: {len(dev)} "
+              f"device events, device busy {busy:.0f} us of {wall_us:.0f} "
+              f"us of host time ({busy / wall_us:.1%}); against the "
+              f"unprofiled dispatch ({step_us:.0f} us): "
+              f"{busy / step_us:.1%} busy, {1 - busy / step_us:.1%} idle")
+        print("      most device time: " + "; ".join(
+            f"{name[:60]} {us:.0f} us" for name, us in top))
+    launches.add(launches.since(before), -1)
+
+
+def serve_block_full_width(torch, kern, model, params, gen) -> dict:
+    """Phase 5's traffic through ``ServeEngine`` on the logits check's
+    weights: greedy tokens equal to ``serve_batch``'s (the same weights
+    from the same seed), launch counts, then the decode step under the
+    graph against the eager loop and the device-busy share."""
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import Ctx
+    kw, L = SERVE_KW, GEMMA["layers"]
+    reqs = make_requests(model.cfg, kw["seed"], kw["batch"], kw["prompt_len"],
+                         kw["gen_len"], kw["mixed"])
+    eng = engine_for(torch, model, params,
+                     Ctx(plan="auto", dtype=torch.bfloat16),
+                     K=kw["steps_per_dispatch"])
+    reset_counts(kern)
+    res = eng.run(reqs)
+    torch.cuda.synchronize()
+    s = eng.stats
+    got = {n: k.launches for n, k in kern.items()}
+    want = {n: 0 for n in kern}
+    want.update(zero_stall_matmul=(7 * L + 1) * (s.admitted + s.decode_steps),
+                flash_attention=L * s.admitted)
+    print(f"    ServeEngine on the same weights: decode {s.decode_tok_s:.1f} "
+          f"tok/s over {s.decode_s:.3f} s ({s.decode_steps} steps, "
+          f"{s.dispatches} dispatches)")
+    check_counts("5 ServeEngine", got, want, f"(7*{L}+1) matmuls per pass "
+                 f"over {s.admitted} + {s.decode_steps} passes, {L} flash "
+                 f"calls per prefill")
+    print_captures("ServeEngine", eng.captures)
+    tokens = {i: r.tokens for i, r in res.items()}
+    require(all(list(gen[i]) == tokens[i] for i in tokens),
+            "5: ServeEngine's tokens differ from serve_batch's on the same "
+            "weights")
+    times = block_step_ms(torch, eng)
+    print_step_ms("5", times)
+    busy_share(torch, eng, times)
+    del eng, res
+    torch.cuda.empty_cache()
+    return tokens
+
+
+def serve_sampled_full_width(torch, kern, model, params, greedy: dict
+                             ) -> None:
+    """5f: phase 5's requests sampled, each with a seed, on phase 5's
+    weights: the graph at K = 4 against the eager block at K = 4 and the
+    graph at K = 1, token for token."""
+    import dataclasses
+
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import Ctx
+    kw, L = SERVE_KW, GEMMA["layers"]
+    knobs = dict(temperature=0.8, top_k=50, top_p=0.95)
+    reqs = [dataclasses.replace(r, seed=1000 + r.rid) for r in make_requests(
+        model.cfg, kw["seed"], kw["batch"], kw["prompt_len"], kw["gen_len"],
+        kw["mixed"], **knobs)]
+    print(f"[5f] gemma-7b full width, bf16, phase 5's weights and requests "
+          f"sampled ({knobs}, seeds 1000 + rid): the graph at K=4 against "
+          f"the eager block at K=4 and the graph at K=1", flush=True)
+    toks = {}
+    for how, K in (("graph", 4), ("eager", 4), ("graph", 1)):
+        eng = engine_for(torch, model, params,
+                         Ctx(plan="auto", dtype=torch.bfloat16), K=K,
+                         eager=how == "eager")
+        reset_counts(kern)
+        res = eng.run(reqs)
+        torch.cuda.synchronize()
+        s = eng.stats
+        got = {n: k.launches for n, k in kern.items()}
+        want = {n: 0 for n in kern}
+        want.update(
+            zero_stall_matmul=(7 * L + 1) * (s.admitted + s.decode_steps),
+            flash_attention=L * s.admitted)
+        print(f"    {how} K={K}: prefill {s.prefill_tok_s:.1f} tok/s; "
+              f"decode {s.decode_tok_s:.1f} tok/s over {s.decode_s:.3f} s "
+              f"({s.decode_steps} steps, {s.dispatches} dispatches)")
+        check_counts(f"5f {how} K={K}", got, want, f"(7*{L}+1) matmuls per "
+                     f"pass, {L} flash calls per prefill")
+        check_designs(f"5f {how} K={K}", kern)
+        print_captures(f"{how} K={K}", eng.captures)
+        require(variants(eng) == ([] if how == "eager" else ["sampled"]),
+                f"5f {how} K={K}: captures {eng.captures}")
+        require(sorted(res) == list(range(kw["batch"])) and all(
+            len(r.tokens) == kw["gen_len"]
+            and all(0 <= t < GEMMA["V"] for t in r.tokens)
+            for r in res.values()), f"5f {how}: not every request completed")
+        toks[how, K] = {i: r.tokens for i, r in res.items()}
+        if how == "graph" and K == 4:
+            print_step_ms("5f sampled", block_step_ms(torch, eng,
+                                                      greedy_only=False))
+        del eng, res
+        torch.cuda.empty_cache()
+    differ = sum(a != b for i in greedy for a, b in zip(toks["graph", 4][i],
+                                                        greedy[i]))
+    print(f"    tokens: graph K=4 == eager K=4 "
+          f"{toks['graph', 4] == toks['eager', 4]}, == graph K=1 "
+          f"{toks['graph', 4] == toks['graph', 1]}; {differ} of "
+          f"{kw['batch'] * kw['gen_len']} differ from phase 5's greedy tokens")
+    require(toks["graph", 4] == toks["eager", 4],
+            "5f: the graph's sampled tokens differ from the eager block's")
+    require(toks["graph", 4] == toks["graph", 1],
+            "5f: sampled tokens at K=4 differ from K=1's")
+    require(differ > 0, "5f: every sampled token is the greedy one")
 
 
 # ----------------------------------------------------------------------
@@ -1089,6 +1377,10 @@ def serve_paged_full_width(torch, kern) -> dict:
         print(f"      launches {got} (path implies {want})")
         require(got == want and got["zero_stall_matmul"] > 0,
                 f"{mode}: launch counts differ from the path's")
+        print_captures(mode, eng.captures)
+        require(variants(eng) == ["greedy"],
+                f"{mode}: the engine did not decode through one greedy "
+                f"CUDA graph")
         check_designs(f"5b {mode}", kern)
         if mode == "paged":
             require(s.pages_shared >= 4, "fewer than 4 shared prefix pages")
@@ -1241,7 +1533,11 @@ def serve_w8a8(torch, kern, model, qparams, label: str) -> tuple[dict, dict]:
           f"{s.prefill_s:.3f} s; decode {s.decode_tok_s:.1f} tok/s over "
           f"{s.decode_s:.3f} s ({s.decode_steps} steps, {s.dispatches} "
           f"dispatches, {s.admitted} admissions)")
+    print_captures(label, eng.captures)
+    require(variants(eng) == ["greedy"], f"{label}: the engine did not "
+            f"decode through one greedy CUDA graph")
     snap = s.snapshot()
+    snap["step_ms"] = block_step_ms(torch, eng)
     del eng, res
     torch.cuda.empty_cache()
     return counts, snap
@@ -1271,6 +1567,9 @@ def serve_moe_full_width(torch, kern) -> dict:
     torch.cuda.synchronize()
     got = {n: k.launches for n, k in kern.items()}
     check_designs("5c", kern)
+    print_captures("serve_batch's engine", out["captures"])
+    require([c["variant"] for c in out["captures"]] == ["greedy"],
+            "5c: the engine did not decode through one greedy CUDA graph")
     s = out["stats"]
     passes = s["admitted"] + s["decode_steps"]
     print(f"    prefill {out['prefill_tok_s']:.1f} tok/s over "
@@ -1314,6 +1613,7 @@ def serve_moe_full_width(torch, kern) -> dict:
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB, after "
           f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB", flush=True)
     got, s = serve_w8a8(torch, kern, model, qparams, "5d")
+    print_step_ms("5d", s["step_ms"])
     passes = s["admitted"] + s["decode_steps"]
     want = {n: 0 for n in kern}
     want.update(quantized_zero_stall_matmul=4 * L * passes,
@@ -1362,6 +1662,7 @@ def serve_gemma_w8a8(torch, kern) -> int:
           f" GiB of weights): ServeEngine with KernelConfig(quant='int8'), "
           f"phase 5's traffic", flush=True)
     got, s = serve_w8a8(torch, kern, model, qparams, "5e")
+    print_step_ms("5e", s["step_ms"])
     passes = s["admitted"] + s["decode_steps"]
     want = {n: 0 for n in kern}
     want.update(quantized_zero_stall_matmul=7 * L * passes,

@@ -24,6 +24,7 @@ import warnings
 
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.flash_attention import fit_tiles
@@ -151,7 +152,7 @@ def quantized_grouped_matmul(x: torch.Tensor, qw: QTensor, *, config=None,
         **cfg.matmul_kwargs(torch.int8, grouped=True))
 
 
-_FALLBACK_COUNTS: dict[str, int] = {}
+_FALLBACK_PREFIX = "ops.fallback."
 _FALLBACK_WARNED: set[str] = set()
 _STRICT = {"on": False, "allow": ()}
 
@@ -175,19 +176,27 @@ def strict_fallbacks(enable: bool = True, *, allow: tuple[str, ...] = ()):
 def reset_fallback_warnings() -> None:
     """Forget which fallbacks have warned and zero their counters."""
     _FALLBACK_WARNED.clear()
-    _FALLBACK_COUNTS.clear()
+    _obs.reset_counters(_FALLBACK_PREFIX)
 
 
 def fallback_counts() -> dict[str, int]:
-    """{fallback key -> times taken} since the last reset."""
-    return dict(_FALLBACK_COUNTS)
+    """{fallback key -> times taken} since the last reset.
+
+    Every occurrence increments an always-on :mod:`repro_torch.obs`
+    counter under ``ops.fallback.``, so runs and tests can assert
+    ``ops.fallback_counts() == {}``.  Counts are per Python call of an
+    entry point: a CUDA graph that captured a fallback counted it once,
+    at its capture, and its replays add nothing (the JAX package counts
+    once per trace of a compiled program)."""
+    pre = _FALLBACK_PREFIX
+    return {k[len(pre):]: v for k, v in _obs.counters(pre).items()}
 
 
 def _warn_fallback_once(key: str, reason: str,
                         strict: bool | None = None) -> None:
     """Count a fallback every time, warn once per key, and raise
     :class:`FallbackError` under strict mode unless allowlisted."""
-    _FALLBACK_COUNTS[key] = _FALLBACK_COUNTS.get(key, 0) + 1
+    _obs.counter_inc(_FALLBACK_PREFIX + key)
     if strict is None:
         strict = _STRICT["on"]
     if strict and key not in _STRICT["allow"]:

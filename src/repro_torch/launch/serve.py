@@ -12,7 +12,8 @@ attention the paged-attention kernel.
       --page-size 16 --prefill-chunk 96
 
 Pass ``--device cpu`` to run the plain versions of the kernels on the
-host (at the reduced size).
+host (at the reduced size), and ``--trace-out PATH`` to stream the
+engine's spans and events to a JSONL file.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import argparse
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.configs import get_config
 from repro_torch.models import Ctx, build_model
 from repro_torch.plan.config import dtype_from_name
@@ -64,11 +65,12 @@ def serve_batch(arch: str, *, reduced: bool = True, batch: int = 4,
     ``device`` (``None``: the CUDA device; it raises when there is
     none).  ``backend`` is ``"auto"`` (the kernels on the card) or
     ``"torch"`` (the plain versions).  Returns the generated tokens
-    (``(batch, gen_len)``, -1 past a request's end), throughput and the
-    engine's stats snapshot.  ``page_size`` switches the KV cache to the
-    paged pool (it must divide ``prompt_len + gen_len``), ``num_pages``
-    sizes the pool (default: no oversubscription) and ``prefill_chunk``
-    ingests long prompts chunk by chunk between decode dispatches.
+    (``(batch, gen_len)``, -1 past a request's end), throughput, the
+    engine's stats snapshot and its CUDA graph captures (none on the
+    CPU).  ``page_size`` switches the KV cache to the paged pool (it
+    must divide ``prompt_len + gen_len``), ``num_pages`` sizes the pool
+    (default: no oversubscription) and ``prefill_chunk`` ingests long
+    prompts chunk by chunk between decode dispatches.
     """
     device = resolve_device(device)
     cfg = get_config(arch, reduced=reduced)
@@ -88,7 +90,8 @@ def serve_batch(arch: str, *, reduced: bool = True, batch: int = 4,
     gen = np.full((batch, gen_len), -1, np.int64)
     for rid, res in results.items():
         gen[rid, :len(res.tokens)] = res.tokens
-    return {"generated": gen, **tp, "stats": engine.stats.snapshot()}
+    return {"generated": gen, **tp, "stats": engine.stats.snapshot(),
+            "captures": engine.captures}
 
 
 def main(argv=None) -> None:
@@ -123,18 +126,26 @@ def main(argv=None) -> None:
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="ingest prompts longer than this in chunks of "
                     "this many tokens between decode dispatches")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a JSONL span/event trace of the run here "
+                    "(implies tracing on; one JSON object per line)")
     args = ap.parse_args(argv)
-    out = serve_batch(args.arch, reduced=args.reduced, batch=args.batch,
-                      prompt_len=args.prompt_len, gen_len=args.gen_len,
-                      seed=args.seed, dtype=dtype_from_name(args.dtype),
-                      num_slots=args.num_slots, mixed=args.mixed,
-                      backend=args.backend,
-                      steps_per_dispatch=args.steps_per_dispatch,
-                      temperature=args.temperature, top_k=args.top_k,
-                      top_p=args.top_p, step_timeout_s=args.step_timeout,
-                      device=args.device, page_size=args.page_size,
-                      num_pages=args.num_pages,
-                      prefill_chunk=args.prefill_chunk)
+    if args.trace_out:
+        obs.enable(trace_path=args.trace_out)
+    try:
+        out = serve_batch(
+            args.arch, reduced=args.reduced, batch=args.batch,
+            prompt_len=args.prompt_len, gen_len=args.gen_len,
+            seed=args.seed, dtype=dtype_from_name(args.dtype),
+            num_slots=args.num_slots, mixed=args.mixed,
+            backend=args.backend, steps_per_dispatch=args.steps_per_dispatch,
+            temperature=args.temperature, top_k=args.top_k,
+            top_p=args.top_p, step_timeout_s=args.step_timeout,
+            device=args.device, page_size=args.page_size,
+            num_pages=args.num_pages, prefill_chunk=args.prefill_chunk)
+    finally:
+        if args.trace_out:
+            obs.disable()
     s = out["stats"]
     print(f"generated shape: {out['generated'].shape}")
     print(f"prefill: {out['prefill_s']:.2f}s ({out['prefill_tok_s']:.1f} "
@@ -147,6 +158,8 @@ def main(argv=None) -> None:
         print(f"pages in use (peak): {s['pages_in_use']}  "
               f"shared: {s['pages_shared']}  "
               f"prefill chunks: {s['prefill_chunks']}")
+    if args.trace_out:
+        print(f"trace written to {args.trace_out}")
 
 
 if __name__ == "__main__":

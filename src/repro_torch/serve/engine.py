@@ -14,9 +14,20 @@ inside a block: they re-feed their last token and the host discards
 what they emit after their done point, so the tokens are the same for
 every K.
 
-The K-step block is a Python loop of ``Model.decode`` calls here; CUDA
-graphs come later.  Greedy decode through the engine is token-for-token
-identical to :func:`lockstep_generate`.
+The K-step block is one function of static buffers (the cache, the
+slots' sampling keys and one packed tensor of per-dispatch operands), so
+on a CUDA device it runs as one captured CUDA graph a variant (greedy
+only, sampled): the first dispatch of a variant runs it eagerly, which
+builds and binds the kernels, and the graph is captured after it; every
+later dispatch copies its operands in with one host->device copy and
+replays the graph.  A capture or a replay that fails raises; there is no
+eager fallback on the card.  On the CPU the same function runs eagerly.
+Greedy decode through the engine is token-for-token identical to
+:func:`lockstep_generate`.  Sampling keys are the JAX package's
+threefry key data (:mod:`repro_torch.serve.sampling`), so a seeded
+request samples the tokens it samples in the JAX engine.  Admissions,
+prefill chunks, dispatches and retirements emit the JAX engine's spans
+and events (:mod:`repro_torch.obs`).
 
 Paged mode (``page_size=...``) replaces the per-slot stripes with a
 device-resident page pool, stacked ``(n_layers, num_pages, page_size,
@@ -47,7 +58,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
+from repro_torch.kernels import launches
 from repro_torch.serve import sampling
 from repro_torch.serve.paging import (TRASH_PAGE, OutOfPages, PageAllocator,
                                       PageGeometry, PrefixCache)
@@ -158,12 +170,25 @@ class ServeEngine:
                                         device=self.device)
         # chunked admissions in flight: slot -> parked state
         self._chunking: dict[int, dict] = {}
-        # per-slot sampling state: a generator per slot (set at
-        # admission) and host mirrors of the knobs
-        self._gens: list[torch.Generator | None] = [None] * self.num_slots
+        # per-slot sampling state: threefry key data on the device (set
+        # at admission, carried through the block) and host mirrors of
+        # the knobs
+        self._keys = sampling.make_keys(self.num_slots, self.device)
         self._temp = np.zeros((self.num_slots,), np.float32)
         self._topk = np.zeros((self.num_slots,), np.int32)
         self._topp = np.ones((self.num_slots,), np.float32)
+        # the block's per-dispatch operands, rows tok, done, budget,
+        # top_k, temp, top_p: one int32 tensor (the floats' bits) so that
+        # one host->device copy loads them, staged through pinned memory
+        # on the card
+        self._ops = torch.zeros((6, self.num_slots), dtype=torch.int32,
+                                device=self.device)
+        self._ops_host = torch.zeros((6, self.num_slots), dtype=torch.int32,
+                                     pin_memory=self.device.type == "cuda")
+        # greedy_only -> (graph, its token tile, the launches it replays)
+        self._graphs: dict[bool, tuple] = {}
+        #: one record a captured graph: variant, pool bytes, capture s
+        self.captures: list[dict] = []
 
         self._pending: collections.deque[Request] = collections.deque()
         self._slots: list[SlotState | None] = [None] * self.num_slots
@@ -251,33 +276,84 @@ class ServeEngine:
         return self._alloc.in_use if self._geom is not None else 0
 
     # ------------------------------------------------------------------
-    def _decode_block(self, tok: torch.Tensor, done: torch.Tensor,
-                      budget: torch.Tensor, *, greedy_only: bool
+    def _decode_block(self, tok: np.ndarray, done: np.ndarray,
+                      budget: np.ndarray, *, greedy_only: bool
                       ) -> torch.Tensor:
-        """K decode+sample iterations over all slots -> (num_slots, K)
-        tokens, with no host sync.  Frozen (done) rows re-feed their last
-        token and stop consuming budget; their cache rows still see
-        writes, which land in their own stripe (clamped in bounds) or,
-        paged, in their own pages or the trash page, and are overwritten
-        at the slot's next admission.  ``greedy_only``
-        is the argmax specialisation of an all-greedy slot pool: no
-        sort and no draw."""
+        """One K-step block from the (num_slots,) host vectors of this
+        dispatch -> the (num_slots, K) token tile on the device, with no
+        host sync.  On a CUDA device the block is the variant's CUDA
+        graph, captured after the variant's first (eager) dispatch."""
+        self._ops_host.numpy()[:] = (tok, done, budget, self._topk,
+                                     self._temp.view(np.int32),
+                                     self._topp.view(np.int32))
+        # the host rewrites the staging buffer only after the dispatch's
+        # read of the tile, so the copy may run behind the host
+        self._ops.copy_(self._ops_host, non_blocking=True)
+        if self.device.type != "cuda":
+            return self._block(greedy_only)
+        if greedy_only not in self._graphs:
+            tile = self._block(greedy_only)
+            self._capture(greedy_only)
+            return tile
+        graph, tile, counts = self._graphs[greedy_only]
+        graph.replay()
+        launches.add(counts)
+        return tile
+
+    def _capture(self, greedy_only: bool) -> None:
+        """Capture the variant's block into a CUDA graph that reads and
+        writes the engine's static buffers.  The capture runs nothing: it
+        advances no state, and the launch counts its wrapper calls made
+        are taken back out and added again at each replay."""
+        dev = self.device
+        t0 = _now()
+        # torch.cuda.graph syncs and empties the cache again; done here
+        # first, the growth of the reserved bytes is the graph's pool
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        before = launches.snapshot()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            tile = self._block(greedy_only)
+        counts = launches.since(before)
+        launches.add(counts, -1)
+        self._graphs[greedy_only] = (graph, tile, counts)
+        self.captures.append({
+            "variant": "greedy" if greedy_only else "sampled",
+            "pool_bytes": torch.cuda.memory_reserved(dev) - reserved,
+            "capture_s": _now() - t0})
+
+    def _block(self, greedy_only: bool) -> torch.Tensor:
+        """K decode+sample iterations over all slots, reading the static
+        operands (``self._ops``, ``self._keys``, the cache) ->
+        (num_slots, K) int64 tokens.
+
+        Frozen (done) rows re-feed their last token, keep their key and
+        stop consuming budget; their cache rows still see writes, which
+        land in their own stripe (clamped in bounds) or, paged, in their
+        own pages or the trash page, and are overwritten at the slot's
+        next admission.  The last operations copy the new ``pos`` (and
+        any cache leaf ``decode`` returned anew) and keys back into the
+        static tensors, so a replay leaves the engine where this loop
+        does.  ``greedy_only`` is the argmax specialisation of an
+        all-greedy slot pool: no sort, no draw, keys untouched."""
         model, ctx, eos = self.model, self.ctx, self.eos_id
-        if not greedy_only:
-            temp = torch.from_numpy(self._temp).to(self.device)
-            topk = torch.from_numpy(self._topk).to(self.device)
-            topp = torch.from_numpy(self._topp).to(self.device)
-            gens = [g if t > 0 else None
-                    for g, t in zip(self._gens, self._temp)]
+        tok, done, budget, topk, temp, topp = self._ops
+        tok, done = tok.long(), done.bool()
+        temp, topp = temp.view(torch.float32), topp.view(torch.float32)
+        keys, cache = self._keys, dict(self.cache)
         out = []
         for _ in range(self.steps_per_dispatch):
-            logits, self.cache = model.decode(self.params, self.cache,
-                                              tok[:, None], ctx)
+            logits, cache = model.decode(self.params, cache, tok[:, None],
+                                         ctx)
             if greedy_only:
                 nxt = sampling.greedy(logits[:, -1])
             else:
-                nxt = sampling.sample(logits[:, -1], gens, temp, topk, topp)
-            nxt = torch.where(done, tok, nxt)
+                keys2, nxt = sampling.sample(logits[:, -1], keys, temp, topk,
+                                             topp)
+                keys = torch.where(done[:, None], keys, keys2)
+            nxt = torch.where(done, tok, nxt.long())
             budget = budget - (~done).to(torch.int32)
             newly = budget <= 0
             if eos is not None:
@@ -285,6 +361,11 @@ class ServeEngine:
             done = done | newly
             tok = nxt
             out.append(nxt)
+        for name, t in cache.items():
+            if t is not self.cache[name]:
+                self.cache[name].copy_(t)
+        if keys is not self._keys:
+            self._keys.copy_(keys)
         return torch.stack(out, dim=1)
 
     # ------------------------------------------------------------------
@@ -389,25 +470,34 @@ class ServeEngine:
         self._prefix.publish(req.prompt, pages)
         self._page_gauges()
 
+    def _request_key(self, req: Request) -> torch.Tensor:
+        """(2,) key data of the request's sample chain (on the host):
+        ``PRNGKey(req.seed)``, or ``fold_in(PRNGKey(engine seed), rid)``
+        for a request without a seed, as in the JAX engine."""
+        if req.seed is not None:
+            return sampling.request_key(req.seed)
+        return sampling.fold_in(sampling.request_key(self.seed), req.rid)
+
     def _first_token(self, req: Request, slot: int, logits) -> int:
-        """Sample the first token with the request's own knobs and a
-        fresh generator for the slot (one sync per admission)."""
-        seed = req.seed if req.seed is not None else \
-            sampling.request_seed(self.seed, req.rid)
-        g = sampling.make_generator(seed, self.device)
-        self._gens[slot] = g
-        self._temp[slot] = req.temperature
-        self._topk[slot] = req.top_k
-        self._topp[slot] = req.top_p
+        """Sample the first token with the request's own knobs and key
+        (one sync per admission); the advanced key parks in the slot's
+        row of the device keys.  A greedy request only advances its key
+        (one split, on the host): its token never reads it."""
+        key = self._request_key(req)[None]
+        dev = self.device
         if req.temperature > 0:
-            dev = self.device
-            tok = sampling.sample(
-                logits[:, -1], [g],
+            key, tok = sampling.sample(
+                logits[:, -1], key.to(dev),
                 torch.full((1,), req.temperature, device=dev),
                 torch.full((1,), req.top_k, dtype=torch.int32, device=dev),
                 torch.full((1,), req.top_p, device=dev))
         else:
-            tok = sampling.greedy(logits[:, -1])
+            key, tok = sampling.split(key)[:, 0], sampling.greedy(
+                logits[:, -1])
+        self._keys[slot] = key[0].to(dev)
+        self._temp[slot] = req.temperature
+        self._topk[slot] = req.top_k
+        self._topp[slot] = req.top_p
         return int(_host(tok)[0])
 
     def _retire(self, slot: int) -> None:
@@ -418,7 +508,6 @@ class ServeEngine:
             finished_step=self._step, queue_wait_s=st.queue_wait_s,
             ttft_s=st.ttft_s)
         self._slots[slot] = None
-        self._gens[slot] = None
         self.stats.retired += 1
         if self._geom is not None and self._slot_pages[slot]:
             # order matters: point the table row at the trash page first,
@@ -427,6 +516,8 @@ class ServeEngine:
             self.cache["page_table"][slot] = TRASH_PAGE
             self._alloc.release_all(self._slot_pages[slot])
             self._slot_pages[slot] = []
+        obs.event("serve.retire", rid=st.request.rid, slot=slot,
+                  tokens=len(st.tokens), steps=self._step - st.admitted_step)
 
     def _done(self, st: SlotState, tok: int) -> bool:
         return (len(st.tokens) >= st.request.max_new_tokens
@@ -465,16 +556,18 @@ class ServeEngine:
             toks[0, :end - off] = torch.tensor(req.prompt[off:end],
                                                dtype=torch.long)
             t0 = _now()
-            logits, st["cache"] = self.model.prefill_chunk(
-                self.params, toks.to(self.device), self.ctx,
-                cache=st["cache"], offset=off,
-                lengths=torch.tensor([end], dtype=torch.int32,
-                                     device=self.device))
-            # unlike the JAX engine, which leaves the chunk in flight,
-            # wait for it: a chunk that is not the last reads nothing
-            # back, so without the wait its device time would land in
-            # the next decode dispatch's ``decode_s`` instead of here
-            _wait(self.device)
+            with obs.span("serve.prefill_chunk", rid=req.rid, slot=slot,
+                          step=self._step, offset=off, end=end):
+                logits, st["cache"] = self.model.prefill_chunk(
+                    self.params, toks.to(self.device), self.ctx,
+                    cache=st["cache"], offset=off,
+                    lengths=torch.tensor([end], dtype=torch.int32,
+                                         device=self.device))
+                # unlike the JAX engine, which leaves the chunk in
+                # flight, wait for it: a chunk that is not the last reads
+                # nothing back, so without the wait its device time would
+                # land in the next decode dispatch's ``decode_s``
+                _wait(self.device)
             dt = _now() - t0
             self.stats.prefill_s += dt
             self.stats.prefill_chunks += 1
@@ -533,7 +626,9 @@ class ServeEngine:
                 events.extend(self._advance_chunk(slot))
                 continue
             try:
-                tok = self._admit(req, slot)
+                with obs.span("serve.admit", rid=req.rid, slot=slot,
+                              step=self._step, prompt_len=len(req.prompt)):
+                    tok = self._admit(req, slot)
             except OutOfPages:
                 # pool exhausted: requeue at the front and stop admitting;
                 # active slots will retire and free pages
@@ -570,7 +665,7 @@ class ServeEngine:
             return events
 
         K = self.steps_per_dispatch
-        toks = np.zeros((self.num_slots,), np.int64)
+        toks = np.zeros((self.num_slots,), np.int32)
         done = np.ones((self.num_slots,), bool)
         budget = np.zeros((self.num_slots,), np.int32)
         for i in active:
@@ -580,12 +675,11 @@ class ServeEngine:
             budget[i] = st.request.max_new_tokens - len(st.tokens)
         greedy_only = all(self._temp[i] == 0.0 for i in active)
         t0 = _now()
-        block = self._decode_block(
-            torch.from_numpy(toks).to(self.device),
-            torch.from_numpy(done).to(self.device),
-            torch.from_numpy(budget).to(self.device),
-            greedy_only=greedy_only)
-        block = _host(block)          # THE one sync of this dispatch
+        with obs.span("serve.dispatch", step=self._step, k=K,
+                      active=len(active)):
+            block = self._decode_block(toks, done, budget,
+                                       greedy_only=greedy_only)
+            block = _host(block)      # THE one sync of this dispatch
         dt = _now() - t0
         self._last_dispatch_s = dt
         self.stats.decode_s += dt

@@ -15,8 +15,9 @@ class Request:
     includes the token sampled from the prefill logits.  Sampling knobs
     (see :mod:`repro_torch.serve.sampling`): ``temperature`` (0 = exact
     greedy argmax, the default), ``top_k`` (0 disables), ``top_p`` (1.0
-    disables), and ``seed`` for the request's private generator
-    (``None`` derives one from the engine seed and the rid).  A
+    disables), and ``seed`` for the request's private sample chain,
+    ``PRNGKey(seed)`` as in the JAX package (``None`` derives one from
+    the engine seed and the rid).  A
     request's samples depend only on its seed and token position, never
     on batch composition or the engine's block size.
     """

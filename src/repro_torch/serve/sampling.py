@@ -5,24 +5,31 @@ argmax), ``top_k`` (0 disables; ties at the k-th value are kept) and
 ``top_p`` (1.0 disables; the argmax is always kept).  Top-k and nucleus
 come from ONE descending sort.
 
-Random draws use one ``torch.Generator`` per row (per engine slot),
-seeded from ``Request.seed`` or from the engine seed and the rid; a draw
-is Gumbel-max over the row's masked, tempered logits.  These are not
-the JAX package's threefry bits.  What is kept is the contract: one draw
-per emitted token from the request's own generator, so a request's
-tokens depend neither on batch composition nor on the block size.
+Keys are the JAX package's raw ``(B, 2)`` threefry-2x32 key data, held
+on the device as int64 tensors whose values are uint32 (torch has few
+uint32 operations, so every sum and shift is masked to 32 bits).  The
+bits are ``jax.random``'s with ``jax_threefry_partitionable`` on (the
+default of the jax version the tests hold them against): ``PRNGKey``,
+``fold_in``, ``split`` and the uniform and Gumbel draws of
+``categorical``.  Each :func:`sample` call advances every row's key by
+one split, and the engine freezes a finished row's key and token, so a
+seeded request samples the tokens it samples in the JAX engine,
+whatever the batch composition or the block size.  Everything here is
+tensor operations with no host read, so a CUDA graph can hold a
+sampled decode block.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
-
-import numpy as np
 import torch
 
-__all__ = ["greedy", "sample", "make_generator", "request_seed"]
+__all__ = ["greedy", "make_keys", "request_key", "fold_in", "split",
+           "uniform_bits", "categorical", "sample"]
 
 _NEG = -1e30
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
 
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:
@@ -31,16 +38,74 @@ def greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits.to(torch.float32), dim=-1).to(torch.int32)
 
 
-def request_seed(engine_seed: int, rid: int) -> int:
-    """The generator seed of a request that brings none of its own."""
-    state = np.random.SeedSequence([int(engine_seed), int(rid)])
-    return int(state.generate_state(1, np.uint64)[0] >> np.uint64(1))
+def _threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32 with 20 rounds of the counter pair ``(x0, x1)``
+    under the key ``(k0, k1)``: int64 tensors (or ints) holding uint32
+    values, broadcast against each other.  Returns the two output
+    words."""
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = (x0 + k0) & _M32
+    x1 = (x1 + k1) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = (((x1 << r) & _M32) | (x1 >> (32 - r))) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x0, x1
 
 
-def make_generator(seed: int, device) -> torch.Generator:
-    g = torch.Generator(device=device)
-    g.manual_seed(int(seed))
-    return g
+def request_key(seed: int, device=None) -> torch.Tensor:
+    """(2,) key data of ``jax.random.PRNGKey(seed)`` as JAX makes it
+    without x64: a zero high word and the seed's low 32 bits."""
+    return torch.tensor([0, int(seed) & _M32], dtype=torch.int64,
+                        device=device)
+
+
+def make_keys(num_slots: int, device=None) -> torch.Tensor:
+    """Zeroed (num_slots, 2) key state (slots are overwritten at
+    admission; an empty slot samples garbage that the host never
+    reads)."""
+    return torch.zeros((num_slots, 2), dtype=torch.int64, device=device)
+
+
+def fold_in(keys: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in`` of (..., 2) key data with a uint32."""
+    y0, y1 = _threefry2x32(keys[..., 0], keys[..., 1], 0, int(data) & _M32)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split`` of (..., 2) key data -> (..., num, 2); the
+    i-th new key hashes the counter pair (0, i)."""
+    i = torch.arange(num, device=keys.device)
+    y0, y1 = _threefry2x32(keys[..., 0, None], keys[..., 1, None], 0, i)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def uniform_bits(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, 2) keys -> (B, n) int64 holding the 32 random bits that
+    ``jax.random`` draws for an n-element sample of each key: word 0
+    xor word 1 of the hash of the counter pair (0, j)."""
+    j = torch.arange(n, device=keys.device)[None, :]
+    y0, y1 = _threefry2x32(keys[:, 0, None], keys[:, 1, None], 0, j)
+    return y0 ^ y1
+
+
+def _uniform(bits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.uniform(minval=tiny, maxval=1)`` in float32 from its
+    bits: the top 23 bits become a mantissa of [1, 2), less 1, shifted
+    by tiny and clamped to it (a draw of exactly 0 becomes tiny)."""
+    tiny = torch.finfo(torch.float32).tiny
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    return (f + tiny).clamp_min(tiny)
+
+
+def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical`` of each row of (B, V) fp32 logits with
+    its own key: the argmax of logits plus Gumbel noise -log(-log(u))."""
+    u = _uniform(uniform_bits(keys, logits.shape[-1]))
+    return torch.argmax(-torch.log(-torch.log(u)) + logits, dim=-1)
 
 
 def _mask_top_k_top_p(logits: torch.Tensor, top_k: torch.Tensor,
@@ -60,14 +125,16 @@ def _mask_top_k_top_p(logits: torch.Tensor, top_k: torch.Tensor,
     return torch.where(logits >= thresh[:, None], logits, _NEG)
 
 
-def sample(logits: torch.Tensor, generators: Sequence[torch.Generator | None],
+def sample(logits: torch.Tensor, keys: torch.Tensor,
            temperature: torch.Tensor, top_k: torch.Tensor,
-           top_p: torch.Tensor) -> torch.Tensor:
-    """Draw one token per row on the logits' device; (B,) int32.
+           top_p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Draw one token per row on the logits' device.
 
-    ``generators[i]`` is row i's generator, or ``None`` for a row that
-    must not draw (a greedy or idle row).  Rows with ``temperature <= 0``
-    return the exact argmax."""
+    logits (B, V); keys (B, 2) int64 key data; temperature / top_p (B,)
+    float; top_k (B,) int.  Returns ``(new_keys, tokens)`` with tokens
+    (B,) int32.  Rows with ``temperature <= 0`` return the exact argmax
+    (key-independent); every row's key advances by one split a call (the
+    first half of the split; the second draws), as in the JAX package."""
     logits = logits.to(torch.float32)
     argmax = greedy(logits)
     t = temperature.to(device=logits.device, dtype=torch.float32)
@@ -75,12 +142,6 @@ def sample(logits: torch.Tensor, generators: Sequence[torch.Generator | None],
     scaled = _mask_top_k_top_p(
         scaled, top_k.to(device=logits.device, dtype=torch.int64),
         top_p.to(device=logits.device, dtype=torch.float32))
-    drawn = argmax.clone()
-    tiny = torch.finfo(torch.float32).tiny
-    for i, g in enumerate(generators):
-        if g is None:
-            continue
-        u = torch.rand(scaled.shape[-1], generator=g, device=logits.device)
-        gumbel = -torch.log(-torch.log(u.clamp_(min=tiny)))
-        drawn[i] = torch.argmax(scaled[i] + gumbel).to(torch.int32)
-    return torch.where(t > 0, drawn, argmax)
+    halves = split(keys)
+    drawn = categorical(halves[:, 1], scaled).to(torch.int32)
+    return halves[:, 0], torch.where(t > 0, drawn, argmax)

@@ -200,13 +200,20 @@ def test_top_k_top_p_mask_matches_jax(rng):
 
 
 def test_sampling_greedy_rows_ignore_generators():
-    logits = torch.randn(3, 40)
-    g = sampling.make_generator(0, "cpu")
-    toks = sampling.sample(logits, [None, g, None],
-                           torch.tensor([0.0, 1.0, 0.0]),
-                           torch.zeros(3, dtype=torch.int32), torch.ones(3))
+    """The key form of the old per-row generator contract: greedy rows
+    return their exact argmax whatever their key, and every row's key
+    advances by one split."""
+    logits = torch.randn(3, 40, generator=torch.Generator().manual_seed(0))
+    temp = torch.tensor([0.0, 1.0, 0.0])
+    knobs = (torch.zeros(3, dtype=torch.int32), torch.ones(3))
+    keys = torch.stack([sampling.request_key(s) for s in (0, 1, 2)])
+    other = torch.stack([sampling.request_key(s) for s in (5, 6, 7)])
+    new_keys, toks = sampling.sample(logits, keys, temp, *knobs)
+    toks2 = sampling.sample(logits, other, temp, *knobs)[1]
     assert toks.dtype == torch.int32
     assert toks[0] == logits[0].argmax() and toks[2] == logits[2].argmax()
+    assert toks2[0] == toks[0] and toks2[2] == toks[2]
+    assert torch.equal(new_keys, sampling.split(keys)[:, 0])
 
 
 def test_request_validation_and_stats():
