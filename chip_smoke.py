@@ -34,10 +34,20 @@ Phases, each printed as it runs:
    expert banks and at ragged shapes for every ring depth, both k tiles
    and both output types; the int8 and grouped kernels at a ragged shape
    in fp32 for every ring depth, and the int8 grouped kernel on codes 8
-   bytes off a 16-byte line (the cp.async ring);
+   bytes off a 16-byte line (the cp.async ring); and for the SSM and
+   hybrid paths: the bf16 matmul at every zamba2-2.7b and mamba2-130m
+   projection shape and tied head, decode and prefill, each on the TMA +
+   wgmma design (the design of each printed), flash attention at head
+   dim 80 (zamba2's (1, 32, S, 80) prefill, S 64 and 128) with lengths,
+   causal and non-causal masks and a fully-masked row, and paged
+   attention at (4, 32, 80) with one query head a kv head, scattered
+   pages, the trash page, a row with no valid column and one past its
+   table, two calls bitwise equal;
 4. the reduced gemma-7b and deepseek-coder-33b configs in fp32, plain
-   and W8A8, and the reduced olmoe-1b-7b and granite-moe-1b-a400m
-   configs with bf16 weights and W8A8: the serving engine's greedy
+   and W8A8, the reduced olmoe-1b-7b and granite-moe-1b-a400m configs
+   with bf16 weights and W8A8, and the reduced mamba2-130m and
+   zamba2-2.7b configs in fp32, plain and W8A8 (mamba2, asked for
+   pages, must report zero page gauges): the serving engine's greedy
    tokens through the kernels must equal those of the plain
    ``backend="torch"`` path, at K = 1 and K = 4, with the contiguous
    cache, the paged cache, and (dense only) the paged cache with
@@ -77,6 +87,26 @@ Phases, each printed as it runs:
    requests sampled (temperature 0.8, top-k 50, top-p 0.95, a seed
    each) at K = 4: tokens equal to the eager block's and to K = 1's,
    launch counts against the path's, decode tokens/s;
+5g. full-width zamba2-2.7b (54 mamba2 layers, a shared attention block
+   invoked 9 times, head dim 80; random weights from a seed) in bf16
+   with phase 5's traffic through ``serve_batch``, then ``ServeEngine``
+   contiguous and paged (16-token pages) on the same weights, then W8A8
+   (``KernelConfig(quant="int8")``): tokens/s, launch counts against the
+   path's (kernel 1: 181 a pass, 109 under W8A8 beside kernel 4's 72;
+   kernel 2: 9 a prefill; kernel 3: 9 a paged decode step), the first
+   prefill's logits within 5% of the largest plain logit (bf16 and
+   W8A8) beside the bf16 rounding floor (the plain bf16 path against
+   the plain fp32 path on the same weights), the first decode step's
+   logits on the paged cache against the contiguous cache, the decode
+   step under the graph against the eager loop, the captures and their
+   pool bytes, and the device-busy share;
+5h. full-width mamba2-130m in bf16 with phase 5's traffic through
+   ``serve_batch``, contiguous and asked for pages (zero page gauges,
+   the same tokens): 49 kernel-1 launches a pass and no attention
+   launch, the first prefill's logits against the plain path within
+   the bf16 rounding floor (a random 24-layer mamba2 moves more than 5%
+   under bf16 rounding alone), the graph step against the eager loop
+   and the device-busy share;
 6. each kernel's time at the main-path shapes with CUDA events over a
    CUDA graph of many calls (device time, with the host's launch work
    taken out; operands cycled past the 50 MB L2), beside its plain
@@ -92,8 +122,13 @@ Phases, each printed as it runs:
    and 256 codes, beside its earlier design, the cp.async ring, on the
    same operands;
    paged attention's time a call with its split count, and at other
-   split counts;
-7. a ``{"kernels": [...]}`` line, the card line, and the final
+   split counts; and for the SSM and hybrid paths flash attention at
+   (1, 32, 128, 80) beside SDPA, paged attention at (4, 32, 80) over 480
+   keys a slot, and the bf16 matmul's zamba2 decode step (181 launches)
+   beside cuBLAS;
+7. the script's wall time, a ``{"kernels": [...]}`` line (with each
+   kernel's launches on the paths of 5g and 5h, and the zamba2 shapes'
+   timings of kernels 1-3), the card line, and the final
    ``{"ok": true, ...}`` line.
 
 On the card the engine decodes through one CUDA graph a variant
@@ -117,6 +152,7 @@ import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -246,8 +282,11 @@ def main() -> int:
     # kernel 4 runs on two paths (5d, 5e); the line reads 5e's, where it
     # carries every projection, so that each count is that of one run
     counts["quantized_zero_stall_matmul"] = serve_gemma_w8a8(torch, kern)
+    by_path = serve_zamba2_full_width(torch, kern)
+    by_path.update(serve_mamba2_full_width(torch, kern))
     timings = time_kernels(torch, kern)
     timings.update(time_new_kernels(torch, kern))
+    slice8 = time_slice8(torch, kern)
 
     kernels = [
         {"name": "zero_stall_matmul", "route": "cuda",
@@ -299,11 +338,24 @@ def main() -> int:
          "max_abs_err": errs["quantized_grouped_zero_stall_matmul"],
          **timings["quantized_grouped"]},
     ]
+    # the SSM and hybrid paths: each path's launches (its counts set to 0
+    # just before it) and, for kernels 1-3, the zamba2 shapes' timings
+    # (kernel 2 and 3 at head dim 80)
+    for entry in kernels:
+        name = entry["name"]
+        entry["launches_by_path"] = {path: got[name]
+                                     for path, got in by_path.items()
+                                     if got.get(name)}
+    for entry, key, what in ((kernels[0], "matmul", "zamba2_decode_step"),
+                             (kernels[1], "attention", "d80"),
+                             (kernels[2], "paged", "d80")):
+        entry[what] = slice8[key]
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "repro.")))
     require(not leaked, f"JAX or the JAX package got imported: {leaked}")
     print(f"[7] all phases passed in {time.perf_counter() - t_run:.1f} s "
-          f"after the build")
+          f"after the build; the script's wall time "
+          f"{time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
@@ -319,6 +371,21 @@ GEMMA = {"d": 3072, "H": 16, "hd": 256, "ff": 24576, "V": 256000,
          "layers": 28, "slots": 4}
 OLMOE = {"d": 2048, "H": 16, "hd": 128, "ff": 1024, "E": 64, "k": 8,
          "V": 50304, "layers": 16, "slots": 4}
+# the SSM and hybrid paths: zamba2-2.7b (54 mamba layers, a shared
+# block after every 6: 9 invocations) and mamba2-130m
+ZAMBA2 = {"d": 2560, "H": 32, "hd": 80, "ff": 10240, "V": 32000,
+          "layers": 54, "groups": 9, "d_inner": 5120, "in_proj": 10448,
+          "slots": 4}
+MAMBA2 = {"d": 768, "V": 50280, "layers": 24, "d_inner": 1536,
+          "in_proj": 3352}
+# kernel-1 launches of one pass (a prefill or a decode step): zamba2's
+# in and out projections of 54 mamba layers, 8 projections of each of
+# the 9 shared-block invocations (pre_proj, q, k, v, o, wi, wg, wo) and
+# the head; W8A8 moves the shared block's 72 to kernel 4.  mamba2: two
+# projections of 24 layers and the head.
+ZAMBA2_MM = 2 * 54 + 8 * 9 + 1
+ZAMBA2_Q4 = 8 * 9
+MAMBA2_MM = 2 * 24 + 1
 NEW_KERNELS = ("quantized_zero_stall_matmul", "grouped_zero_stall_matmul",
                "quantized_grouped_zero_stall_matmul")
 # phase 5's traffic, served again by phases 5c-5e
@@ -335,6 +402,22 @@ def gemma_matmul_shapes(M: int) -> list[tuple[str, int, int, int, int]]:
     return [("wq/wk/wv", M, g["d"], qkv, 3), ("attn wo", M, qkv, g["d"], 1),
             ("mlp wi/wg", M, g["d"], g["ff"], 2),
             ("mlp wo", M, g["ff"], g["d"], 1)]
+
+
+def slice8_matmul_shapes(M: int) -> list[tuple[str, int, int, int, int]]:
+    """(name, M, K, N, calls per pass) of the projections of one
+    zamba2-2.7b pass and one mamba2-130m pass over M rows (their heads
+    are listed apart)."""
+    z, m = ZAMBA2, MAMBA2
+    g = z["groups"]
+    return [("zamba2 in_proj", M, z["d"], z["in_proj"], z["layers"]),
+            ("zamba2 out_proj", M, z["d_inner"], z["d"], z["layers"]),
+            ("zamba2 pre_proj", M, 2 * z["d"], z["d"], g),
+            ("zamba2 wq/wk/wv/wo", M, z["d"], z["H"] * z["hd"], 4 * g),
+            ("zamba2 mlp wi/wg", M, z["d"], z["ff"], 2 * g),
+            ("zamba2 mlp wo", M, z["ff"], z["d"], g),
+            ("mamba2 in_proj", M, m["d"], m["in_proj"], m["layers"]),
+            ("mamba2 out_proj", M, m["d_inner"], m["d"], m["layers"])]
 
 
 def paged_case(torch, gen, *, B, H, KV, D, ps, T, kv_lens, dtype,
@@ -596,6 +679,103 @@ def check_kernels(torch, kern) -> dict:
     print(f"    paged_attention {cases[0][0]}: two calls bitwise equal "
           f"{same}")
     require(same, "split paged attention is not deterministic")
+
+    # -- the SSM and hybrid paths (zamba2-2.7b, mamba2-130m) -------------
+    # kernel 1 at every new projection shape, decode (M = 4) and a
+    # 128-token prefill, and the tied heads: each on the TMA + wgmma
+    # design (N = 3352 and 10448 are ragged against bn = 128: the TMA
+    # boxes zero-fill the edge)
+    from repro_torch.kernels.zero_stall_matmul import select_design
+    mm_before = dict(zero_stall_matmul.launches_by_design)
+    designs = {}
+    for M in (ZAMBA2["slots"], 128):
+        for name, m, k, n, _ in slice8_matmul_shapes(M):
+            a, b = rnd(m, k), rnd(k, n)
+            designs[name] = select_design(torch.bfloat16, k, n, False,
+                                          a.data_ptr(), b.data_ptr())
+            judge("zero_stall_matmul", f"{name} M={m} K={k} N={n} bf16",
+                  zero_stall_matmul(a, b), matmul_ref(a, b), torch.bfloat16)
+    for arch, d, V in (("zamba2", ZAMBA2["d"], ZAMBA2["V"]),
+                       ("mamba2", MAMBA2["d"], MAMBA2["V"])):
+        a, table = rnd(ZAMBA2["slots"], d), rnd(V, d)
+        designs[f"{arch} LM head"] = select_design(torch.bfloat16, d, V, True)
+        judge("zero_stall_matmul", f"{arch} LM head M={ZAMBA2['slots']} "
+              f"N={V} (tied, transposed B, fp32 out)",
+              zero_stall_matmul(a, table, trans_b=True,
+                                out_dtype=torch.float32),
+              matmul_ref(a, table.t(), torch.float32), torch.bfloat16)
+    del table
+    ran = {k: zero_stall_matmul.launches_by_design[k] - mm_before[k]
+           for k in mm_before}
+    print(f"    design of each new kernel-1 shape: {designs}; by design "
+          f"{ran}")
+    require(ran["ring"] == 0 and set(designs.values()) == {"sm90"},
+            "a zamba2 or mamba2 projection landed on the ring design")
+
+    # kernel 2 at zamba2's prefill, (1, 32, S, 80) after the 64-token
+    # chunk padding: the D = 80 instantiation of the tensor-core design
+    fa_before = dict(flash_attention.launches_by_design)
+    H, D = ZAMBA2["H"], ZAMBA2["hd"]
+    for S in (64, 128):
+        q, k, v = rnd(1, H, S, D), rnd(1, H, S, D), rnd(1, H, S, D)
+        cases = [
+            (f"causal, lengths {S - 7}", dict(causal=True, q_lens=i32(S - 7),
+                                              kv_lens=i32(S - 7))),
+            ("causal, full", dict(causal=True)),
+            (f"non-causal, lengths {S}/{S - 20}",
+             dict(causal=False, q_lens=i32(S), kv_lens=i32(S - 20))),
+            ("masked: kv_len 0", dict(causal=True, q_lens=i32(S),
+                                      kv_lens=i32(0))),
+        ]
+        for what, kw in cases:
+            full = {"q_offsets": i32(0), **kw}
+            full.setdefault("q_lens", i32(S))
+            full.setdefault("kv_lens", i32(S))
+            got = flash_attention(q, k, v, **kw)
+            judge_rows(f"D=80 (1, {H}, {S}, {D}) {what}", got,
+                       flash_attention_ref(q, k, v, **full))
+            if "masked" in what:
+                require(bool((got == 0).all()), "a fully-masked D = 80 row "
+                        "is not exact zeros")
+    ran = {k: flash_attention.launches_by_design[k] - fa_before[k]
+           for k in fa_before}
+    require(ran["cuda_core"] == 0 and ran["tensor_core"] == 8,
+            f"the D = 80 flash calls ran {ran}, not 8 tensor-core launches")
+
+    # kernel 3 at zamba2's paged decode, (4, 32, 80), one query head a kv
+    # head: a row is 10 16-byte vectors in a lane group of 16.  The
+    # serving table (10 pages: max_len 160) and a 30-page one (480 keys)
+    cases = [
+        ("bf16 (4, 32, 80) rep 1, T 10, scattered pages, kv 160/129/80/17",
+         dict(B=4, H=H, KV=H, D=D, ps=16, T=10, kv_lens=[160, 129, 80, 17],
+              dtype=torch.bfloat16)),
+        ("bf16 (4, 32, 80) rep 1, T 30, kv 480/300/17/1",
+         dict(B=4, H=H, KV=H, D=D, ps=16, T=30, kv_lens=[480, 300, 17, 1],
+              dtype=torch.bfloat16)),
+        ("bf16 (4, 32, 80), row 1 on the trash page, row 2 kv 0, row 3 kv "
+         "500 > T*ps",
+         dict(B=4, H=H, KV=H, D=D, ps=16, T=30, kv_lens=[96, 50, 0, 500],
+              dtype=torch.bfloat16, trash_rows=(1,))),
+    ]
+    for what, kw in cases:
+        ops_in = paged_case(torch, gen, **kw)
+        splits, per = paged_splits(kw["B"], kw["KV"], kw["T"], sms)
+        launched = paged_attention.launches
+        got = paged_attention(*ops_in[:4], kv_lens=ops_in[4])
+        require(paged_attention.launches == launched + 1,
+                "paged_attention did not launch its kernel")
+        judge_rows(f"{what}: {splits} split(s) of {per} page(s)", got,
+                   paged_attention_ref(*ops_in[:4], kv_lens=ops_in[4]),
+                   kernel="paged_attention")
+        for b, n in enumerate(kw["kv_lens"]):
+            if n == 0:
+                require(bool((got[b] == 0).all()), "a D = 80 paged row with "
+                        "no valid column is not exact zeros")
+        same = torch.equal(got, paged_attention(*ops_in[:4],
+                                                kv_lens=ops_in[4]))
+        require(same, f"paged {what}: two calls differ")
+    print("    paged_attention at D = 80: two calls bitwise equal in every "
+          "case")
     torch.cuda.synchronize()
     return errs
 
@@ -856,6 +1036,8 @@ REDUCED_CASES = (
     ("gemma-7b", "w8a8"), ("deepseek-coder-33b", "w8a8"),
     ("olmoe-1b-7b", "bf16"), ("granite-moe-1b-a400m", "bf16"),
     ("olmoe-1b-7b", "w8a8"), ("granite-moe-1b-a400m", "w8a8"),
+    ("mamba2-130m", "fp32"), ("zamba2-2.7b", "fp32"),
+    ("mamba2-130m", "w8a8"), ("zamba2-2.7b", "w8a8"),
 )
 
 
@@ -880,9 +1062,10 @@ def check_reduced_engines(torch, kern) -> None:
     from repro_torch.serve import Request, ServeEngine
 
     print("[4] reduced configs in fp32 compute (dense, W8A8, MoE with bf16 "
-          "weights and W8A8): engine greedy tokens, kernels vs "
-          f"backend='torch', modes {list(REDUCED_MODES)} (MoE: no chunked "
-          "prefill)", flush=True)
+          "weights and W8A8, SSM and hybrid in fp32 and W8A8): engine "
+          f"greedy tokens, kernels vs backend='torch', modes "
+          f"{list(REDUCED_MODES)} (chunked prefill: dense only)",
+          flush=True)
     for arch, weights in REDUCED_CASES:
         cfg = get_config(arch, reduced=True)
         model = build_model(cfg)
@@ -892,12 +1075,13 @@ def check_reduced_engines(torch, kern) -> None:
         if quant:
             params = model.quantize_weights(params)
         moe = cfg.family == "moe"
+        ssm = cfg.family == "ssm"
         prompts = [np.random.default_rng(i).integers(0, cfg.vocab_size, n)
                    for i, n in enumerate((5, 11, 3, 8))]
         max_new = [6, 3, 5, 7]
         outs, sampled = {}, {}
         for mode, mode_kw in REDUCED_MODES.items():
-            if moe and "prefill_chunk" in mode_kw:
+            if model.prefill_chunk is None and "prefill_chunk" in mode_kw:
                 continue
             for backend in ("auto", "torch"):
                 for K in (1, 4):
@@ -917,10 +1101,12 @@ def check_reduced_engines(torch, kern) -> None:
                                 if k.launches > before[n]}
                     want = set()
                     if backend == "auto":
-                        want = {"zero_stall_matmul", "flash_attention"}
-                        if "page_size" in mode_kw:
+                        want = {"zero_stall_matmul"}
+                        if not ssm:       # mamba2 runs no attention
+                            want.add("flash_attention")
+                        if "page_size" in mode_kw and not ssm:
                             want.add("paged_attention")
-                        if quant:
+                        if quant and not ssm:  # its projections: W8A16
                             want.add("quantized_zero_stall_matmul")
                         if moe:
                             want.add("quantized_grouped_zero_stall_matmul"
@@ -934,6 +1120,15 @@ def check_reduced_engines(torch, kern) -> None:
                             f"{arch} {weights} {mode} {backend} K={K}: "
                             f"captures {eng.captures}, not one greedy graph "
                             f"replayed")
+                    if ssm and "page_size" in mode_kw:
+                        # no leaf grows with max_len: pages degrade to
+                        # the contiguous cache, with zero gauges
+                        require(not eng._pages_active
+                                and eng.stats.pages_in_use == 0
+                                and eng.stats.pages_shared == 0,
+                                f"{arch} {mode}: page gauges "
+                                f"{eng.stats.pages_in_use}, "
+                                f"{eng.stats.pages_shared}")
             # sampled: the graph against the eager block, same keys (rids
             # 0 and 2 seeded, 1 and 3 derived from the engine seed)
             for K in (1, 4):
@@ -1682,6 +1877,292 @@ def serve_gemma_w8a8(torch, kern) -> int:
 
 
 # ----------------------------------------------------------------------
+# 5g-5h. full-width zamba2-2.7b (bf16, paged, W8A8) and mamba2-130m
+# ----------------------------------------------------------------------
+def upcast(tree):
+    """A copy of a params tree with every tensor in fp32."""
+    if isinstance(tree, dict):
+        return {k: upcast(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [upcast(v) for v in tree]
+    return tree.float()
+
+
+def rounding_floor(torch, label: str, model, params, bf16: dict) -> float:
+    """How far bf16 rounding alone moves the first prefill's logits at
+    full width: the plain bf16 path against the plain fp32 path on the
+    same weights upcast (the kernel path beside it).  Returns max|plain
+    bf16 - plain fp32|."""
+    from repro_torch.models import Ctx
+    p32 = upcast(params)
+    ref = first_prefill_logits(torch, model, p32, {
+        "fp32": Ctx(plan="torch", dtype=torch.float32)})["fp32"]
+    del p32
+    torch.cuda.empty_cache()
+    plain = (bf16["torch"] - ref).abs().max().item()
+    kern = (bf16["auto"] - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    print(f"    {label} bf16 rounding floor: against the plain fp32 path on "
+          f"the same weights, max|plain bf16 - fp32| {plain:.4g} "
+          f"({plain / scale:.2%} of max|fp32| {scale:.4g}), max|kernels "
+          f"bf16 - fp32| {kern:.4g} ({kern / scale:.2%}); argmax fp32 "
+          f"{int(ref.argmax())}, plain bf16 {int(bf16['torch'].argmax())}, "
+          f"kernels {int(bf16['auto'].argmax())}")
+    return plain
+
+
+def serve_engine_mode(torch, kern, label, model, params, ctx, reqs, want_fn,
+                      **mode) -> tuple:
+    """Phase 5's traffic through ``ServeEngine`` (4 slots, K = 4) with the
+    launch counts set to 0 just before: the counts against ``want_fn(stats)``
+    -> (tokens by rid, the engine)."""
+    eng = engine_for(torch, model, params, ctx,
+                     K=SERVE_KW["steps_per_dispatch"], **mode)
+    reset_counts(kern)
+    res = eng.run(reqs)
+    torch.cuda.synchronize()
+    s = eng.stats
+    got = {n: k.launches for n, k in kern.items()}
+    want, why = want_fn(s)
+    print(f"    {label}: prefill {s.prefill_tok_s:.1f} tok/s over "
+          f"{s.prefill_s:.3f} s; decode {s.decode_tok_s:.1f} tok/s over "
+          f"{s.decode_s:.3f} s ({s.decode_steps} steps, {s.dispatches} "
+          f"dispatches, {s.admitted} admissions); pages in use (peak) "
+          f"{s.pages_in_use}, shared {s.pages_shared}")
+    check_counts(label, got, want, why)
+    check_designs(label, kern)
+    print_captures(label, eng.captures)
+    require(variants(eng) == ["greedy"], f"{label}: the engine did not "
+            f"decode through one greedy CUDA graph")
+    V = model.cfg.vocab_size
+    require(sorted(res) == list(range(SERVE_KW["batch"])) and all(
+        len(r.tokens) == SERVE_KW["gen_len"]
+        and all(0 <= t < V for t in r.tokens) for r in res.values()),
+        f"{label}: not every request completed")
+    return {i: r.tokens for i, r in res.items()}, eng
+
+
+def serve_zamba2_full_width(torch, kern) -> dict:
+    """5g: zamba2-2.7b at full width in bf16 through ``serve_batch``, then
+    ``ServeEngine`` contiguous and paged (16-token pages) on the same
+    weights, then W8A8; returns {path: launch counts}."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_requests, serve_batch
+    from repro_torch.models import Ctx, build_model
+    from repro_torch.plan import KernelConfig
+
+    kw, G, V = SERVE_KW, ZAMBA2["groups"], ZAMBA2["V"]
+    print(f"[5g] zamba2-2.7b full width (54 mamba2 layers, one shared "
+          f"attention block invoked {G} times, head dim 80), bf16, random "
+          f"weights: serve_batch({kw})", flush=True)
+    reset_counts(kern)
+    out = serve_batch("zamba2-2.7b", reduced=False, dtype=torch.bfloat16,
+                      device="cuda", **kw)
+    torch.cuda.synchronize()
+    got = {n: k.launches for n, k in kern.items()}
+    s = out["stats"]
+    passes = s["admitted"] + s["decode_steps"]
+    print(f"    prefill {out['prefill_tok_s']:.1f} tok/s over "
+          f"{out['prefill_s']:.3f} s; decode {out['decode_tok_s']:.1f} tok/s "
+          f"over {out['decode_s']:.3f} s ({s['decode_steps']} steps, "
+          f"{s['dispatches']} dispatches, {s['admitted']} admissions)")
+    want = {n: 0 for n in kern}
+    want.update(zero_stall_matmul=ZAMBA2_MM * passes,
+                flash_attention=G * s["admitted"])
+    check_counts("5g serve_batch", got, want, f"{ZAMBA2_MM} matmuls a pass "
+                 f"(2 x 54 mamba projections, 8 x {G} shared-block "
+                 f"projections, the head) over {s['admitted']} + "
+                 f"{s['decode_steps']} passes, {G} flash calls a prefill")
+    check_designs("5g", kern)
+    print_captures("serve_batch's engine", out["captures"])
+    require([c["variant"] for c in out["captures"]] == ["greedy"],
+            "5g: the engine did not decode through one greedy CUDA graph")
+    gen = out["generated"]
+    require(gen.shape == (8, 32) and (gen >= 0).all() and (gen < V).all(),
+            "5g: not every request completed")
+    counts = {"5g serve_batch": got}
+    del out
+    torch.cuda.empty_cache()
+
+    model = build_model(get_config("zamba2-2.7b"))
+    params = model.init(seed=0, dtype=torch.bfloat16, device="cuda")
+    ctx = Ctx(plan="auto", dtype=torch.bfloat16)
+    bf16 = first_prefill_logits(torch, model, params, {
+        "auto": ctx, "torch": Ctx(plan="torch", dtype=torch.bfloat16)})
+    judge_logits(torch, f"5g first prefill logits (1, 1, {V})",
+                 bf16["auto"], bf16["torch"])
+    rounding_floor(torch, "5g", model, params, bf16)
+
+    reqs = make_requests(model.cfg, kw["seed"], kw["batch"], kw["prompt_len"],
+                         kw["gen_len"], kw["mixed"])
+    tokens = {}
+    for mode, mode_kw in (("contiguous", {}), ("paged", {"page_size": 16})):
+        def want_fn(s, paged=bool(mode_kw)):
+            want = {n: 0 for n in kern}
+            want.update(
+                zero_stall_matmul=ZAMBA2_MM * (s.admitted + s.decode_steps),
+                flash_attention=G * s.admitted,
+                paged_attention=G * s.decode_steps if paged else 0)
+            return want, (f"{ZAMBA2_MM} matmuls a pass, {G} flash calls a "
+                          f"prefill" + (f", {G} paged calls a decode step"
+                                        if paged else ""))
+        tokens[mode], eng = serve_engine_mode(
+            torch, kern, f"5g ServeEngine {mode}", model, params, ctx, reqs,
+            want_fn, **mode_kw)
+        counts[f"5g {mode}"] = {n: k.launches for n, k in kern.items()}
+        if mode == "contiguous":
+            require(all(list(gen[i]) == tokens[mode][i] for i in tokens[mode]),
+                    "5g: ServeEngine's tokens differ from serve_batch's on "
+                    "the same weights")
+        else:
+            require(eng._pages_active and eng.stats.pages_in_use > 0,
+                    "5g paged: no page in use")
+        times = block_step_ms(torch, eng)
+        print_step_ms(f"5g {mode}", times)
+        if mode == "contiguous":
+            busy_share(torch, eng, times)
+        del eng
+        torch.cuda.empty_cache()
+    differ = sum(a != b for i in tokens["paged"]
+                 for a, b in zip(tokens["paged"][i], tokens["contiguous"][i]))
+    print(f"    paged tokens against contiguous (reported): {differ} of "
+          f"{kw['batch'] * kw['gen_len']} differ")
+    # one decode step of the first four admissions on the paged cache
+    # (kernel 3) and on the contiguous cache (plain einsum), from the same
+    # tokens
+    logits, first = {}, None
+    for mode, mode_kw in (("contiguous", {}), ("paged", {"page_size": 16})):
+        eng = engine_for(torch, model, params, ctx, K=4, **mode_kw)
+        toks = [eng._admit(r, slot) for slot, r in enumerate(reqs[:4])]
+        first = first or toks
+        launched = kern["paged_attention"].launches
+        logits[mode], _ = model.decode(
+            params, eng.cache, torch.tensor(first, device="cuda")[:, None],
+            ctx)
+        require((kern["paged_attention"].launches - launched == G)
+                == (mode == "paged"), "5g: decode did not take the paged "
+                "kernel on the paged cache only")
+        logits[mode] = logits[mode].float()
+        del eng
+    judge_logits(torch, f"5g first decode step's logits (4, 1, {V}), paged "
+                 f"(kernel 3) against contiguous (plain)", logits["paged"],
+                 logits["contiguous"])
+    del logits
+
+    qparams = model.quantize_weights(params)
+    del params
+    torch.cuda.empty_cache()
+    print(f"[5g W8A8] zamba2-2.7b full width, W8A8 shared block and "
+          f"pre_proj (int8 kernel 4), W8A16 mamba projections (kernel 1 on "
+          f"dequantized weights), bf16 tied head; "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB: ServeEngine "
+          f"with KernelConfig(quant='int8'), phase 5's traffic", flush=True)
+    got, s = serve_w8a8(torch, kern, model, qparams, "5g W8A8")
+    print_step_ms("5g W8A8", s["step_ms"])
+    passes = s["admitted"] + s["decode_steps"]
+    want = {n: 0 for n in kern}
+    want.update(quantized_zero_stall_matmul=ZAMBA2_Q4 * passes,
+                zero_stall_matmul=(ZAMBA2_MM - ZAMBA2_Q4) * passes,
+                flash_attention=G * s["admitted"])
+    check_counts("5g W8A8", got, want, f"per pass {ZAMBA2_Q4} int8 "
+                 f"shared-block projections and {ZAMBA2_MM - ZAMBA2_Q4} bf16 "
+                 f"products (108 dequantized mamba projections, the head), "
+                 f"over {s['admitted']} + {s['decode_steps']} passes")
+    counts["5g W8A8"] = got
+    w8a8 = first_prefill_logits(torch, model, qparams, {
+        "auto": Ctx(plan=KernelConfig(quant="int8"), dtype=torch.bfloat16),
+        "torch": Ctx(plan=KernelConfig(backend="torch", quant="int8"),
+                     dtype=torch.bfloat16)})
+    judge_logits(torch, f"5g W8A8 first prefill logits (1, 1, {V})",
+                 w8a8["auto"], w8a8["torch"])
+    dist = (w8a8["auto"] - bf16["auto"]).abs().max().item()
+    scale = bf16["auto"].abs().max().item()
+    print(f"    5g W8A8 logits against bf16 (kernel paths; reported, not "
+          f"gated): max|W8A8 - bf16| {dist:.4g} ({dist / scale:.2%} of "
+          f"max|bf16|); same argmax "
+          f"{bool(w8a8['auto'].argmax() == bf16['auto'].argmax())}")
+    del qparams, w8a8
+    torch.cuda.empty_cache()
+    return counts
+
+
+def serve_mamba2_full_width(torch, kern) -> dict:
+    """5h: mamba2-130m at full width in bf16 through ``serve_batch``,
+    contiguous and asked for pages (it has no pageable leaf), then the
+    logits against the plain path and the decode step under the graph
+    against the eager loop; returns {path: launch counts}."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_requests, serve_batch
+    from repro_torch.models import Ctx, build_model
+
+    kw, V = SERVE_KW, MAMBA2["V"]
+    print(f"[5h] mamba2-130m full width (24 mamba2 layers, no attention), "
+          f"bf16, random weights: serve_batch({kw}), contiguous and with "
+          f"page_size 16", flush=True)
+    counts, gens = {}, {}
+    for mode, mode_kw in (("contiguous", {}), ("paged", {"page_size": 16})):
+        reset_counts(kern)
+        out = serve_batch("mamba2-130m", reduced=False, dtype=torch.bfloat16,
+                          device="cuda", **kw, **mode_kw)
+        torch.cuda.synchronize()
+        got = {n: k.launches for n, k in kern.items()}
+        s = out["stats"]
+        print(f"    {mode}: prefill {out['prefill_tok_s']:.1f} tok/s over "
+              f"{out['prefill_s']:.3f} s; decode {out['decode_tok_s']:.1f} "
+              f"tok/s over {out['decode_s']:.3f} s ({s['decode_steps']} "
+              f"steps, {s['dispatches']} dispatches); pages in use "
+              f"{s['pages_in_use']}, shared {s['pages_shared']}")
+        want = {n: 0 for n in kern}
+        want.update(zero_stall_matmul=MAMBA2_MM * (s["admitted"]
+                                                   + s["decode_steps"]))
+        check_counts(f"5h {mode}", got, want, f"{MAMBA2_MM} matmuls a pass "
+                     f"(2 x 24 mamba projections, the head), no attention")
+        check_designs(f"5h {mode}", kern)
+        print_captures(f"5h {mode}", out["captures"])
+        require([c["variant"] for c in out["captures"]] == ["greedy"],
+                f"5h {mode}: not one greedy CUDA graph")
+        require(s["pages_in_use"] == 0 and s["pages_shared"] == 0,
+                f"5h {mode}: page gauges are not zero")
+        gens[mode] = out["generated"]
+        require(gens[mode].shape == (8, 32) and (gens[mode] >= 0).all()
+                and (gens[mode] < V).all(), "5h: not every request completed")
+        counts[f"5h {mode}"] = got
+        del out
+    require((gens["paged"] == gens["contiguous"]).all(), "5h: the engine "
+            "asked for pages gave other tokens than the contiguous one")
+
+    model = build_model(get_config("mamba2-130m"))
+    params = model.init(seed=0, dtype=torch.bfloat16, device="cuda")
+    bf16 = first_prefill_logits(torch, model, params, {
+        "auto": Ctx(plan="auto", dtype=torch.bfloat16),
+        "torch": Ctx(plan="torch", dtype=torch.bfloat16)})
+    require(bool(torch.isfinite(bf16["auto"]).all()), "5h: non-finite "
+            "logits")
+    err = (bf16["auto"] - bf16["torch"]).abs().max().item()
+    scale = bf16["torch"].abs().max().item()
+    floor = rounding_floor(torch, "5h", model, params, bf16)
+    # bf16 rounding alone moves a random 24-layer mamba2's logits by more
+    # than 5% of the largest one (the floor printed above), so the gate
+    # is that floor: the kernels may depart from the plain bf16 path no
+    # further than the plain bf16 path departs from fp32
+    print(f"    5h first prefill logits (1, 1, {V}): max|kernels - plain| "
+          f"{err:.4g} ({err / scale:.2%} of max|plain| {scale:.4g}); gate: "
+          f"<= the bf16 rounding floor {floor:.4g}")
+    require(err <= floor, "5h: the kernel path departs from the plain path "
+            "further than bf16 rounding moves the plain path")
+    ctx = Ctx(plan="auto", dtype=torch.bfloat16)
+    eng = engine_for(torch, model, params, ctx, K=kw["steps_per_dispatch"])
+    eng.run(make_requests(model.cfg, kw["seed"], kw["batch"],
+                          kw["prompt_len"], kw["gen_len"], kw["mixed"]))
+    times = block_step_ms(torch, eng)
+    print_step_ms("5h", times)
+    busy_share(torch, eng, times)
+    del eng, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ----------------------------------------------------------------------
 # 6. timing
 # ----------------------------------------------------------------------
 def time_ms(torch, fns, iters: int = 20, graph: bool = True) -> float:
@@ -2183,6 +2664,130 @@ def time_new_kernels(torch, kern) -> dict:
             print(f"    {name}, one prefill by k tile and ring depth: "
                   + ", ".join(f"{k} {v:.3f} ms" for k, v in tot.items()
                               if k.startswith("bk")))
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_slice8(torch, kern) -> dict:
+    """Phase 6 for the SSM and hybrid paths: kernel 2 at zamba2's prefill
+    shape (1, 32, 128, 80), causal, beside its bound and SDPA; kernel 3
+    at zamba2's paged decode (4, 32, 80) over 480 keys a slot, beside
+    its bound; kernel 1's zamba2 decode step (181 launches at M = 4)
+    beside its bound and cuBLAS (torch.matmul) on the same shapes.  The
+    same method as :func:`time_kernels`: CUDA events over a CUDA graph,
+    operands cycled past L2."""
+    import math
+
+    from repro_torch.kernels.paged_attention import paged_splits
+    from repro_torch.kernels.ref import (flash_attention_ref, matmul_ref,
+                                         paged_attention_ref)
+    F = torch.nn.functional
+    dev = "cuda"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+
+    def copies(nbytes):
+        return max(1, math.ceil(128 * 2 ** 20 / nbytes))
+
+    # kernel 2
+    S, H, D = 128, ZAMBA2["H"], ZAMBA2["hd"]
+    n_sets = copies(3 * H * S * D * 2)
+    qs = [tuple(torch.randn(1, H, S, D, device=dev).to(torch.bfloat16)
+                for _ in range(3)) for _ in range(n_sets)]
+    lens = torch.tensor([S], dtype=torch.int32, device=dev)
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    fa = kern["flash_attention"]
+    ms = time_ms(torch, [lambda t=t: fa(*t, q_lens=lens, kv_lens=lens,
+                                        causal=True) for t in qs],
+                 iters=n_sets)
+    plain = time_ms(torch, [lambda t=t: flash_attention_ref(
+        *t, q_lens=lens, kv_lens=lens, q_offsets=zero, causal=True)
+        for t in qs], graph=False)
+    lib = time_ms(torch, [lambda t=t: F.scaled_dot_product_attention(
+        *t, is_causal=True) for t in qs], iters=n_sets)
+    b, by = bound(4 * H * S * D * 2, 4 * H * (S * (S + 1) // 2) * D,
+                  "bfloat16")
+    print(f"    flash_attention (1, {H}, {S}, {D}) bf16 causal (zamba2's "
+          f"prefill): {ms:.4f} ms (plain {plain:.4f}, "
+          f"scaled_dot_product_attention {lib:.4f}, bound {b:.5f} by {by}); "
+          f"{ZAMBA2['groups']} calls a prefill: "
+          f"{ZAMBA2['groups'] * ms:.3f} ms", flush=True)
+    out["attention"] = {"ms": ms, "plain_ms": plain, "bound_ms": b,
+                        "bound_by": by, "library_ms": lib}
+    del qs
+
+    # kernel 3
+    B, T, ps = ZAMBA2["slots"], 30, 16
+    kv = [T * ps] * B
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    pool_bytes = 2 * (B * T + 1) * ps * H * D * 2
+    cases = [paged_case(torch, gen, B=B, H=H, KV=H, D=D, ps=ps, T=T,
+                        kv_lens=kv, dtype=torch.bfloat16)
+             for _ in range(copies(pool_bytes))]
+    pa = kern["paged_attention"]
+    ms = time_ms(torch, [lambda c=c: pa(*c[:4], kv_lens=c[4])
+                         for c in cases])
+    plain = time_ms(torch, [lambda c=c: paged_attention_ref(
+        *c[:4], kv_lens=c[4]) for c in cases], graph=False)
+    keys = sum(kv)
+    nbytes = (keys * H * D * 2 * 2 + 2 * B * H * D * 2 + B * T * 4 + B * 4)
+    b, by = bound(nbytes, 4 * H * D * keys, "bfloat16")
+    splits, per = paged_splits(B, H, T, sms)
+    print(f"    paged_attention ({B}, {H}, {D}) bf16 rep 1 over {keys} keys "
+          f"({kv[0]} a slot, 16-token pages, {nbytes / 1e6:.1f} MB): "
+          f"{ms:.4f} ms on {B * H} x {splits} blocks ({splits} splits of "
+          f"{per} pages; plain {plain:.4f}, no single PyTorch call reads a "
+          f"page table; bound {b:.5f} by {by}); {ZAMBA2['groups']} calls a "
+          f"decode step: {ZAMBA2['groups'] * ms:.3f} ms", flush=True)
+    out["paged"] = {"ms": ms, "plain_ms": plain, "bound_ms": b,
+                    "bound_by": by, "library_ms": None}
+    del cases
+
+    # kernel 1: one zamba2 decode step
+    M = ZAMBA2["slots"]
+    shapes = [(name, m, k, n, calls, False) for name, m, k, n, calls in
+              slice8_matmul_shapes(M) if name.startswith("zamba2")]
+    shapes.append(("zamba2 LM head", M, ZAMBA2["d"], ZAMBA2["V"], 1, True))
+    mm = kern["zero_stall_matmul"]
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "nbytes": 0,
+           "ops": 0, "calls": 0}
+    for name, m, k, n, calls, head in shapes:
+        a = torch.randn(m, k, device=dev).to(torch.bfloat16)
+        bs = [torch.randn((n, k) if head else (k, n),
+                          device=dev).to(torch.bfloat16)
+              for _ in range(copies(k * n * 2))]
+        o = torch.float32 if head else torch.bfloat16
+        cell = {
+            "ms": time_ms(torch, [lambda w=w: mm(a, w, trans_b=head,
+                                                 out_dtype=o) for w in bs]),
+            "plain_ms": time_ms(torch, [lambda w=w: matmul_ref(
+                a, w.t() if head else w, o) for w in bs], iters=5,
+                graph=False),
+            "library_ms": time_ms(torch, [lambda w=w: torch.matmul(
+                a, w.t() if head else w) for w in bs])}
+        nbytes = (m * k + k * n) * 2 + m * n * (4 if head else 2)
+        b, by = bound(nbytes, 2 * m * n * k, "bfloat16")
+        print(f"    zero_stall_matmul {name} M={m} K={k} N={n}: "
+              f"{cell['ms']:.4f} ms (plain {cell['plain_ms']:.4f}, "
+              f"torch.matmul {cell['library_ms']:.4f}, bound {b:.4f} by "
+              f"{by}) x {calls} a step")
+        for key in ("ms", "plain_ms", "library_ms"):
+            tot[key] += cell[key] * calls
+        tot["nbytes"] += nbytes * calls
+        tot["ops"] += 2 * m * n * k * calls
+        tot["calls"] += calls
+        del bs
+    require(tot["calls"] == ZAMBA2_MM, f"{tot['calls']} products timed, "
+            f"the step has {ZAMBA2_MM}")
+    b, by = bound(tot["nbytes"], tot["ops"], "bfloat16")
+    print(f"    zero_stall_matmul, one zamba2-2.7b decode step (M={M}), "
+          f"{tot['calls']} launches: {tot['ms']:.3f} ms (plain "
+          f"{tot['plain_ms']:.3f}, torch.matmul {tot['library_ms']:.3f}, "
+          f"bound {b:.3f} by {by}: {tot['nbytes'] / 1e9:.2f} GB)", flush=True)
+    out["matmul"] = {"ms": tot["ms"], "plain_ms": tot["plain_ms"],
+                     "bound_ms": b, "bound_by": by,
+                     "library_ms": tot["library_ms"]}
     torch.cuda.empty_cache()
     return out
 

@@ -67,27 +67,44 @@ def _tree(x: Any, device) -> Any:
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, *, device=None) -> dict:
-    """JAX dense- or MoE-family params (numpy leaves) -> the port's params.
+    """JAX dense-, MoE-, SSM- or hybrid-family params (numpy leaves) ->
+    the port's params.
 
-    The JAX package stacks every per-layer leaf along a leading
-    ``n_layers`` axis (``params["layers"]``); the port keeps a list of
-    per-layer dicts, so that axis is unstacked here (for the MoE router
-    (n_layers, d, E) and expert banks (n_layers, E, d, f) as for any
-    leaf, and for a QTensor's codes and scales alike).  The tensors land
-    on ``device`` (None: the card; pass ``device="cpu"`` for the host).
+    The JAX package stacks every per-layer leaf along leading axes of
+    ``params["layers"]``: ``(n_layers, ...)`` for the dense, MoE and SSM
+    families, ``(n_layers / attn_every, attn_every, ...)`` for the
+    hybrid's groups of mamba layers.  The port keeps a list of per-layer
+    dicts (a list of such lists for the hybrid), so those axes are
+    unstacked here (for the MoE router and expert banks as for any leaf,
+    and for a QTensor's codes and scales alike); a leaf whose leading
+    axes are not these raises.  The hybrid's ``shared`` block converts
+    as a plain tree.  The tensors land on ``device`` (None: the card;
+    pass ``device="cpu"`` for the host).
     """
     device = resolve_device(device)
-    def unstack(x: Any, i: int) -> Any:
-        if isinstance(x, dict):
-            return {k: unstack(v, i) for k, v in x.items()}
-        lead = np.shape(x.data if _is_qtensor(x) else x)[0]
-        if lead != cfg.n_layers:
-            raise ValueError(f"layer leaf leading with {lead} does not "
-                             f"lead with n_layers={cfg.n_layers}")
-        return _leaf(x, device, lambda a: a[i])
+    if cfg.family == "hybrid":
+        lead = (cfg.n_layers // cfg.attn_every, cfg.attn_every)
+        what = f"(n_layers / attn_every, attn_every)={lead}"
+    else:
+        lead = (cfg.n_layers,)
+        what = f"n_layers={cfg.n_layers}"
 
-    return {
-        "embed": _tree(tree["embed"], device),
-        "layers": [unstack(tree["layers"], i) for i in range(cfg.n_layers)],
-        "final_norm": _tree(tree["final_norm"], device),
-    }
+    def unstack(x: Any, idx: tuple[int, ...]) -> Any:
+        if isinstance(x, dict):
+            return {k: unstack(v, idx) for k, v in x.items()}
+        shape = np.shape(x.data if _is_qtensor(x) else x)
+        if tuple(shape[:len(lead)]) != lead:
+            raise ValueError(f"layer leaf of shape {shape} does not lead "
+                             f"with {what}")
+        return _leaf(x, device, lambda a: a[idx])
+
+    if cfg.family == "hybrid":
+        layers = [[unstack(tree["layers"], (g, i)) for i in range(lead[1])]
+                  for g in range(lead[0])]
+    else:
+        layers = [unstack(tree["layers"], (i,)) for i in range(lead[0])]
+    out = {"embed": _tree(tree["embed"], device), "layers": layers,
+           "final_norm": _tree(tree["final_norm"], device)}
+    if "shared" in tree:
+        out["shared"] = _tree(tree["shared"], device)
+    return out

@@ -31,9 +31,14 @@
 // reduced with quad shuffles.  Q stays in shared memory and its
 // fragments are reloaded every k step, which keeps a D = 256 warp at
 // 128 accumulator registers a thread (16 x 256 fp32 over 32 lanes) plus
-// the score tile.  Head dims 16, 32, 64, 128 and 256 are instantiated
+// the score tile.  Head dims 16, 32, 64, 80, 128 and 256 are instantiated
 // with kv tiles of 16, 32 and 64 keys (bkv * D <= 8192: the register
-// budget).  Shared memory is 2 * (D + 8) * (bq + 4 * bkv) bytes: Q and
+// budget).  Nothing assumes a power-of-two D: it is D / 16 k steps of
+// Q.K^T and D / 8 output n-tiles (taken in pairs, so D / 16 whole), one
+// ldmatrix.x4 a pair; zamba2-2.7b's D = 80 (2560 / 32 heads) is five k
+// steps and ten n-tiles, a 160-byte row padded to 176 bytes (44 words:
+// the eight rows an ldmatrix reads start on distinct 16-byte bank
+// groups).  Shared memory is 2 * (D + 8) * (bq + 4 * bkv) bytes: Q and
 // two stages of K and V, rows padded by 16 bytes so that ldmatrix reads
 // without bank conflicts.  A warp whose 16 rows all lie before a kv
 // tile (causal) skips its products for that tile, exactly as above.
@@ -45,7 +50,7 @@
 // one float against bank conflicts; scores and P.V are fp32 FMA.
 //
 // Bound on the H100: for the serving prefill (one sequence of a few
-// hundred tokens at most, D = 256) the work is at most 4 * Sq * Skv * D
+// hundred tokens at most, D = 256, or D = 80 for zamba2) the work is at most 4 * Sq * Skv * D
 // FLOP per head, a few hundred MFLOP per layer, and the bytes (q, k, v,
 // o once each) are a few MB: both bounds are a few microseconds, so the
 // kernel is bound by its own latency, the serial chain of kv tiles of
@@ -477,7 +482,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-// The instantiated (D, bkv) pairs: D in {16, 32, 64, 128, 256}, bkv in
+// The instantiated (D, bkv) pairs: D in {16, 32, 64, 80, 128, 256}, bkv in
 // {16, 32, 64} with bkv * D <= 8192; bq in {16, 32, 64}.
 int dispatch_tc(const void* q, const void* k, const void* v, void* o,
                 const void* q_lens, const void* kv_lens,
@@ -494,6 +499,7 @@ int dispatch_tc(const void* q, const void* k, const void* v, void* o,
   REPRO_FLASH_TC_D(16)
   REPRO_FLASH_TC_D(32)
   REPRO_FLASH_TC_D(64)
+  REPRO_FLASH_TC_D(80)
   REPRO_FLASH_TC_D(128)
   REPRO_FLASH_TC(256, 16)
   REPRO_FLASH_TC(256, 32)

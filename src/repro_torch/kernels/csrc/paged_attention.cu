@@ -43,8 +43,13 @@
 //     next window's a window ahead.  One block barrier a window frees its
 //     slots for the refill.
 //   - Each warp takes keys of the window by groups of L lanes (L = the
-//     page row's 16-byte vectors, up to 32), so a warp holds 32 / L keys
-//     at once, and each group takes KK keys a pass (KK * ROWS = 4 where
+//     page row's 16-byte vectors rounded up to a power of two, up to
+//     32), so a warp holds 32 / L keys at once; where the row is not a
+//     power-of-two count of vectors (zamba2's D = 80 in bf16: 10 vectors
+//     in a group of 16) the group's last lanes hold no vector, load and
+//     store nothing, and add exact zeros to the group's shuffle sums,
+//     whose offsets (L/2 .. 1, then L .. 16 across groups) stay inside
+//     the power-of-two group; and each group takes KK keys a pass (KK * ROWS = 4 where
 //     the rows allow): 4 warps then take a 16-key page a pass, and a
 //     pass's dot products, shuffle reductions and exponentials are
 //     independent chains.  A lane keeps its slice of q and of the output

@@ -31,7 +31,7 @@ __all__ = ["flash_attention", "smem_bytes", "design", "fit_tiles",
            "check_tc_tiles", "SMEM_LIMIT", "TC_HEAD_DIMS", "TC_TILES"]
 
 SMEM_LIMIT = 232448
-TC_HEAD_DIMS = (16, 32, 64, 128, 256)   # instantiated bf16 head dims
+TC_HEAD_DIMS = (16, 32, 64, 80, 128, 256)  # instantiated bf16 head dims
 TC_TILES = (16, 32, 64)                 # bf16 q and kv tile sizes
 _TC_REGS = 8192                         # bkv * D: a warp's score and
 #                                         output registers at D = 256

@@ -11,7 +11,7 @@ import torch
 
 __all__ = ["matmul_ref", "grouped_matmul_ref", "quantized_matmul_ref",
            "quantized_grouped_matmul_ref", "flash_attention_ref",
-           "paged_attention_ref", "NEG_INF"]
+           "paged_attention_ref", "ssd_scan_ref", "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -155,3 +155,27 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     out = torch.where((kv_lens > 0)[:, None, None, None], out,
                       torch.zeros((), dtype=out.dtype, device=out.device))
     return out.reshape(B, H, D).to(q.dtype)
+
+
+def ssd_scan_ref(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor,
+                 c: torch.Tensor, *, h0: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD reference: the sequential recurrence (the ground truth
+    of :func:`repro_torch.models.ssm.ssd_chunked`; no kernel stands
+    behind it, as none stands behind the JAX package's).
+
+    One head: x (S, P) inputs (dt already folded in), a_log (S,) per-step
+    log decays (a_t = exp(a_log_t) in (0, 1]), b and c (S, N), h0 (N, P)
+    the initial state.  Returns (y (S, P) in x's dtype, h_final (N, P)
+    fp32) with h_t = a_t h_{t-1} + b_t^T x_t and y_t = c_t h_t.
+    """
+    S, P = x.shape
+    N = b.shape[-1]
+    h = (torch.zeros((N, P), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.to(torch.float32))
+    ys = []
+    for t in range(S):
+        h = torch.exp(a_log[t].to(torch.float32)) * h + torch.outer(
+            b[t].to(torch.float32), x[t].to(torch.float32))
+        ys.append((c[t].to(torch.float32) @ h).to(x.dtype))
+    return torch.stack(ys) if ys else x.new_zeros((0, P)), h

@@ -10,13 +10,16 @@
     quantize_weights(params, fmt="int8")     -> params with QTensor weights
 
 ``batch`` is a dict with ``tokens`` (B, S) and optional ``lengths``
-((B,) ragged valid prefixes).  The dense and MoE families are ported.
+((B,) ragged valid prefixes).  The dense, MoE, SSM (mamba2) and hybrid
+(zamba2) families are ported; encdec and vlm are not yet.
 ``quantize_weights`` is one generic walk for every family
 (:func:`repro_torch.quant.quantize_tree`); pair it with
 ``Ctx(plan=KernelConfig(quant="int8"))`` for the W8A8 kernels.
-``prefill_chunk`` is None for the MoE family, as in the JAX package:
-its batch-global routing (the expert capacity depends on every token of
-the call) is not chunk-invariant.
+``prefill_chunk`` is None for every family but dense, as in the JAX
+package: MoE's batch-global routing (the expert capacity depends on
+every token of the call) is not chunk-invariant, and no chunked form of
+the SSM and hybrid prefill (carrying the conv window and SSD state from
+chunk to chunk) is written, in the JAX package or here.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import moe, transformer
+from repro_torch.models import hybrid, moe, ssm, transformer
 from repro_torch.models.layers import Ctx, Params
 from repro_torch.quant.tensor import quantize_tree
 
@@ -37,10 +40,8 @@ __all__ = ["Model", "build_model", "Ctx"]
 
 # where each family not ported yet stands in ROADMAP.md (queue 1)
 _LATER = {
-    "vlm": "queue 1 item 4 (the SSM, hybrid, encdec and vlm families)",
-    "ssm": "queue 1 item 4 (the SSM, hybrid, encdec and vlm families)",
-    "hybrid": "queue 1 item 4 (the SSM, hybrid, encdec and vlm families)",
-    "encdec": "queue 1 item 4 (the SSM, hybrid, encdec and vlm families)",
+    "vlm": "queue 1 item 4 (the encdec and vlm families)",
+    "encdec": "queue 1 item 4 (the encdec and vlm families)",
 }
 
 
@@ -130,6 +131,26 @@ def build_model(cfg: ModelConfig) -> Model:
                      init_cache=functools.partial(transformer.init_cache, cfg),
                      decode=decode, prefill_logits=prefill_logits,
                      prefill=prefill_fn)
+    if fam in ("ssm", "hybrid"):
+        mod = ssm if fam == "ssm" else hybrid
+
+        def prefill_logits(params, batch, ctx):
+            return mod.forward(params, batch["tokens"], cfg, ctx,
+                               last_only=True)
+
+        def prefill_fn(params, batch, ctx, max_len):
+            return mod.prefill(params, batch["tokens"], cfg, ctx, max_len,
+                               lengths=batch.get("lengths"))
+
+        return Model(
+            cfg=cfg,
+            init=functools.partial(mod.init_params, cfg),
+            init_cache=functools.partial(mod.init_cache, cfg),
+            decode=lambda params, cache, tokens, ctx: mod.decode_step(
+                params, cache, tokens, cfg, ctx),
+            prefill_logits=prefill_logits,
+            prefill=prefill_fn,
+        )
     if fam in _LATER:
         raise NotImplementedError(
             f"family {fam!r} is not ported to repro_torch yet; see "

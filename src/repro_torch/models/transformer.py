@@ -20,8 +20,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import Ctx, Params
 
-__all__ = ["init_linear", "init_params", "forward", "init_cache", "prefill",
-           "prefill_chunk", "decode_step"]
+__all__ = ["init_linear", "init_embed", "init_params", "forward",
+           "init_cache", "prefill", "prefill_chunk", "decode_step"]
 
 
 # ----------------------------------------------------------------------
@@ -42,6 +42,21 @@ def init_linear(g: torch.Generator, d_in: int, d_out: int, *,
     if bias:
         p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
     return p
+
+
+def init_embed(g: torch.Generator, cfg: ModelConfig, dtype,
+               device) -> Params:
+    """The token table (normal * 0.02, drawn in fp32) and, untied, the LM
+    head, as JAX's init_embed."""
+    emb = torch.empty((cfg.vocab_size, cfg.d_model), dtype=torch.float32,
+                      device=device)
+    emb.normal_(0.0, 1.0, generator=g)
+    embed = {"tokens": (emb * 0.02).to(dtype)}
+    del emb
+    if not cfg.tie_embeddings:
+        embed["lm_head"] = _dense(g, cfg.d_model, cfg.vocab_size, dtype,
+                                  device)
+    return embed
 
 
 def _layer_params(g, cfg: ModelConfig, dtype, device,
@@ -76,15 +91,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     device = resolve_device(device)
     g = torch.Generator(device=device)
     g.manual_seed(seed)
-    emb = torch.empty((cfg.vocab_size, cfg.d_model), dtype=torch.float32,
-                      device=device)
-    emb.normal_(0.0, 1.0, generator=g)
-    embed = {"tokens": (emb * 0.02).to(dtype)}
-    del emb
-    if not cfg.tie_embeddings:
-        embed["lm_head"] = _dense(g, cfg.d_model, cfg.vocab_size, dtype,
-                                  device)
-    return {"embed": embed,
+    return {"embed": init_embed(g, cfg, dtype, device),
             "layers": [_layer_params(g, cfg, dtype, device, init_mlp_fn)
                        for _ in range(cfg.n_layers)],
             "final_norm": {"scale": torch.ones((cfg.d_model,), dtype=dtype,

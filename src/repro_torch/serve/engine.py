@@ -29,15 +29,26 @@ request samples the tokens it samples in the JAX engine.  Admissions,
 prefill chunks, dispatches and retirements emit the JAX engine's spans
 and events (:mod:`repro_torch.obs`).
 
-Paged mode (``page_size=...``) replaces the per-slot stripes with a
-device-resident page pool, stacked ``(n_layers, num_pages, page_size,
-KV, D)``, plus a ``(num_slots, T)`` int32 page table
-(:mod:`repro_torch.serve.paging`): admission allocates just the pages a
-request needs, identical prompt prefixes share pages copy-on-write
-through a refcounted prefix cache (LRU-evicted under pressure; a
-request that still does not fit is requeued), and decode attention
-walks the table through the paged-attention kernel on the card or a
-gather on the plain path, which is bitwise equal to contiguous decode.
+The cache is family-agnostic: each leaf's batch axis is probed once
+from ``init_cache`` at batch 1 and 2 (shapes only, on the meta device),
+and a slot is installed along that axis, so the dense and MoE K/V
+``(n_layers, B, ...)``, the SSM state ``(n_layers, B, ...)`` and the
+hybrid's ``(n_groups, attn_every, B, ...)`` state and ``(n_groups, B,
+...)`` K/V all serve through the same code.
+
+Paged mode (``page_size=...``) replaces the per-slot stripes of every
+leaf that grows with ``max_len`` (attention K/V) with a device-resident
+page pool, e.g. ``(n_layers, num_pages, page_size, KV, D)``, plus a
+``(num_slots, T)`` int32 page table (:mod:`repro_torch.serve.paging`);
+every other leaf (conv and SSM state) keeps its per-slot form and its
+own dtype.  Admission allocates just the pages a request needs,
+identical prompt prefixes of the dense and hybrid families share pages
+copy-on-write through a refcounted prefix cache (LRU-evicted under
+pressure; a request that still does not fit is requeued), and decode
+attention walks the table through the paged-attention kernel on the card
+or a gather on the plain path, which is bitwise equal to contiguous
+decode.  A model with no pageable leaf (pure SSM) degrades to the
+contiguous engine with zero page gauges, as in the JAX engine.
 Chunked prefill (``prefill_chunk=...``) ingests prompts longer than the
 chunk one chunk per engine step, between decode dispatches, against a
 private contiguous stripe that is installed when the last chunk lands;
@@ -68,6 +79,13 @@ from repro_torch.serve.stats import EngineStats
 
 __all__ = ["ServeEngine", "lockstep_generate"]
 
+# families whose prefill K/V at position i depends only on tokens <= i
+# AND is batch-composition independent: the prefix-sharing soundness
+# bar, the JAX engine's.  MoE is out (routing competes batch-globally,
+# so a prefix's K/V depend on the rest of the prompt), encdec is out
+# (every position also depends on the source frames).
+_SHARE_FAMILIES = ("dense", "vlm", "hybrid")
+
 
 def _host(x: torch.Tensor) -> np.ndarray:
     """THE device->host boundary.  Every readback the engine performs
@@ -85,6 +103,20 @@ def _wait(device: torch.device) -> None:
     covers the device work it launched (a no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _batch_axes(c1: dict[str, tuple], c2: dict[str, tuple]
+                ) -> dict[str, int]:
+    """Each leaf's batch axis, the one axis whose extent differs between
+    its shapes at two batch sizes."""
+    axes = {}
+    for name, a in c1.items():
+        diffs = [i for i, (x, y) in enumerate(zip(a, c2[name])) if x != y]
+        if len(diffs) != 1:
+            raise ValueError(f"cannot locate the batch axis of cache leaf "
+                             f"{name!r}: shapes {a} vs {c2[name]}")
+        axes[name] = diffs[0]
+    return axes
 
 
 class ServeEngine:
@@ -160,7 +192,13 @@ class ServeEngine:
             bucket_sizes.append(max_len)
         self.bucket_sizes = tuple(sorted(set(int(b) for b in bucket_sizes)))
 
+        # each cache leaf's batch axis, probed once from two batch sizes
+        # on the meta device (shapes only, nothing allocated)
+        self._axes = _batch_axes(self._shapes(1, self.max_len),
+                                 self._shapes(2, self.max_len))
         self._geom: PageGeometry | None = None
+        self._paged: set[str] = set()
+        self._pages_active = False
         if self.page_size is None:
             self.cache = model.init_cache(self.num_slots, self.max_len,
                                           cache_dtype, device=self.device)
@@ -199,16 +237,24 @@ class ServeEngine:
         self._last_prefill_s = 0.0
         self._last_dispatch_s = 0.0
 
+    def _shapes(self, batch: int, max_len: int) -> dict[str, tuple]:
+        """The shape of every cache leaf but ``pos`` at ``batch`` and
+        ``max_len`` (``init_cache`` on the meta device)."""
+        c = self.model.init_cache(batch, max_len, self.cache_dtype,
+                                  device="meta")
+        return {k: tuple(v.shape) for k, v in c.items() if k != "pos"}
+
     # -- paged KV cache --------------------------------------------------
     def _init_paging(self, num_pages: int | None) -> None:
         """Build the page pool in place of the contiguous cache.
 
         Which leaves page is probed, not hard-coded: ``init_cache`` is
-        evaluated on the meta device (shapes only, nothing allocated) at
-        ``max_len`` and at ``max_len + page_size``, and a leaf that grows
-        by exactly ``page_size`` on the axis right of its batch axis is
-        sequence-extent KV and becomes a ``(..., num_pages, page_size,
-        ...)`` pool."""
+        evaluated on the meta device at ``max_len`` and at ``max_len +
+        page_size``, and a leaf that grows by exactly ``page_size`` on the
+        axis right of its batch axis is sequence-extent KV and becomes a
+        ``(..., num_pages, page_size, ...)`` pool; a leaf that does not
+        grow keeps its per-slot form and dtype.  With no pageable leaf
+        (pure SSM) the engine runs contiguous, with zero page gauges."""
         ps = self.page_size
         if ps < 1 or self.max_len % ps:
             raise ValueError(
@@ -223,32 +269,37 @@ class ServeEngine:
         self._slot_pages: list[list[int]] = [[] for _ in
                                              range(self.num_slots)]
 
-        def shapes(max_len: int) -> dict[str, tuple[int, ...]]:
-            c = self.model.init_cache(self.num_slots, max_len,
-                                      self.cache_dtype, device="meta")
-            return {k: tuple(v.shape) for k, v in c.items() if k != "pos"}
-        base, grown = shapes(self.max_len), shapes(self.max_len + ps)
-        # leaf -> page axis (the batch axis is the one left of it)
-        self._paged: dict[str, int] = {}
-        self.cache = {}
+        base = self._shapes(1, self.max_len)
+        grown = self._shapes(1, self.max_len + ps)
+        # the leaves that page (their batch axis becomes the page axis,
+        # the sequence axis right of it the page's rows)
         for name, shape in base.items():
+            bax = self._axes[name]
             diffs = [i for i, (x, y) in enumerate(zip(shape, grown[name]))
                      if x != y]
-            pax = diffs[0] if len(diffs) == 1 else -1
-            if pax < 1 or grown[name][pax] - shape[pax] != ps \
-                    or shape[pax - 1] != self.num_slots:
+            if not diffs:
+                continue
+            if diffs != [bax + 1] or grown[name][bax + 1] - shape[bax + 1] \
+                    != ps:
                 raise ValueError(
                     f"cannot page cache leaf {name!r}: shapes {shape} vs "
-                    f"{grown[name]} (expected growth of {ps} on the axis "
-                    f"right of its batch axis)")
-            self._paged[name] = pax
-            pool = list(shape)
-            pool[pax - 1], pool[pax] = self._geom.num_pages, ps
-            self.cache[name] = torch.zeros(pool, dtype=self.cache_dtype,
+                    f"{grown[name]} (expected growth of {ps} on axis "
+                    f"{bax + 1}, right of its batch axis)")
+            self._paged.add(name)
+        self._pages_active = bool(self._paged)
+        self.cache = self.model.init_cache(self.num_slots, self.max_len,
+                                           self.cache_dtype, device="meta")
+        for name, meta in list(self.cache.items()):
+            shape, dtype = list(meta.shape), meta.dtype
+            if name in self._paged:
+                bax = self._axes[name]
+                shape[bax], shape[bax + 1] = self._geom.num_pages, ps
+            self.cache[name] = torch.zeros(shape, dtype=dtype,
                                            device=self.device)
-        # all-zeros table: every slot starts parked on the trash page
-        self.cache["page_table"] = torch.zeros(
-            (self.num_slots, T), dtype=torch.int32, device=self.device)
+        if self._pages_active:
+            # all-zeros table: every slot starts parked on the trash page
+            self.cache["page_table"] = torch.zeros(
+                (self.num_slots, T), dtype=torch.int32, device=self.device)
 
     def _alloc_pages(self, n: int) -> list[int]:
         """Atomic n-page allocation, evicting LRU prefix entries under
@@ -421,32 +472,42 @@ class ServeEngine:
         return self._first_token(req, slot, logits)
 
     def _install(self, req: Request, slot: int, cache1) -> None:
-        """Insert a prefilled batch-1 contiguous stripe into ``slot``.
+        """Insert a prefilled batch-1 contiguous cache into ``slot``: its
+        pages first (paged mode, :meth:`_install_pages`, which raises
+        :class:`OutOfPages` before it changes anything), then every leaf
+        that does not page, copied into the slot along its batch axis in
+        the leaf's own dtype, and ``pos``."""
+        if self._pages_active:
+            self._install_pages(req, slot, cache1)
+        for name, bax in self._axes.items():
+            if name not in self._paged:
+                dst = self.cache[name]
+                dst.select(bax, slot).copy_(cache1[name].select(bax, 0))
+        self.cache["pos"][slot] = cache1["pos"][0]
 
-        Contiguous mode: a copy into the slot's stripe.  Paged mode:
-        retain the published prefix pages the prompt hits, allocate the
-        rest (evicting cold prefixes under pressure), copy the stripe's
-        pages into the pool at ``write_ids`` (the trash page for shared
-        prefix pages, which already hold these values and must not be
-        rewritten, and for unallocated tail pages), point the slot's
-        table row at ``table_ids``, and publish the prompt's full pages
-        for later sharing."""
-        if self._geom is None:
-            for name, dst in self.cache.items():
-                if name != "pos":
-                    dst[:, slot] = cache1[name][:, 0].to(dst.dtype)
-            self.cache["pos"][slot] = cache1["pos"][0]
-            return
+    def _install_pages(self, req: Request, slot: int, cache1) -> None:
+        """The paged leaves of an admission.  For the sharing families
+        (``_SHARE_FAMILIES``) retain the published prefix pages the prompt
+        hits; allocate the rest (evicting cold prefixes under pressure),
+        copy the stripe's pages into the pool at ``write_ids`` (the trash
+        page for shared prefix pages, which already hold these values and
+        must not be rewritten, and for unallocated tail pages), point the
+        slot's table row at ``table_ids``, and, sharing, publish the
+        prompt's full pages for later admissions.  Other families' pages
+        are all private."""
         geom = self._geom
         T, ps = geom.table_len, geom.page_size
         t_alloc = geom.pages_for(min(len(req.prompt) + req.max_new_tokens,
                                      self.max_len))
-        _, shared = self._prefix.lookup(req.prompt)
-        shared = shared[:t_alloc]
-        # hold the hits before allocating: eviction under pressure must
-        # not recycle the very pages this admission reuses
-        for p in shared:
-            self._alloc.retain(p)
+        share = self.model.cfg.family in _SHARE_FAMILIES
+        shared: list[int] = []
+        if share:
+            _, shared = self._prefix.lookup(req.prompt)
+            shared = shared[:t_alloc]
+            # hold the hits before allocating: eviction under pressure
+            # must not recycle the very pages this admission reuses
+            for p in shared:
+                self._alloc.retain(p)
         try:
             own = self._alloc_pages(t_alloc - len(shared))
         except OutOfPages:
@@ -458,16 +519,17 @@ class ServeEngine:
         table_ids[:t_alloc] = pages
         write_ids[len(shared):t_alloc] = own
         write_ids = torch.from_numpy(write_ids).to(self.device)
-        for name, pax in self._paged.items():
+        for name in self._paged:
             # (..., 1, max_len, ...) -> (..., T, ps, ...) on the pool axes
-            src = cache1[name].select(pax - 1, 0).unflatten(pax - 1, (T, ps))
+            bax = self._axes[name]
+            src = cache1[name].select(bax, 0).unflatten(bax, (T, ps))
             dst = self.cache[name]
-            dst.index_copy_(pax - 1, write_ids, src.to(dst.dtype))
+            dst.index_copy_(bax, write_ids, src.to(dst.dtype))
         self.cache["page_table"][slot] = torch.from_numpy(table_ids).to(
             self.device)
-        self.cache["pos"][slot] = cache1["pos"][0]
         self._slot_pages[slot] = pages
-        self._prefix.publish(req.prompt, pages)
+        if share:
+            self._prefix.publish(req.prompt, pages)
         self._page_gauges()
 
     def _request_key(self, req: Request) -> torch.Tensor:

@@ -233,7 +233,7 @@ def test_flash_design_follows_dtype():
                                                        "cuda_core"}
 
 
-@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 128, 256])
 @pytest.mark.parametrize("bq", [16, 32, 64])
 def test_flash_tc_tiles_and_shared_memory(D, bq):
     for bkv in (16, 32, 64):
@@ -248,8 +248,20 @@ def test_flash_tc_tiles_and_shared_memory(D, bq):
 
 @pytest.mark.parametrize("D", [8, 48, 96, 512])
 def test_flash_tc_rejects_other_head_dims(D):
-    with pytest.raises(ValueError, match=r"\(16, 32, 64, 128, 256\)"):
+    with pytest.raises(ValueError, match=r"\(16, 32, 64, 80, 128, 256\)"):
         fa_mod.check_tc_tiles(D, 32, 32)
+
+
+@pytest.mark.parametrize("bq", [16, 32, 64])
+def test_flash_tc_takes_zamba2_head_dim(bq):
+    """zamba2-2.7b's head dim, 2560 / 32 = 80: five k16 steps, a
+    160-byte row padded to 176 bytes, every kv tile within the register
+    budget; the serving prefill's tiles (32, 32) at S = 128."""
+    for bkv in (16, 32, 64):
+        fa_mod.check_tc_tiles(80, bq, bkv)
+        assert fa_mod.smem_bytes(80, bq, bkv, BF16) == 176 * (bq + 4 * bkv)
+    assert fa_mod.fit_tiles(BF16, 128, 128, 32, 32) == (32, 32)
+    assert fa_mod.smem_bytes(80, 64, 64, BF16) == 56320
 
 
 @pytest.mark.parametrize("bq,bkv", [(8, 32), (32, 8), (128, 32), (48, 32),
@@ -394,7 +406,7 @@ def test_grouped_sm90_ragged_on_card(cuda, slots, shape):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [16, 128, 256])
+@pytest.mark.parametrize("D", [16, 80, 128, 256])
 def test_flash_tc_lengths_and_masked_row_on_card(cuda, D):
     g = torch.Generator(device=cuda).manual_seed(2)
     q, k, v = (torch.randn(2, 4, 80, D, device=cuda, generator=g).to(BF16)

@@ -89,7 +89,8 @@ def test_paged_splits_follow_the_rows(B, KV):
 
 @pytest.mark.parametrize("rep,D,elt,rows", [
     (1, 256, 2, 1), (4, 128, 4, 4), (7, 128, 2, 8), (8, 256, 2, 8),
-    (8, 256, 4, 8), (8, 512, 2, 4), (12, 128, 2, 8), (3, 16, 4, 4)])
+    (8, 256, 4, 8), (8, 512, 2, 4), (12, 128, 2, 8), (3, 16, 4, 4),
+    (1, 80, 2, 1), (1, 80, 4, 1)])
 def test_paged_rows_keep_a_lane_under_64_floats(rep, D, elt, rows):
     """A block takes up to 8 query rows of a kv head (the next power of
     two of rep), fewer when a lane's share of q would pass 64 floats."""
@@ -100,7 +101,8 @@ def test_paged_rows_keep_a_lane_under_64_floats(rep, D, elt, rows):
 
 @pytest.mark.parametrize("stages", [2, 4])
 @pytest.mark.parametrize("D,ps,rep,elt", [(256, 16, 1, 2), (128, 16, 4, 4),
-                                          (256, 16, 8, 2), (8, 4, 4, 4)])
+                                          (256, 16, 8, 2), (8, 4, 4, 4),
+                                          (80, 16, 1, 2)])
 def test_paged_shared_memory_formula(D, ps, rep, elt, stages):
     """The ring of K and V pages, or the 4 warps' fp32 merge of the
     block's rows if larger (it is written over the ring), then 32 bytes
@@ -197,6 +199,46 @@ def test_split_and_fold_matches_plain_and_jax(rng, splits_per):
     assert bool((got[1] == 0).all())
 
 
+def test_zamba2_decode_shape_plan(rng):
+    """zamba2-2.7b's paged decode: 4 slots, 32 heads of 80 (rep 1), 16-token
+    pages.  A row is 10 16-byte vectors in bf16, not a power of two: the
+    kernel's lane group is L = 16 (its last six lanes hold no vector), a
+    block one query row, the ring two windows of two 2560-byte pages.
+    A 30-page table (480 keys a slot) splits into 3 ranges of 10 pages,
+    the serving table of 10 pages (max_len 160) into 3 of 4 (the last
+    of 2): 384 blocks either way."""
+    assert paged_rows(1, 80, 2) == 1
+    nvec = 80 * 2 // 16
+    assert nvec == 10 and 1 << (nvec - 1).bit_length() == 16
+    assert paged_splits(4, 32, 30, SMS) == (3, 10)
+    assert paged_splits(4, 32, 10, SMS) == (3, 4)
+    assert paged_stages(10, 80, 16, 1, 2) == 4
+    assert smem_bytes(80, 16, 1, 2, 4) == 4 * 2 * 16 * 80 * 2 + 32
+
+
+@pytest.mark.parametrize("splits_per", [(1, 5), (2, 3), (5, 1)])
+def test_split_and_fold_at_head_dim_80_matches_plain_and_jax(rng,
+                                                             splits_per):
+    """The split arithmetic at zamba2's head dim and one query head a kv
+    head, against the plain version and the JAX Pallas kernel in
+    interpret mode, within 2e-5 in fp32."""
+    q, kp, vp, table, kv_lens = _inputs(rng, KV=3, rep=1, D=80)
+    splits, per = splits_per
+    got = _split_then_fold(*(torch.from_numpy(x) for x in (q, kp, vp)),
+                           table, kv_lens, splits, per)
+    want = paged_attention_ref(*(torch.from_numpy(x) for x in
+                                 (q, kp, vp, table)),
+                               kv_lens=torch.from_numpy(kv_lens))
+    torch.testing.assert_close(got, want, atol=FP32_TOL, rtol=FP32_TOL)
+    jwant = jops.paged_attention(*(jnp.asarray(x) for x in
+                                   (q, kp, vp, table)),
+                                 kv_lens=jnp.asarray(kv_lens),
+                                 config=J_INTERP)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jwant),
+                               atol=FP32_TOL, rtol=FP32_TOL)
+    assert bool((got[1] == 0).all())
+
+
 def test_cpu_paged_attention_launches_nothing(rng):
     q, kp, vp, table, kv_lens = (torch.from_numpy(x)
                                  for x in _inputs(rng))
@@ -240,6 +282,9 @@ CARD_CASES = [
          dtype=torch.bfloat16),
     dict(B=2, H=8, KV=2, D=8, ps=4, T=8, kv_lens=[13, 5],
          dtype=torch.float32),
+    # zamba2-2.7b's decode: 32 heads of 80, rep 1, a 30-page table
+    dict(B=4, H=32, KV=32, D=80, ps=16, T=30, kv_lens=[480, 300, 0, 500],
+         dtype=torch.bfloat16, trash_rows=(1,)),
 ]
 
 

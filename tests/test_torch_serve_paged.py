@@ -328,6 +328,124 @@ def test_paged_engine_validates_geometry_and_capacity():
 
 
 # ----------------------------------------------------------------------
+# every family's cache through one engine, and the prefix-sharing rule
+# ----------------------------------------------------------------------
+FAMILY_ARCHS = ["gemma-7b", "olmoe-1b-7b", "mamba2-130m", "zamba2-2.7b"]
+
+
+@functools.lru_cache(maxsize=None)
+def _family_pair(arch):
+    jcfg = j_get_config(arch, reduced=True)
+    cfg = get_config(arch, reduced=True)
+    jm, m = j_build_model(jcfg), build_model(cfg)
+    jp = jm.init(jax.random.PRNGKey(0), dtype=jnp.float32)
+    return jm, jp, m, params_from_numpy(jax.tree.map(np.asarray, jp), cfg,
+                                        device="cpu")
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_cache_leaf_batch_axes_match_jax(arch):
+    """Each leaf's batch axis, probed from two batch sizes: dense and MoE
+    K/V and the SSM state lead with their layers, the hybrid's state
+    with (groups, attn_every) and its K/V with the groups."""
+    from repro.serve import ServeEngine as JServeEngine
+    jm, jp, m, tp = _family_pair(arch)
+    jeng = JServeEngine(jm, jp, J_CTX, num_slots=2, max_len=16)
+    eng = ServeEngine(m, tp, Ctx(plan="auto", dtype=torch.float32),
+                      num_slots=2, max_len=16, device="cpu")
+    want = {k: v for k, v in jeng._axes.items() if k != "pos"}
+    assert eng._axes == want
+    assert eng._axes == {"gemma-7b": {"k": 1, "v": 1},
+                         "olmoe-1b-7b": {"k": 1, "v": 1},
+                         "mamba2-130m": {"conv": 1, "ssm": 1},
+                         "zamba2-2.7b": {"conv": 2, "ssm": 2, "k": 1,
+                                         "v": 1}}[arch]
+
+
+@pytest.mark.parametrize("K", [1, 4])
+def test_pure_ssm_paged_degrades_to_contiguous(K):
+    """mamba2 has no leaf that grows with max_len: asked for pages, the
+    engine runs contiguous, with zero page gauges and the oracle's
+    tokens, as the JAX engine does."""
+    jm, jp, m, tp = _family_pair("mamba2-130m")
+    prompts = _prompts(256)
+    oracle = j_lockstep(jm, jp, J_CTX, prompts, MAX_NEW, max_len=32)
+    engine = ServeEngine(m, tp, Ctx(plan="auto", dtype=torch.float32),
+                         num_slots=2, max_len=32, steps_per_dispatch=K,
+                         page_size=4, device="cpu")
+    assert not engine._pages_active and "page_table" not in engine.cache
+    assert engine.cache["ssm"].dtype == torch.float32
+    assert _run(engine, prompts, MAX_NEW) == oracle
+    s = engine.stats
+    assert (s.pages_in_use, s.pages_shared, engine.pages_in_use_now) == \
+        (0, 0, 0)
+
+
+def _shared_prefix_run(arch, prefix, tails, max_new=3, K=1):
+    """The port's and the JAX paged engine (2 slots, 4-token pages) on
+    prompts ``prefix + tail``: (port engine, its tokens, for each
+    admission whether every page it was given held its own prefill K/V
+    right after the install, JAX engine, its tokens)."""
+    from repro.serve import Request as JRequest
+    from repro.serve import ServeEngine as JServeEngine
+    jm, jp, m, tp = _family_pair(arch)
+    prompts = [list(prefix) + list(t) for t in tails]
+    kw = dict(num_slots=2, max_len=48, steps_per_dispatch=K, page_size=4)
+    jeng = JServeEngine(jm, jp, J_CTX, **kw)
+    jres = jeng.run([JRequest(rid=i, prompt=p, max_new_tokens=max_new)
+                     for i, p in enumerate(prompts)])
+    eng = ServeEngine(m, tp, Ctx(plan="auto", dtype=torch.float32),
+                      device="cpu", **kw)
+    installed = []
+    real = eng._install
+
+    def spy(req, slot, cache1):
+        real(req, slot, cache1)
+        n, ps = len(req.prompt), eng._geom.page_size
+        own = [torch.equal(eng.cache[name][:, page, :rows],
+                           cache1[name][:, 0, j * ps:j * ps + rows])
+               for j, page in enumerate(eng._slot_pages[slot][:-(-n // ps)])
+               for rows in [min(ps, n - j * ps)] for name in ("k", "v")]
+        installed.append(all(own))
+
+    eng._install = spy
+    res = eng.run([Request(rid=i, prompt=p, max_new_tokens=max_new)
+                   for i, p in enumerate(prompts)])
+    return (eng, [res[i].tokens for i in range(len(prompts))], installed,
+            jeng, [[int(t) for t in jres[i].tokens]
+                   for i in range(len(prompts))])
+
+
+def test_moe_admissions_share_no_prefix_page():
+    """MoE expert capacity depends on the whole prompt, so a prefix's K/V
+    depend on the rest of it: olmoe prompts of 9 to 32 tokens behind one
+    8-token prefix share no page (as in the JAX engine), and each
+    installed page holds the request's own prefill K/V."""
+    tails = [np.random.default_rng(20 + i).integers(0, 256, n).tolist()
+             for i, n in enumerate((1, 24, 10, 17))]
+    prefix = np.random.default_rng(19).integers(0, 256, 8).tolist()
+    eng, toks, installed, jeng, jtoks = _shared_prefix_run(
+        "olmoe-1b-7b", prefix, tails)
+    assert eng.stats.pages_shared == jeng.stats.pages_shared == 0
+    assert toks == jtoks
+    assert len(eng._prefix.pages) == 0          # nothing was published
+    assert installed == [True] * 4
+
+
+@pytest.mark.parametrize("arch", ["gemma-7b", "zamba2-2.7b"])
+def test_dense_and_hybrid_still_share_prefix_pages(arch):
+    """Four prompts behind one 16-token system prompt: the dense and the
+    hybrid family map the published prefix pages, as many as the JAX
+    engine does, and give its tokens."""
+    tails = [np.random.default_rng(30 + i).integers(0, 256, n).tolist()
+             for i, n in enumerate((3, 9, 5, 12))]
+    eng, toks, installed, jeng, jtoks = _shared_prefix_run(
+        arch, list(range(10, 26)), tails, K=4)
+    assert eng.stats.pages_shared == jeng.stats.pages_shared >= 4
+    assert toks == jtoks
+
+
+# ----------------------------------------------------------------------
 # on the card (skips here)
 # ----------------------------------------------------------------------
 @pytest.fixture
