@@ -42,12 +42,24 @@ Phases, each printed as it runs:
    causal and non-causal masks and a fully-masked row, and paged
    attention at (4, 32, 80) with one query head a kv head, scattered
    pages, the trash page, a row with no valid column and one past its
-   table, two calls bitwise equal;
+   table, two calls bitwise equal; and for the encdec, vlm and last
+   dense paths: the bf16 matmul at every seamless-m4t-large-v2,
+   llava-next-34b, qwen1.5-32b and mistral-large-123b projection shape
+   (decode, a 128-token prefill, llava's 3008-row prefill) and K-major
+   head (seamless's N = 256206), each on the TMA + wgmma design; flash
+   attention at seamless's cross-attention decode (4, 16, 1, 128, 64),
+   non-causal, eagerly and captured in a CUDA graph, at its prefill
+   buckets (Sq != Skv) and encoder, and at llava's (1, 56, 3008, 128)
+   causal prefill with lengths; paged attention at rep 1 (D 64), rep 7
+   over 3040 keys a slot and rep 12 over 480;
 4. the reduced gemma-7b and deepseek-coder-33b configs in fp32, plain
    and W8A8, the reduced olmoe-1b-7b and granite-moe-1b-a400m configs
    with bf16 weights and W8A8, and the reduced mamba2-130m and
    zamba2-2.7b configs in fp32, plain and W8A8 (mamba2, asked for
-   pages, must report zero page gauges): the serving engine's greedy
+   pages, must report zero page gauges), and the reduced qwen1.5-32b,
+   mistral-large-123b, seamless-m4t-large-v2 (source frames, enc_len)
+   and llava-next-34b (patch positions) configs in fp32: the serving
+   engine's greedy
    tokens through the kernels must equal those of the plain
    ``backend="torch"`` path, at K = 1 and K = 4, with the contiguous
    cache, the paged cache, and (dense only) the paged cache with
@@ -107,6 +119,26 @@ Phases, each printed as it runs:
    the bf16 rounding floor (a random 24-layer mamba2 moves more than 5%
    under bf16 rounding alone), the graph step against the eager loop
    and the device-busy share;
+5i. seamless-m4t-large-v2 at full size (24 + 24 layers, d 1024, untied
+   vocab 256206) in bf16, 128 source frames a request, through
+   ``serve_batch`` and ``ServeEngine`` paged with enc_len 128: launch
+   counts (kernel 1: 385 a prefill, 193 a decode step; kernel 2: 72 a
+   prefill, 24 a decode step, inside the graph; kernel 3: 24 a paged
+   step), the first prefill's logits within 5% of the largest plain one
+   or within the bf16 rounding floor, the first paged decode step's
+   logits (kernels 2 and 3) against the plain path, the graph step
+   against the eager loop and the device-busy share;
+5j. llava-next-34b at full width, 8 of 60 layers, 2880 patch positions a
+   request, ``ServeEngine`` contiguous and paged (no page shared), then
+   the same prompts text only behind a shared 64-token prefix (pages
+   shared);
+5k. qwen1.5-32b at full width, 8 of 64 layers, through ``serve_batch``,
+   and a biased projection on the card against its plain version;
+5l. mistral-large-123b at full width, 4 of 88 layers, ``ServeEngine``
+   paged (kernel 3 at 12 query heads a kv head); each of 5j-5l: launch
+   counts (7 L + 1 matmuls a pass, L flash calls a prefill, L paged
+   calls a paged step), the first prefill's logits as in 5i, the graph
+   step against the eager loop;
 6. each kernel's time at the main-path shapes with CUDA events over a
    CUDA graph of many calls (device time, with the host's launch work
    taken out; operands cycled past the 50 MB L2), beside its plain
@@ -125,10 +157,14 @@ Phases, each printed as it runs:
    split counts; and for the SSM and hybrid paths flash attention at
    (1, 32, 128, 80) beside SDPA, paged attention at (4, 32, 80) over 480
    keys a slot, and the bf16 matmul's zamba2 decode step (181 launches)
-   beside cuBLAS;
+   beside cuBLAS; and for the encdec, vlm and last dense paths flash
+   attention at (4, 16, 1, 128, 64) and (1, 56, 3008, 128) beside SDPA,
+   paged attention at rep 7 and rep 12, and the bf16 matmul's decode step
+   of seamless, llava, qwen and mistral beside cuBLAS;
 7. the script's wall time, a ``{"kernels": [...]}`` line (with each
-   kernel's launches on the paths of 5g and 5h, and the zamba2 shapes'
-   timings of kernels 1-3), the card line, and the final
+   kernel's launches on the paths of 5g-5l, and the zamba2 shapes' and
+   the slice-9 shapes' timings of kernels 1-3), the card line, and the
+   final
    ``{"ok": true, ...}`` line.
 
 On the card the engine decodes through one CUDA graph a variant
@@ -273,8 +309,9 @@ def main() -> int:
                 quantized_grouped_zero_stall_matmul}
     t_run = time.perf_counter()
     errs = check_kernels(torch, kern)
-    for name, err in check_new_kernels(torch, kern).items():
-        errs[name] = max(errs.get(name, 0.0), err)
+    for more in (check_new_kernels, check_slice9_kernels):
+        for name, err in more(torch, kern).items():
+            errs[name] = max(errs.get(name, 0.0), err)
     check_reduced_engines(torch, kern)
     counts = serve_full_width(torch, kern)
     counts.update(serve_paged_full_width(torch, kern))
@@ -284,9 +321,13 @@ def main() -> int:
     counts["quantized_zero_stall_matmul"] = serve_gemma_w8a8(torch, kern)
     by_path = serve_zamba2_full_width(torch, kern)
     by_path.update(serve_mamba2_full_width(torch, kern))
+    for phase in (serve_seamless_full_width, serve_llava_full_width,
+                  serve_qwen_full_width, serve_mistral_full_width):
+        by_path.update(phase(torch, kern))
     timings = time_kernels(torch, kern)
     timings.update(time_new_kernels(torch, kern))
     slice8 = time_slice8(torch, kern)
+    slice9 = time_slice9(torch, kern)
 
     kernels = [
         {"name": "zero_stall_matmul", "route": "cuda",
@@ -350,6 +391,10 @@ def main() -> int:
                              (kernels[1], "attention", "d80"),
                              (kernels[2], "paged", "d80")):
         entry[what] = slice8[key]
+    # the encdec, vlm and last dense paths' shapes of kernels 1-3
+    for entry, key in ((kernels[0], "matmul"), (kernels[1], "attention"),
+                       (kernels[2], "paged")):
+        entry.update(slice9[key])
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "repro.")))
     require(not leaked, f"JAX or the JAX package got imported: {leaked}")
@@ -1023,6 +1068,213 @@ def check_new_kernels(torch, kern) -> dict:
 
 
 # ----------------------------------------------------------------------
+# 3 (the encdec, vlm and last dense paths): kernels at their new shapes
+# ----------------------------------------------------------------------
+# seamless-m4t-large-v2 at full size: 24 encoder and 24 decoder layers
+SEAMLESS = {"d": 1024, "H": 16, "hd": 64, "ff": 8192, "V": 256206,
+            "enc": 24, "dec": 24, "frames": 128}
+# kernel-1 launches of a seamless prefill (6 products an encoder layer:
+# q, k, v, o, wi, wo; 10 a decoder layer: self q, k, v, o, cross q, k,
+# v, o, wi, wo; the head) and of a decode step (the cross K/V come from
+# the cache: 8 a decoder layer, the head); kernel-2 launches of a
+# prefill (encoder, decoder self and cross attention) and of a decode
+# step (cross attention; self attention is the plain einsum, or kernel
+# 3 paged)
+SEAMLESS_MM = {"prefill": 6 * 24 + 10 * 24 + 1, "decode": 8 * 24 + 1}
+SEAMLESS_FA = {"prefill": 3 * 24, "decode": 24}
+# the last three configs at full width, at a cut depth (full depth in
+# bf16: llava 69 GB, qwen 70 GB, mistral 246 GB)
+LLAVA = {"d": 7168, "H": 56, "KV": 8, "hd": 128, "ff": 20480, "V": 64000,
+         "layers": 8, "of": 60, "P": 2880}
+QWEN = {"d": 5120, "H": 40, "KV": 40, "hd": 128, "ff": 27392, "V": 152064,
+        "layers": 8, "of": 64}
+MISTRAL = {"d": 12288, "H": 96, "KV": 8, "hd": 128, "ff": 28672,
+           "V": 32768, "layers": 4, "of": 88}
+
+
+def slice9_matmul_shapes(arch: str, M: int
+                         ) -> list[tuple[str, int, int, int, int, bool]]:
+    """(name, M, K, N, calls a decode step, K-major B) of kernel 1 over M
+    rows for ``arch`` ("seamless", "llava", "qwen", "mistral"), head
+    included (every LM head is read K-major)."""
+    if arch == "seamless":
+        s = SEAMLESS
+        d, L = s["d"], s["dec"]
+        return [("seamless q/k/v/o, cross q/o", M, d, d, 6 * L, False),
+                ("seamless mlp wi", M, d, s["ff"], L, False),
+                ("seamless mlp wo", M, s["ff"], d, L, False),
+                ("seamless LM head", M, d, s["V"], 1, True)]
+    c = {"llava": LLAVA, "qwen": QWEN, "mistral": MISTRAL}[arch]
+    d, L, q, kv = c["d"], c["layers"], c["H"] * c["hd"], c["KV"] * c["hd"]
+    shapes = [(f"{arch} wq", M, d, q, L, False),
+              (f"{arch} wk/wv", M, d, kv, 2 * L, False),
+              (f"{arch} wo", M, q, d, L, False),
+              (f"{arch} mlp wi/wg", M, d, c["ff"], 2 * L, False),
+              (f"{arch} mlp wo", M, c["ff"], d, L, False),
+              (f"{arch} LM head", M, d, c["V"], 1, True)]
+    if q == kv:     # qwen: MHA, wq/wk/wv one shape
+        shapes = [(f"{arch} wq/wk/wv", M, d, q, 3 * L, False)] + shapes[2:]
+    return shapes
+
+
+def check_slice9_kernels(torch, kern) -> dict:
+    """Phase 3 for the encdec, vlm and last dense paths: kernel 1 at every
+    new projection shape (decode M = 4 and a 128-token prefill; llava
+    also at its 3008-row prefill) and at the K-major heads, seamless's N =
+    256206 ragged against bn = 128, each on the TMA + wgmma design;
+    kernel 2 at seamless's cross-attention decode (4, 16, 1, 128, 64),
+    non-causal, eagerly and captured in a CUDA graph and replayed on new
+    operands, at its prefill (1, 16, S, 128, 64) with S != 128 and its
+    encoder (S = 128), and at llava's (1, 56, 3008, 128) causal prefill
+    with lengths; kernel 3 at seamless (rep 1, D 64), llava (rep 7 over
+    about 3040 keys a slot) and mistral (rep 12 over 480), with scattered
+    pages, the trash page, kv_len 0 and a length past the table, two
+    calls bitwise equal."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import fit_tiles
+    from repro_torch.kernels.paged_attention import paged_rows, paged_splits
+    from repro_torch.kernels.ref import (flash_attention_ref, matmul_ref,
+                                         paged_attention_ref)
+    from repro_torch.kernels.zero_stall_matmul import select_design
+    mm = kern["zero_stall_matmul"]
+    fa = kern["flash_attention"]
+    pa = kern["paged_attention"]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    errs = {n: 0.0 for n in ("zero_stall_matmul", "flash_attention",
+                             "paged_attention")}
+    print(f"[3] the encdec, vlm and last dense paths' kernel shapes against "
+          f"the plain versions, per output row (bf16: |err| <= {BF16_TOL} "
+          f"* that row's max|ref|)", flush=True)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=gen).to(
+            torch.bfloat16)
+
+    def judge(kernel, what, got, want):
+        err = (got.float() - want.float()).abs().amax(-1)
+        tol = BF16_TOL * want.float().abs().amax(-1)
+        worst = (err / tol.clamp_min(1e-30)).max().item()
+        e = err.max().item()
+        print(f"    {kernel} {what}: max|err| {e:.3g}, worst row |err|/tol "
+              f"{worst:.3g}")
+        require(bool((err <= tol).all()), f"{kernel} {what} disagrees with "
+                f"its plain version in some row (worst |err|/tol {worst})")
+        errs[kernel] = max(errs[kernel], e)
+
+    # kernel 1
+    before = dict(mm.launches_by_design)
+    n_mm, designs = 0, set()
+    for arch in ("seamless", "llava", "qwen", "mistral"):
+        Ms = (4, 128) + ((3008,) if arch == "llava" else ())
+        for M in Ms:
+            for name, m, k, n, _, head in slice9_matmul_shapes(arch, M):
+                if M > 128 and head:
+                    continue        # a prefill's head takes its last row
+                a = rnd(m, k)
+                b = rnd(n, k) if head else rnd(k, n)
+                designs.add(select_design(torch.bfloat16, k, n, head,
+                                          a.data_ptr(), b.data_ptr()))
+                o = torch.float32 if head else torch.bfloat16
+                judge("zero_stall_matmul", f"{name} M={m} K={k} N={n}"
+                      + (" (K-major B, fp32 out)" if head else ""),
+                      mm(a, b, trans_b=head, out_dtype=o),
+                      matmul_ref(a, b.t() if head else b, o))
+                n_mm += 1
+                del a, b
+    ran = {k: mm.launches_by_design[k] - before[k] for k in before}
+    print(f"    new kernel-1 shapes by design: {ran}")
+    require(designs == {"sm90"} and ran == {"sm90": n_mm, "ring": 0},
+            "a new kernel-1 shape left the TMA + wgmma design")
+
+    # kernel 2
+    i32 = lambda *xs: torch.tensor(xs, dtype=torch.int32, device=dev)  # noqa
+    fa_before = dict(fa.launches_by_design)
+    H, D, S_enc = SEAMLESS["H"], SEAMLESS["hd"], SEAMLESS["frames"]
+    q, k, v = rnd(4, H, 1, D), rnd(4, H, S_enc, D), rnd(4, H, S_enc, D)
+    print(f"    flash tiles at one query row: "
+          f"{fit_tiles(torch.bfloat16, 1, S_enc, 32, 32)}")
+    judge("flash_attention", f"(4, {H}, 1, {S_enc}, {D}) non-causal "
+          f"(seamless cross-attention at decode), eager",
+          ops.attention(q, k, v, causal=False),
+          flash_attention_ref(q, k, v, causal=False))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    launched = fa.launches
+    with torch.cuda.graph(graph):
+        got = ops.attention(q, k, v, causal=False)
+    require(fa.launches == launched + 1, "the captured cross-attention did "
+            "not call the kernel")
+    for t in (q, k, v):
+        t.copy_(rnd(*t.shape))
+    graph.replay()
+    torch.cuda.synchronize()
+    judge("flash_attention", f"(4, {H}, 1, {S_enc}, {D}) non-causal, "
+          f"captured in a CUDA graph, replayed on new operands", got,
+          flash_attention_ref(q, k, v, causal=False))
+    del graph
+    for S in (32, 64, 96, 128):
+        q, k, v = rnd(1, H, S, D), rnd(1, H, S_enc, D), rnd(1, H, S_enc, D)
+        judge("flash_attention", f"(1, {H}, {S}, {S_enc}, {D}) non-causal "
+              f"(seamless cross-attention at a {S}-token bucket"
+              + (", and the encoder" if S == S_enc else "") + ")",
+              ops.attention(q, k, v, causal=False),
+              flash_attention_ref(q, k, v, causal=False))
+    H, D, S = LLAVA["H"], LLAVA["hd"], LLAVA["P"] + 128
+    q, k, v = rnd(1, H, S, D), rnd(1, H, S, D), rnd(1, H, S, D)
+    for n in (S, LLAVA["P"] + 97):
+        kw = dict(causal=True, q_lens=i32(n), kv_lens=i32(n))
+        judge("flash_attention", f"(1, {H}, {S}, {D}) causal, lengths {n} "
+              f"(llava's prefill)", ops.attention(q, k, v, **kw),
+              flash_attention_ref(q, k, v, q_offsets=i32(0), **kw))
+    del q, k, v
+    ran = {k: fa.launches_by_design[k] - fa_before[k] for k in fa_before}
+    require(ran == {"tensor_core": 8, "cuda_core": 0}, f"the new flash "
+            f"calls ran {ran}, not 8 tensor-core launches")
+
+    # kernel 3
+    cases = [
+        ("bf16 (4, 16, 64) rep 1 (seamless), T 10, row 1 on the trash page, "
+         "row 2 kv 0, row 3 kv 170 > T*ps",
+         dict(B=4, H=16, KV=16, D=64, ps=16, T=10, kv_lens=[160, 97, 0, 170],
+              dtype=torch.bfloat16, trash_rows=(1,))),
+        ("bf16 (4, 56, 128) rep 7 (llava), T 190, kv 3040/2901/0/17, row 2 "
+         "on the trash page",
+         dict(B=4, H=56, KV=8, D=128, ps=16, T=190,
+              kv_lens=[3040, 2901, 0, 17], dtype=torch.bfloat16,
+              trash_rows=(2,))),
+        ("bf16 (4, 96, 128) rep 12 (mistral), T 30, kv 480/300/0/500, row 1 "
+         "on the trash page",
+         dict(B=4, H=96, KV=8, D=128, ps=16, T=30, kv_lens=[480, 300, 0, 500],
+              dtype=torch.bfloat16, trash_rows=(1,))),
+    ]
+    for what, kw in cases:
+        ops_in = paged_case(torch, gen, **kw)
+        splits, per = paged_splits(kw["B"], kw["KV"], kw["T"], sms)
+        rep = kw["H"] // kw["KV"]
+        launched = pa.launches
+        got = pa(*ops_in[:4], kv_lens=ops_in[4])
+        require(pa.launches == launched + 1, "paged_attention did not "
+                "launch its kernel")
+        judge("paged_attention", f"{what}: {paged_rows(rep, kw['D'], 2)} "
+              f"rows a block, {splits} split(s) of {per} page(s)", got,
+              paged_attention_ref(*ops_in[:4], kv_lens=ops_in[4]))
+        for b, n in enumerate(kw["kv_lens"]):
+            if n == 0:
+                require(bool((got[b] == 0).all()), "a paged row with no "
+                        "valid column is not exact zeros")
+        require(torch.equal(got, pa(*ops_in[:4], kv_lens=ops_in[4])),
+                f"paged {what}: two calls differ")
+        del ops_in
+    print("    paged_attention at rep 1 (D 64), rep 7 and rep 12: two calls "
+          "bitwise equal in every case")
+    torch.cuda.synchronize()
+    return errs
+
+
+# ----------------------------------------------------------------------
 # 4. reduced configs: kernel path vs plain path, token for token
 # ----------------------------------------------------------------------
 REDUCED_MODES = {"contiguous": {}, "paged": {"page_size": 4},
@@ -1038,7 +1290,11 @@ REDUCED_CASES = (
     ("olmoe-1b-7b", "w8a8"), ("granite-moe-1b-a400m", "w8a8"),
     ("mamba2-130m", "fp32"), ("zamba2-2.7b", "fp32"),
     ("mamba2-130m", "w8a8"), ("zamba2-2.7b", "w8a8"),
+    ("qwen1.5-32b", "fp32"), ("mistral-large-123b", "fp32"),
+    ("seamless-m4t-large-v2", "fp32"), ("llava-next-34b", "fp32"),
 )
+# the reduced encdec config's source frames a request
+REDUCED_ENC_LEN = 12
 
 
 def variants(eng) -> list[str]:
@@ -1062,9 +1318,11 @@ def check_reduced_engines(torch, kern) -> None:
     from repro_torch.serve import Request, ServeEngine
 
     print("[4] reduced configs in fp32 compute (dense, W8A8, MoE with bf16 "
-          "weights and W8A8, SSM and hybrid in fp32 and W8A8): engine "
-          f"greedy tokens, kernels vs backend='torch', modes "
-          f"{list(REDUCED_MODES)} (chunked prefill: dense only)",
+          "weights and W8A8, SSM and hybrid in fp32 and W8A8, encdec and "
+          "vlm with a frontend a request, qwen's QKV bias, mistral's 4 "
+          "query heads a kv head): engine greedy tokens, kernels vs "
+          f"backend='torch', modes {list(REDUCED_MODES)} (chunked prefill: "
+          f"dense and vlm, whose frontend requests are never chunked)",
           flush=True)
     for arch, weights in REDUCED_CASES:
         cfg = get_config(arch, reduced=True)
@@ -1079,6 +1337,17 @@ def check_reduced_engines(torch, kern) -> None:
         prompts = [np.random.default_rng(i).integers(0, cfg.vocab_size, n)
                    for i, n in enumerate((5, 11, 3, 8))]
         max_new = [6, 3, 5, 7]
+        # encdec: each request's source frames, the engine's enc_len; vlm:
+        # each request's patch positions
+        n_front = (REDUCED_ENC_LEN if cfg.family == "encdec"
+                   else cfg.frontend_tokens)
+        fronts = [None] * 4
+        if n_front:
+            g = torch.Generator(device="cuda").manual_seed(11)
+            fronts = list(0.1 * torch.randn(4, n_front, cfg.d_model,
+                                            generator=g, device="cuda"))
+        enc_kw = ({"cache_kwargs": {"enc_len": REDUCED_ENC_LEN}}
+                  if cfg.family == "encdec" else {})
         outs, sampled = {}, {}
         for mode, mode_kw in REDUCED_MODES.items():
             if model.prefill_chunk is None and "prefill_chunk" in mode_kw:
@@ -1090,9 +1359,10 @@ def check_reduced_engines(torch, kern) -> None:
                               dtype=torch.float32)
                     eng = ServeEngine(model, params, ctx, num_slots=2,
                                       max_len=32, steps_per_dispatch=K,
-                                      device="cuda", **mode_kw)
+                                      device="cuda", **mode_kw, **enc_kw)
                     res = eng.run([Request(rid=i, prompt=p,
-                                           max_new_tokens=m)
+                                           max_new_tokens=m,
+                                           frontend_embeds=fronts[i])
                                    for i, (p, m) in enumerate(zip(prompts,
                                                                   max_new))])
                     outs[mode, backend, K] = [res[i].tokens
@@ -1137,10 +1407,11 @@ def check_reduced_engines(torch, kern) -> None:
                         model, params, Ctx(plan=KernelConfig(quant=quant),
                                            dtype=torch.float32),
                         num_slots=2, max_len=32, steps_per_dispatch=K,
-                        seed=3, device="cuda", **mode_kw)
+                        seed=3, device="cuda", **mode_kw, **enc_kw)
                     if eager:
                         eng._capture = lambda greedy_only: None
                     res = eng.run([Request(rid=i, prompt=p, max_new_tokens=m,
+                                           frontend_embeds=fronts[i],
                                            temperature=0.9, top_k=20,
                                            top_p=0.95,
                                            seed=None if i % 2 else 10 + i)
@@ -1276,13 +1547,15 @@ def serve_full_width(torch, kern):
 
 
 def engine_for(torch, model, params, ctx, *, K: int, eager: bool = False,
-               **kw):
-    """A ``ServeEngine`` with phase 5's slots and length on the card; with
-    ``eager`` it never captures, so every dispatch runs the block's eager
-    loop (the engine's private hook; no public switch exists)."""
+               max_len: int | None = None, **kw):
+    """A ``ServeEngine`` with phase 5's slots and length (or ``max_len``)
+    on the card; with ``eager`` it never captures, so every dispatch runs
+    the block's eager loop (the engine's private hook; no public switch
+    exists)."""
     from repro_torch.serve import ServeEngine
     eng = ServeEngine(model, params, ctx, num_slots=SERVE_KW["num_slots"],
-                      max_len=SERVE_KW["prompt_len"] + SERVE_KW["gen_len"],
+                      max_len=max_len or (SERVE_KW["prompt_len"]
+                                          + SERVE_KW["gen_len"]),
                       cache_dtype=torch.bfloat16, steps_per_dispatch=K,
                       seed=SERVE_KW["seed"], device="cuda", **kw)
     if eager:
@@ -1672,15 +1945,20 @@ def record_first_logits(eng, out: dict) -> None:
 # 5c-5e. full-width olmoe-1b-7b (bf16, W8A8) and gemma-7b (W8A8)
 # ----------------------------------------------------------------------
 def first_prefill_logits(torch, model, params, ctxs: dict) -> dict:
-    """The first request of phase 5's traffic, prefilled alone at the
-    engine's 128-token bucket (max_len 160) under each of ``ctxs``:
-    {name: (1, 1, V) fp32 logits}."""
-    from repro_torch.launch.serve import make_requests
-    req = make_requests(model.cfg, 0, 8, 128, 32, True)[0]
+    """The first request of phase 5's traffic, its frontend included,
+    prefilled alone at the engine's 128-token bucket (max_len 160, plus a
+    vlm prefix) under each of ``ctxs``: {name: (1, 1, V) fp32 logits}."""
+    from repro_torch.launch.serve import frontend_len, make_requests
+    cfg = model.cfg
+    req = make_requests(cfg, 0, 8, 128, 32, True, device="cuda",
+                        dtype=torch.bfloat16)[0]
     batch = {"tokens": torch.tensor([req.prompt], device="cuda"),
              "lengths": torch.tensor([len(req.prompt)], dtype=torch.int32,
                                      device="cuda")}
-    return {name: model.prefill(params, batch, ctx, 160)[0].float()
+    if req.frontend_embeds is not None:
+        batch["frontend_embeds"] = req.frontend_embeds[None]
+    max_len = 160 + (0 if cfg.family == "encdec" else frontend_len(cfg, 128))
+    return {name: model.prefill(params, batch, ctx, max_len)[0].float()
             for name, ctx in ctxs.items()}
 
 
@@ -2156,6 +2434,380 @@ def serve_mamba2_full_width(torch, kern) -> dict:
                           kw["prompt_len"], kw["gen_len"], kw["mixed"]))
     times = block_step_ms(torch, eng)
     print_step_ms("5h", times)
+    busy_share(torch, eng, times)
+    del eng, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ----------------------------------------------------------------------
+# 5i-5l. seamless-m4t-large-v2 (encdec), llava-next-34b (vlm),
+# qwen1.5-32b (QKV bias) and mistral-large-123b
+# ----------------------------------------------------------------------
+def judge_first_logits(torch, label: str, model, params) -> float:
+    """The first request of phase 5's traffic (its frontend included),
+    prefilled alone on the kernel and the plain bf16 paths: within 5% of
+    the largest plain logit, or within the bf16 rounding floor (the plain
+    bf16 path against the plain fp32 path on the same weights) where that
+    is larger.  Returns the gate."""
+    from repro_torch.models import Ctx
+    V = model.cfg.vocab_size
+    bf16 = first_prefill_logits(torch, model, params, {
+        "auto": Ctx(plan="auto", dtype=torch.bfloat16),
+        "torch": Ctx(plan="torch", dtype=torch.bfloat16)})
+    require(bool(torch.isfinite(bf16["auto"]).all()), f"{label}: non-finite "
+            f"prefill logits")
+    err = (bf16["auto"] - bf16["torch"]).abs().max().item()
+    scale = bf16["torch"].abs().max().item()
+    floor = rounding_floor(torch, label, model, params, bf16)
+    gate = max(0.05 * scale, floor)
+    print(f"    {label} first prefill logits (1, 1, {V}): max|kernels - "
+          f"plain| {err:.4g} ({err / scale:.2%} of max|plain| {scale:.4g}); "
+          f"gate max(0.05 * max|plain|, the floor {floor:.4g}) = {gate:.4g}")
+    require(err <= gate, f"{label}: the kernel path's prefill logits depart "
+            f"from the plain path's")
+    return gate
+
+
+def first_decode_logits(torch, kern, label: str, model, params, reqs,
+                        gate: float, want: dict, **engine_kw) -> None:
+    """One decode step of the first four of ``reqs`` admitted into a
+    paged engine, on copies of its cache: the kernel path's logits
+    against the plain path's (the paged cache gathered, the einsum),
+    within max(5% of the largest plain logit, ``gate``), and the kernel
+    path's attention launches ``want`` (the plain path launches none)."""
+    from repro_torch.models import Ctx
+    eng = engine_for(torch, model, params,
+                     Ctx(plan="auto", dtype=torch.bfloat16), K=4,
+                     **engine_kw)
+    first = [eng._admit(r, slot) for slot, r in enumerate(reqs[:4])]
+    toks = torch.tensor(first, device="cuda")[:, None]
+    logits = {}
+    for backend in ("auto", "torch"):
+        cache = {n: t.clone() for n, t in eng.cache.items()}
+        before = {n: kern[n].launches for n in want}
+        lg, _ = model.decode(params, cache, toks,
+                             Ctx(plan=backend, dtype=torch.bfloat16))
+        ran = {n: kern[n].launches - before[n] for n in want}
+        require(ran == (want if backend == "auto" else dict.fromkeys(want, 0)),
+                f"{label} decode on {backend}: attention launches {ran}")
+        logits[backend] = lg.float()
+        del cache
+    err = (logits["auto"] - logits["torch"]).abs().max().item()
+    scale = logits["torch"].abs().max().item()
+    tol = max(0.05 * scale, gate)
+    print(f"    {label} first paged decode step's logits "
+          f"{tuple(logits['auto'].shape)}, kernels ({', '.join(want)}) "
+          f"against the plain path: max|err| {err:.4g} ({err / scale:.2%} "
+          f"of max|plain| {scale:.4g}); gate {tol:.4g}")
+    require(bool(torch.isfinite(logits["auto"]).all()) and err <= tol,
+            f"{label}: decode logits disagree")
+    del eng, logits
+    torch.cuda.empty_cache()
+
+
+def step_times(torch, label: str, model, params, **kw) -> dict:
+    """The decode step of a fresh engine's block (4 slots, K = 4, every
+    slot active) under its CUDA graph and as the eager loop; the launch
+    counters are left as they were."""
+    from repro_torch.kernels import launches
+    from repro_torch.models import Ctx
+    before = launches.snapshot()
+    eng = engine_for(torch, model, params,
+                     Ctx(plan="auto", dtype=torch.bfloat16),
+                     K=SERVE_KW["steps_per_dispatch"], **kw)
+    times = block_step_ms(torch, eng)
+    print_step_ms(label, times)
+    print_captures(label, eng.captures)
+    del eng
+    launches.add(launches.since(before), -1)
+    torch.cuda.empty_cache()
+    return times
+
+
+def passes(snapshot: dict):
+    """A stats snapshot's admissions and decode steps as the attributes
+    of ``EngineStats`` that the launch-count derivations read."""
+    import types
+    return types.SimpleNamespace(admitted=snapshot["admitted"],
+                                 decode_steps=snapshot["decode_steps"])
+
+
+def dense_want(kern, L: int, s, *, paged: bool) -> tuple[dict, str]:
+    """Launch counts of a dense or vlm path of ``L`` layers: 7 products a
+    layer and the head a pass, ``L`` flash calls a prefill and, paged,
+    ``L`` paged calls a decode step."""
+    want = {n: 0 for n in kern}
+    want.update(zero_stall_matmul=(7 * L + 1) * (s.admitted + s.decode_steps),
+                flash_attention=L * s.admitted,
+                paged_attention=L * s.decode_steps if paged else 0)
+    return want, (f"(7*{L}+1) matmuls a pass over {s.admitted} + "
+                  f"{s.decode_steps} passes, {L} flash calls a prefill"
+                  + (f", {L} paged calls a decode step" if paged else ""))
+
+
+def serve_seamless_full_width(torch, kern) -> dict:
+    """5i: seamless-m4t-large-v2 at full size in bf16 through
+    ``serve_batch``, then ``ServeEngine`` paged with ``enc_len``; returns
+    {path: launch counts}."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_requests, serve_batch
+    from repro_torch.models import Ctx, build_model
+
+    kw, s9 = SERVE_KW, SEAMLESS
+    cfg = get_config("seamless-m4t-large-v2")
+    print(f"[5i] seamless-m4t-large-v2 full size ({s9['enc']} encoder + "
+          f"{s9['dec']} decoder layers, d {s9['d']}, {s9['H']} x {s9['hd']} "
+          f"MHA, gelu MLP {s9['ff']}, untied vocab {s9['V']}; "
+          f"{cfg.param_count() / 1e9:.2f} B parameters, no depth cut), bf16, "
+          f"random weights, {s9['frames']} source frames a request: "
+          f"serve_batch({kw})", flush=True)
+
+    def want_fn(s, paged=False):
+        want = {n: 0 for n in kern}
+        want.update(
+            zero_stall_matmul=SEAMLESS_MM["prefill"] * s.admitted
+            + SEAMLESS_MM["decode"] * s.decode_steps,
+            flash_attention=SEAMLESS_FA["prefill"] * s.admitted
+            + SEAMLESS_FA["decode"] * s.decode_steps,
+            paged_attention=s9["dec"] * s.decode_steps if paged else 0)
+        return want, (
+            f"{SEAMLESS_MM['prefill']} matmuls a prefill (6 x 24 encoder, "
+            f"10 x 24 decoder, the head) and {SEAMLESS_MM['decode']} a "
+            f"decode step (8 x 24, the head); {SEAMLESS_FA['prefill']} "
+            f"flash calls a prefill (encoder, self, cross) and "
+            f"{SEAMLESS_FA['decode']} a decode step (cross attention, in the "
+            f"graph)" + (f"; {s9['dec']} paged calls a decode step"
+                         if paged else ""))
+
+    reset_counts(kern)
+    out = serve_batch("seamless-m4t-large-v2", reduced=False,
+                      dtype=torch.bfloat16, device="cuda", **kw)
+    torch.cuda.synchronize()
+    got = {n: k.launches for n, k in kern.items()}
+    st = out["stats"]
+    print(f"    prefill {out['prefill_tok_s']:.1f} tok/s over "
+          f"{out['prefill_s']:.3f} s; decode {out['decode_tok_s']:.1f} tok/s "
+          f"over {out['decode_s']:.3f} s ({st['decode_steps']} steps, "
+          f"{st['dispatches']} dispatches, {st['admitted']} admissions)")
+    check_counts("5i serve_batch", got, *want_fn(passes(st)))
+    check_designs("5i", kern)
+    print_captures("serve_batch's engine", out["captures"])
+    require([c["variant"] for c in out["captures"]] == ["greedy"],
+            "5i: the engine did not decode through one greedy CUDA graph")
+    gen = out["generated"]
+    require(gen.shape == (8, 32) and (gen >= 0).all()
+            and (gen < s9["V"]).all(), "5i: not every request completed")
+    counts = {"5i serve_batch": got}
+    del out
+    torch.cuda.empty_cache()
+
+    model = build_model(cfg)
+    params = model.init(seed=0, dtype=torch.bfloat16, device="cuda")
+    gate = judge_first_logits(torch, "5i", model, params)
+    ctx = Ctx(plan="auto", dtype=torch.bfloat16)
+    reqs = make_requests(cfg, kw["seed"], kw["batch"], kw["prompt_len"],
+                         kw["gen_len"], kw["mixed"], device="cuda",
+                         dtype=torch.bfloat16)
+    paged_kw = dict(page_size=16, cache_kwargs={"enc_len": s9["frames"]})
+    tokens, eng = serve_engine_mode(
+        torch, kern, "5i ServeEngine paged, enc_len 128", model, params, ctx,
+        reqs, lambda s: want_fn(s, paged=True), **paged_kw)
+    counts["5i paged"] = {n: k.launches for n, k in kern.items()}
+    require(eng._paged == {"k", "v"} and eng.stats.pages_shared == 0,
+            f"5i: paged leaves {eng._paged}, shared pages "
+            f"{eng.stats.pages_shared} (the cross K/V stay per slot, encdec "
+            f"shares nothing)")
+    differ = sum(a != b for i in tokens for a, b in zip(tokens[i], gen[i]))
+    print(f"    paged tokens against serve_batch's contiguous ones "
+          f"(reported): {differ} of {kw['batch'] * kw['gen_len']} differ")
+    times = block_step_ms(torch, eng)
+    print_step_ms("5i paged", times)
+    busy_share(torch, eng, times)
+    del eng
+    torch.cuda.empty_cache()
+
+    # one decode step of the first four admissions: kernels (flash at one
+    # query row for the cross attention, paged for the self attention)
+    # against the plain path, on copies of one cache
+    first_decode_logits(torch, kern, "5i", model, params, reqs, gate,
+                        {"flash_attention": s9["dec"],
+                         "paged_attention": s9["dec"]}, **paged_kw)
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def cut(arch: str, n_layers: int):
+    """The full-width config of ``arch`` at ``n_layers`` layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), n_layers=n_layers)
+
+
+def serve_llava_full_width(torch, kern) -> dict:
+    """5j: llava-next-34b at full width and 8 of 60 layers in bf16, every
+    request with 2880 patch positions, through ``ServeEngine`` contiguous
+    and paged; then the same prompts text only behind a shared 64-token
+    prefix, paged; returns {path: launch counts}."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import Ctx, build_model
+
+    kw, c = SERVE_KW, LLAVA
+    cfg = cut("llava-next-34b", c["layers"])
+    model = build_model(cfg)
+    params = model.init(seed=0, dtype=torch.bfloat16, device="cuda")
+    max_len = kw["prompt_len"] + c["P"] + kw["gen_len"]
+    print(f"[5j] llava-next-34b full width (d {c['d']}, {c['H']} heads of "
+          f"{c['hd']} over {c['KV']} kv heads, SwiGLU {c['ff']}, vocab "
+          f"{c['V']}), depth cut to {c['layers']} of {c['of']} layers "
+          f"({torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB of bf16 "
+          f"weights), random weights; each request carries {c['P']} patch "
+          f"positions (max_len {max_len}): ServeEngine contiguous and paged, "
+          f"phase 5's traffic", flush=True)
+    gate = judge_first_logits(torch, "5j", model, params)
+    ctx = Ctx(plan="auto", dtype=torch.bfloat16)
+    reqs = make_requests(cfg, kw["seed"], kw["batch"], kw["prompt_len"],
+                         kw["gen_len"], kw["mixed"], device="cuda",
+                         dtype=torch.bfloat16)
+    counts, tokens = {}, {}
+    for mode, mode_kw in (("contiguous", {}), ("paged", {"page_size": 16})):
+        tokens[mode], eng = serve_engine_mode(
+            torch, kern, f"5j ServeEngine {mode}", model, params, ctx, reqs,
+            lambda s, p=bool(mode_kw): dense_want(kern, c["layers"], s,
+                                                  paged=p),
+            max_len=max_len, **mode_kw)
+        counts[f"5j {mode}"] = {n: k.launches for n, k in kern.items()}
+        require(eng.stats.pages_shared == 0, "5j: a request with a frontend "
+                "shared a prefix page")
+        times = block_step_ms(torch, eng)
+        print_step_ms(f"5j {mode}", times)
+        if mode == "paged":
+            busy_share(torch, eng, times)
+        del eng
+        torch.cuda.empty_cache()
+    differ = sum(a != b for i in tokens["paged"]
+                 for a, b in zip(tokens["paged"][i], tokens["contiguous"][i]))
+    print(f"    paged tokens against contiguous (reported): {differ} of "
+          f"{kw['batch'] * kw['gen_len']} differ")
+    first_decode_logits(torch, kern, "5j", model, params, reqs, gate,
+                        {"paged_attention": c["layers"]}, max_len=max_len,
+                        page_size=16)
+    prefix = np.random.default_rng(64).integers(0, c["V"], 64).tolist()
+    text = [dataclasses.replace(r, prompt=prefix + list(r.prompt),
+                                frontend_embeds=None) for r in reqs]
+    _, eng = serve_engine_mode(
+        torch, kern, "5j ServeEngine paged, text only behind a shared "
+        "64-token prefix", model, params, ctx, text,
+        lambda s: dense_want(kern, c["layers"], s, paged=True),
+        max_len=max_len, page_size=16)
+    counts["5j paged, text only"] = {n: k.launches for n, k in kern.items()}
+    print(f"    pages shared: {eng.stats.pages_shared} text only, 0 with "
+          f"frontends")
+    require(eng.stats.pages_shared > 0, "5j: text-only requests behind a "
+            "shared prefix shared no page")
+    del eng, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def serve_qwen_full_width(torch, kern) -> dict:
+    """5k: qwen1.5-32b at full width and 8 of 64 layers in bf16 through
+    ``serve_batch``, a biased projection on the card against its plain
+    version, and the graph step; returns {path: launch counts}."""
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import Ctx, build_model
+    from repro_torch.models import layers as L
+
+    kw, c = SERVE_KW, QWEN
+    print(f"[5k] qwen1.5-32b full width (d {c['d']}, {c['H']} x {c['hd']} "
+          f"MHA with QKV bias, SwiGLU {c['ff']}, vocab {c['V']}), depth cut "
+          f"to {c['layers']} of {c['of']} layers, bf16, random weights: "
+          f"serve_batch({kw}, n_layers={c['layers']})", flush=True)
+    reset_counts(kern)
+    out = serve_batch("qwen1.5-32b", reduced=False, dtype=torch.bfloat16,
+                      device="cuda", n_layers=c["layers"], **kw)
+    torch.cuda.synchronize()
+    got = {n: k.launches for n, k in kern.items()}
+    st = out["stats"]
+    print(f"    prefill {out['prefill_tok_s']:.1f} tok/s over "
+          f"{out['prefill_s']:.3f} s; decode {out['decode_tok_s']:.1f} tok/s "
+          f"over {out['decode_s']:.3f} s ({st['decode_steps']} steps, "
+          f"{st['dispatches']} dispatches, {st['admitted']} admissions)")
+    check_counts("5k serve_batch", got,
+                 *dense_want(kern, c["layers"], passes(st), paged=False))
+    check_designs("5k", kern)
+    require([x["variant"] for x in out["captures"]] == ["greedy"],
+            "5k: the engine did not decode through one greedy CUDA graph")
+    gen = out["generated"]
+    require(gen.shape == (8, 32) and (gen >= 0).all()
+            and (gen < c["V"]).all(), "5k: not every request completed")
+    del out
+    torch.cuda.empty_cache()
+
+    cfg = cut("qwen1.5-32b", c["layers"])
+    model = build_model(cfg)
+    params = model.init(seed=0, dtype=torch.bfloat16, device="cuda")
+    wq = params["layers"][0]["attn"]["wq"]
+    require("b" in wq and "b" in params["layers"][0]["attn"]["wv"]
+            and "b" not in params["layers"][0]["attn"]["wo"],
+            "5k: qwen's wq/wk/wv carry no bias leaf")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(SERVE_KW["num_slots"], c["d"], device="cuda",
+                    generator=g).bfloat16()
+    p = {"w": wq["w"], "b": (0.5 * torch.randn(c["d"], device="cuda",
+                                               generator=g)).bfloat16()}
+    ys = {b: L.linear(p, x, Ctx(plan=b, dtype=torch.bfloat16)).float()
+          for b in ("auto", "torch")}
+    err = (ys["auto"] - ys["torch"]).abs().amax(-1)
+    tol = BF16_TOL * ys["torch"].abs().amax(-1)
+    print(f"    biased wq (4, {c['d']}) @ ({c['d']}, {c['H'] * c['hd']}) + b "
+          f"on the card against the plain version: max|err| "
+          f"{err.max().item():.3g}, worst row |err|/tol "
+          f"{(err / tol).max().item():.3g}")
+    require(bool((err <= tol).all()), "5k: the biased projection disagrees")
+    judge_first_logits(torch, "5k", model, params)
+    step_times(torch, "5k", model, params)
+    del params
+    torch.cuda.empty_cache()
+    return {"5k serve_batch": got}
+
+
+def serve_mistral_full_width(torch, kern) -> dict:
+    """5l: mistral-large-123b at full width and 4 of 88 layers in bf16
+    through ``ServeEngine`` paged (kernel 3 at 12 query heads a kv head);
+    returns {path: launch counts}."""
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import Ctx, build_model
+
+    kw, c = SERVE_KW, MISTRAL
+    cfg = cut("mistral-large-123b", c["layers"])
+    model = build_model(cfg)
+    params = model.init(seed=0, dtype=torch.bfloat16, device="cuda")
+    print(f"[5l] mistral-large-123b full width (d {c['d']}, {c['H']} heads "
+          f"of {c['hd']} over {c['KV']} kv heads, SwiGLU {c['ff']}, vocab "
+          f"{c['V']}), depth cut to {c['layers']} of {c['of']} layers "
+          f"({torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB of bf16 "
+          f"weights; all 88 would be 246 GB), random weights: ServeEngine "
+          f"paged (16-token pages), phase 5's traffic", flush=True)
+    gate = judge_first_logits(torch, "5l", model, params)
+    reqs = make_requests(cfg, kw["seed"], kw["batch"], kw["prompt_len"],
+                         kw["gen_len"], kw["mixed"])
+    first_decode_logits(torch, kern, "5l", model, params, reqs, gate,
+                        {"paged_attention": c["layers"]}, page_size=16)
+    _, eng = serve_engine_mode(
+        torch, kern, "5l ServeEngine paged", model, params,
+        Ctx(plan="auto", dtype=torch.bfloat16), reqs,
+        lambda s: dense_want(kern, c["layers"], s, paged=True),
+        page_size=16)
+    counts = {"5l paged": {n: k.launches for n, k in kern.items()}}
+    times = block_step_ms(torch, eng)
+    print_step_ms("5l paged", times)
     busy_share(torch, eng, times)
     del eng, params
     torch.cuda.empty_cache()
@@ -2789,6 +3441,150 @@ def time_slice8(torch, kern) -> dict:
                      "bound_ms": b, "bound_by": by,
                      "library_ms": tot["library_ms"]}
     torch.cuda.empty_cache()
+    return out
+
+
+def time_slice9(torch, kern) -> dict:
+    """Phase 6 for the encdec, vlm and last dense paths: kernel 2 at
+    seamless's cross-attention decode (4, 16, 1, 128, 64) and llava's
+    causal prefill (1, 56, 3008, 128), each beside its bound and SDPA;
+    kernel 3 at llava's (4, 56, 128) rep 7 over 3040 keys a slot and
+    mistral's (4, 96, 128) rep 12 over 480, beside their bounds; kernel
+    1's decode step (M = 4) of each of seamless (193 launches), llava and
+    qwen at 8 layers (57) and mistral at 4 (29), beside its bound and
+    cuBLAS (torch.matmul) on the same shapes.  The method of
+    :func:`time_kernels`: CUDA events over a CUDA graph, operands cycled
+    past L2."""
+    import math
+
+    from repro_torch.kernels.flash_attention import fit_tiles
+    from repro_torch.kernels.paged_attention import paged_splits
+    from repro_torch.kernels.ref import (flash_attention_ref, matmul_ref,
+                                         paged_attention_ref)
+    F = torch.nn.functional
+    dev = "cuda"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    fa, pa, mm = (kern[n] for n in ("flash_attention", "paged_attention",
+                                    "zero_stall_matmul"))
+    out = {"attention": {}, "paged": {}, "matmul": {}}
+    print("[6] the encdec, vlm and last dense paths' kernel shapes (CUDA "
+          "events over a CUDA graph, operands cycled past L2)", flush=True)
+
+    def copies(nbytes):
+        return max(1, math.ceil(128 * 2 ** 20 / nbytes))
+
+    def bf(*shape):
+        return torch.randn(*shape, device=dev).to(torch.bfloat16)
+
+    # kernel 2
+    for key, (B, H, Sq, Skv, D, causal) in (
+            ("seamless_cross_decode", (4, SEAMLESS["H"], 1,
+                                       SEAMLESS["frames"], SEAMLESS["hd"],
+                                       False)),
+            ("llava_prefill", (1, LLAVA["H"], LLAVA["P"] + 128,
+                               LLAVA["P"] + 128, LLAVA["hd"], True))):
+        nbytes = (2 * B * H * Sq * D + 2 * B * H * Skv * D) * 2
+        sets = [(bf(B, H, Sq, D), bf(B, H, Skv, D), bf(B, H, Skv, D))
+                for _ in range(copies(nbytes))]
+        ql = torch.full((B,), Sq, dtype=torch.int32, device=dev)
+        kl = torch.full((B,), Skv, dtype=torch.int32, device=dev)
+        zero = torch.zeros((B,), dtype=torch.int32, device=dev)
+        bq, bkv = fit_tiles(torch.bfloat16, Sq, Skv, 32, 32)
+        ms = time_ms(torch, [lambda t=t: fa(*t, q_lens=ql, kv_lens=kl,
+                                            bq=bq, bkv=bkv, causal=causal)
+                             for t in sets], iters=max(20, len(sets)))
+        plain = time_ms(torch, [lambda t=t: flash_attention_ref(
+            *t, q_lens=ql, kv_lens=kl, q_offsets=zero, causal=causal)
+            for t in sets], iters=5, graph=False)
+        lib = time_ms(torch, [lambda t=t: F.scaled_dot_product_attention(
+            *t, is_causal=causal) for t in sets], iters=max(20, len(sets)))
+        pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv
+        b, by = bound(nbytes, 4 * B * H * pairs * D, "bfloat16")
+        print(f"    flash_attention ({B}, {H}, {Sq}, {Skv}, {D}) bf16 "
+              f"{'causal' if causal else 'non-causal'} ({key}, tiles "
+              f"{(bq, bkv)}): {ms:.4f} ms (plain {plain:.4f}, "
+              f"scaled_dot_product_attention {lib:.4f}, bound {b:.5f} by "
+              f"{by})", flush=True)
+        out["attention"][key] = {"ms": ms, "plain_ms": plain, "bound_ms": b,
+                                 "bound_by": by, "library_ms": lib}
+        del sets
+
+    # kernel 3
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    for key, (H, KV, T) in (("llava_rep7", (LLAVA["H"], LLAVA["KV"], 190)),
+                            ("mistral_rep12", (MISTRAL["H"], MISTRAL["KV"],
+                                               30))):
+        B, ps, D = 4, 16, 128
+        kv = [T * ps] * B
+        pool_bytes = 2 * (B * T + 1) * ps * KV * D * 2
+        cases = [paged_case(torch, gen, B=B, H=H, KV=KV, D=D, ps=ps, T=T,
+                            kv_lens=kv, dtype=torch.bfloat16)
+                 for _ in range(copies(pool_bytes))]
+        ms = time_ms(torch, [lambda c=c: pa(*c[:4], kv_lens=c[4])
+                             for c in cases])
+        plain = time_ms(torch, [lambda c=c: paged_attention_ref(
+            *c[:4], kv_lens=c[4]) for c in cases], iters=5, graph=False)
+        keys = sum(kv)
+        nbytes = (keys * KV * D * 2 * 2 + 2 * B * H * D * 2 + B * T * 4
+                  + B * 4)
+        b, by = bound(nbytes, 4 * H * D * keys, "bfloat16")
+        splits, per = paged_splits(B, KV, T, sms)
+        print(f"    paged_attention ({B}, {H}, {D}) bf16 rep {H // KV} over "
+              f"{keys} keys ({kv[0]} a slot, {nbytes / 1e6:.1f} MB; {splits} "
+              f"splits of {per} pages): {ms:.4f} ms (plain {plain:.4f}, no "
+              f"single PyTorch call reads a page table; bound {b:.5f} by "
+              f"{by})", flush=True)
+        out["paged"][key] = {"ms": ms, "plain_ms": plain, "bound_ms": b,
+                             "bound_by": by, "library_ms": None}
+        del cases
+
+    # kernel 1: one decode step of each path
+    want_calls = {"seamless": SEAMLESS_MM["decode"],
+                  "llava": 7 * LLAVA["layers"] + 1,
+                  "qwen": 7 * QWEN["layers"] + 1,
+                  "mistral": 7 * MISTRAL["layers"] + 1}
+    for arch, calls_want in want_calls.items():
+        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "nbytes": 0,
+               "ops": 0, "calls": 0}
+        for name, m, k, n, calls, head in slice9_matmul_shapes(arch, 4):
+            a = bf(m, k)
+            ws = [bf(n, k) if head else bf(k, n)
+                  for _ in range(copies(k * n * 2))]
+            o = torch.float32 if head else torch.bfloat16
+            cell = {
+                "ms": time_ms(torch, [lambda w=w: mm(a, w, trans_b=head,
+                                                     out_dtype=o)
+                                      for w in ws]),
+                "plain_ms": time_ms(torch, [lambda w=w: matmul_ref(
+                    a, w.t() if head else w, o) for w in ws], iters=5,
+                    graph=False),
+                "library_ms": time_ms(torch, [lambda w=w: torch.matmul(
+                    a, w.t() if head else w) for w in ws])}
+            nbytes = (m * k + k * n) * 2 + m * n * (4 if head else 2)
+            for key in ("ms", "plain_ms", "library_ms"):
+                tot[key] += cell[key] * calls
+            tot["nbytes"] += nbytes * calls
+            tot["ops"] += 2 * m * n * k * calls
+            tot["calls"] += calls
+            b, by = bound(nbytes, 2 * m * n * k, "bfloat16")
+            print(f"    zero_stall_matmul {name} M={m} K={k} N={n}: "
+                  f"{cell['ms']:.4f} ms (plain {cell['plain_ms']:.4f}, "
+                  f"torch.matmul {cell['library_ms']:.4f}, bound {b:.4f} by "
+                  f"{by}) x {calls} a step")
+            del ws
+        require(tot["calls"] == calls_want, f"{arch}: {tot['calls']} "
+                f"products timed, the step has {calls_want}")
+        b, by = bound(tot["nbytes"], tot["ops"], "bfloat16")
+        print(f"    zero_stall_matmul, one {arch} decode step (M=4), "
+              f"{tot['calls']} launches: {tot['ms']:.3f} ms (plain "
+              f"{tot['plain_ms']:.3f}, torch.matmul {tot['library_ms']:.3f}, "
+              f"bound {b:.3f} by {by}: {tot['nbytes'] / 1e9:.2f} GB)",
+              flush=True)
+        out["matmul"][f"{arch}_decode_step"] = {
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": b,
+            "bound_by": by, "library_ms": tot["library_ms"]}
+        torch.cuda.empty_cache()
     return out
 
 

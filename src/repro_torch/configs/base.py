@@ -1,8 +1,8 @@
 """Model configuration dataclass and the architecture registry.
 
-The port's own copy of ``repro.configs.base`` limited to what the dense,
-MoE, SSM and hybrid families read (the JAX module imports jax for its
-input specs).
+The port's own copy of ``repro.configs.base``, limited to the model
+fields serving reads (the JAX module imports jax for its input specs,
+and its training fields, ``remat`` among them, are not ported).
 """
 
 from __future__ import annotations
@@ -17,8 +17,7 @@ __all__ = ["ModelConfig", "register", "get_config", "list_configs"]
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # dense | moe | ssm | hybrid (encdec and
-    #                               vlm: a later slice)
+    family: str                   # dense | moe | ssm | hybrid | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -26,7 +25,8 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0             # 0 -> d_model // n_heads
-    mlp_type: str = "swiglu"      # swiglu | geglu
+    mlp_type: str = "swiglu"      # swiglu | geglu | mlp (gelu)
+    qkv_bias: bool = False
     # MoE
     n_experts: int = 0
     experts_per_token: int = 0
@@ -39,6 +39,12 @@ class ModelConfig:
     conv_kernel: int = 4
     # hybrid (zamba2-style shared attention)
     attn_every: int = 0           # shared attn block every N mamba layers
+    # enc-dec
+    encoder_layers: int = 0
+    decoder_layers: int = 0
+    # modality frontend stub: requests carry precomputed embeddings
+    frontend: str = ""            # "" | "patch" | "audio"
+    frontend_tokens: int = 0      # patch/frame positions prepended to text
     rope_theta: float = 1e4
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
@@ -63,26 +69,35 @@ class ModelConfig:
         return self.family == "ssm"
 
     def param_count(self) -> int:
-        """Total parameters of the dense, MoE, SSM and hybrid families
-        (analytic, the JAX package's formulas)."""
-        if self.family not in ("dense", "moe", "ssm", "hybrid"):
-            raise ValueError(self.family)
+        """Total parameters (analytic, the JAX package's formulas)."""
         d, hd = self.d_model, self.resolved_head_dim
         qkv = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) \
             + (self.n_heads * hd) * d
-        mlp = 3 * d * self.d_ff
+        if self.qkv_bias:
+            qkv += (self.n_heads + 2 * self.n_kv_heads) * hd
+        gates = 3 if self.mlp_type in ("swiglu", "geglu") else 2
+        mlp = gates * d * self.d_ff
+        norms = 2 * d
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        mamba_layer = self._mamba_params() + d
-        if self.family == "ssm":
-            return self.n_layers * mamba_layer + emb + d
-        if self.family == "hybrid":
+        if self.family == "moe":
+            per_layer = qkv + self.n_experts * mlp + d * self.n_experts \
+                + norms
+        elif self.family == "ssm":
+            per_layer = self._mamba_params() + d
+        elif self.family == "hybrid":
             # one shared block: attention, MLP, two norms and the
             # (2d, d) input projection of concat(hidden, embedding)
-            shared = qkv + mlp + 2 * d + 2 * d * d
-            return self.n_layers * mamba_layer + shared + emb + d
-        if self.family == "moe":
-            mlp = self.n_experts * mlp + d * self.n_experts   # + router
-        per_layer = qkv + mlp + 2 * d
+            shared = qkv + mlp + norms + 2 * d * d
+            return (self.n_layers * (self._mamba_params() + d) + shared
+                    + emb + d)
+        elif self.family == "encdec":
+            enc = self.encoder_layers * (qkv + mlp + norms)
+            dec = self.decoder_layers * (2 * qkv + mlp + 3 * d)
+            return enc + dec + emb + 2 * d
+        elif self.family in ("dense", "vlm"):
+            per_layer = qkv + mlp + norms
+        else:
+            raise ValueError(self.family)
         return self.n_layers * per_layer + emb + d
 
     def _mamba_params(self) -> int:
@@ -99,7 +114,9 @@ _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
 _REDUCED: dict[str, Callable[[], ModelConfig]] = {}
 
 _ARCH_MODULES = ["gemma_7b", "deepseek_coder_33b", "olmoe_1b_7b",
-                 "granite_moe_1b_a400m", "mamba2_130m", "zamba2_2_7b"]
+                 "granite_moe_1b_a400m", "mamba2_130m", "zamba2_2_7b",
+                 "qwen1_5_32b", "mistral_large_123b",
+                 "seamless_m4t_large_v2", "llava_next_34b"]
 
 
 def register(name: str, full: Callable[[], ModelConfig],

@@ -67,44 +67,55 @@ def _tree(x: Any, device) -> Any:
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, *, device=None) -> dict:
-    """JAX dense-, MoE-, SSM- or hybrid-family params (numpy leaves) ->
-    the port's params.
+    """JAX params of any family (numpy leaves) -> the port's params.
 
-    The JAX package stacks every per-layer leaf along leading axes of
-    ``params["layers"]``: ``(n_layers, ...)`` for the dense, MoE and SSM
-    families, ``(n_layers / attn_every, attn_every, ...)`` for the
-    hybrid's groups of mamba layers.  The port keeps a list of per-layer
-    dicts (a list of such lists for the hybrid), so those axes are
-    unstacked here (for the MoE router and expert banks as for any leaf,
-    and for a QTensor's codes and scales alike); a leaf whose leading
-    axes are not these raises.  The hybrid's ``shared`` block converts
-    as a plain tree.  The tensors land on ``device`` (None: the card;
-    pass ``device="cpu"`` for the host).
+    The JAX package stacks every per-layer leaf along leading axes:
+    ``(n_layers, ...)`` under ``params["layers"]`` for the dense, vlm,
+    MoE and SSM families, ``(n_layers / attn_every, attn_every, ...)``
+    for the hybrid's groups of mamba layers, and ``(encoder_layers,
+    ...)`` under ``"encoder"`` and ``(decoder_layers, ...)`` under
+    ``"decoder"`` for the encdec family.  The port keeps a list of
+    per-layer dicts (a list of such lists for the hybrid), so those axes
+    are unstacked here (for the MoE router and expert banks as for any
+    leaf, and for a QTensor's codes and scales alike); a leaf whose
+    leading axes are not these raises.  The hybrid's ``shared`` block
+    and the encdec ``enc_norm`` convert as plain trees, and an untied LM
+    head is stored K-major (the transposed view of a contiguous (V, d)
+    buffer, the layout the port's ``unembed`` reads).  The tensors land
+    on ``device`` (None: the card; pass ``device="cpu"`` for the host).
     """
     device = resolve_device(device)
-    if cfg.family == "hybrid":
-        lead = (cfg.n_layers // cfg.attn_every, cfg.attn_every)
-        what = f"(n_layers / attn_every, attn_every)={lead}"
-    else:
-        lead = (cfg.n_layers,)
-        what = f"n_layers={cfg.n_layers}"
 
-    def unstack(x: Any, idx: tuple[int, ...]) -> Any:
+    def unstack(x: Any, idx: tuple[int, ...], lead, what) -> Any:
         if isinstance(x, dict):
-            return {k: unstack(v, idx) for k, v in x.items()}
+            return {k: unstack(v, idx, lead, what) for k, v in x.items()}
         shape = np.shape(x.data if _is_qtensor(x) else x)
         if tuple(shape[:len(lead)]) != lead:
             raise ValueError(f"layer leaf of shape {shape} does not lead "
                              f"with {what}")
         return _leaf(x, device, lambda a: a[idx])
 
-    if cfg.family == "hybrid":
-        layers = [[unstack(tree["layers"], (g, i)) for i in range(lead[1])]
-                  for g in range(lead[0])]
+    def stack(name: str, n: int, what: str) -> list:
+        return [unstack(tree[name], (i,), (n,), f"{what}={n}")
+                for i in range(n)]
+
+    embed = _tree(tree["embed"], device)
+    if "lm_head" in embed:
+        embed["lm_head"] = k_major(embed["lm_head"])
+    out = {"embed": embed, "final_norm": _tree(tree["final_norm"], device)}
+    if cfg.family == "encdec":
+        out["encoder"] = stack("encoder", cfg.encoder_layers,
+                               "encoder_layers")
+        out["decoder"] = stack("decoder", cfg.decoder_layers,
+                               "decoder_layers")
+        out["enc_norm"] = _tree(tree["enc_norm"], device)
+    elif cfg.family == "hybrid":
+        lead = (cfg.n_layers // cfg.attn_every, cfg.attn_every)
+        what = f"(n_layers / attn_every, attn_every)={lead}"
+        out["layers"] = [[unstack(tree["layers"], (g, i), lead, what)
+                          for i in range(lead[1])] for g in range(lead[0])]
     else:
-        layers = [unstack(tree["layers"], (i,)) for i in range(lead[0])]
-    out = {"embed": _tree(tree["embed"], device), "layers": layers,
-           "final_norm": _tree(tree["final_norm"], device)}
+        out["layers"] = stack("layers", cfg.n_layers, "n_layers")
     if "shared" in tree:
         out["shared"] = _tree(tree["shared"], device)
     return out

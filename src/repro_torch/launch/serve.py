@@ -11,6 +11,14 @@ attention the paged-attention kernel.
       --prompt-len 128 --gen-len 32 --mixed --steps-per-dispatch 4 \\
       --page-size 16 --prefill-chunk 96
 
+The encoder-decoder and vision-language families serve the same way:
+each request then carries random stub embeddings (the encoder's source
+frames, or the image's patch positions before the prompt):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch seamless-m4t-large-v2 --no-reduced --dtype bfloat16 \
+      --batch 8 --prompt-len 128 --gen-len 32 --mixed --page-size 16
+
 Pass ``--device cpu`` to run the plain versions of the kernels on the
 host (at the reduced size), and ``--trace-out PATH`` to stream the
 engine's spans and events to a JSONL file.
@@ -19,6 +27,7 @@ engine's spans and events to a JSONL file.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 import torch
@@ -29,24 +38,49 @@ from repro_torch.models import Ctx, build_model
 from repro_torch.plan.config import dtype_from_name
 from repro_torch.serve import Request, ServeEngine
 
-__all__ = ["serve_batch", "make_requests"]
+__all__ = ["serve_batch", "make_requests", "frontend_len"]
+
+
+def frontend_len(cfg, prompt_len: int) -> int:
+    """Rows of a request's stub frontend: the encdec source's frames
+    (``prompt_len`` of them) or the vlm prefix's ``frontend_tokens``
+    patch positions; 0 for a text-only family."""
+    if cfg.family == "encdec":
+        return prompt_len
+    return cfg.frontend_tokens if cfg.frontend else 0
 
 
 def make_requests(cfg, seed: int, batch: int, prompt_len: int, gen_len: int,
                   mixed: bool, *, temperature: float = 0.0, top_k: int = 0,
-                  top_p: float = 1.0) -> list[Request]:
+                  top_p: float = 1.0, device=None,
+                  dtype: torch.dtype = torch.float32) -> list[Request]:
     """``batch`` requests with prompts drawn from ``seed``; with
     ``mixed``, prompt lengths cycle through {1, 1/2, 1/4, 3/4} of
-    ``prompt_len`` (the ragged traffic continuous batching exists for)."""
+    ``prompt_len`` (the ragged traffic continuous batching exists for).
+
+    For the encdec and vlm families each request carries a stub frontend
+    of :func:`frontend_len` rows (normal * 0.1, as in the JAX launcher),
+    drawn in fp32 on ``device`` (None: the card) from request ``i``'s
+    own generator, seeded from (``seed``, i), and stored in ``dtype``."""
     toks = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (batch, prompt_len))
+    n_front = frontend_len(cfg, prompt_len)
+    dev = resolve_device(device) if n_front else None
     reqs = []
     for i in range(batch):
         frac = (1.0, 0.5, 0.25, 0.75)[i % 4] if mixed else 1.0
         n = max(1, int(prompt_len * frac))
+        front = None
+        if n_front:
+            g = torch.Generator(device=dev)
+            g.manual_seed(int(np.random.SeedSequence(
+                [seed, i]).generate_state(1)[0]))
+            front = (torch.randn((n_front, cfg.d_model), generator=g,
+                                 device=dev) * 0.1).to(dtype)
         reqs.append(Request(rid=i, prompt=toks[i, :n].tolist(),
-                            max_new_tokens=gen_len, temperature=temperature,
-                            top_k=top_k, top_p=top_p))
+                            max_new_tokens=gen_len, frontend_embeds=front,
+                            temperature=temperature, top_k=top_k,
+                            top_p=top_p))
     return reqs
 
 
@@ -58,7 +92,8 @@ def serve_batch(arch: str, *, reduced: bool = True, batch: int = 4,
                 temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
                 step_timeout_s: float | None = None, device=None,
                 page_size: int | None = None, num_pages: int | None = None,
-                prefill_chunk: int | None = None) -> dict:
+                prefill_chunk: int | None = None,
+                n_layers: int | None = None) -> dict:
     """Run a synthetic request batch through the serving engine.
 
     Parameters are made from ``seed`` directly in ``dtype`` on
@@ -67,24 +102,40 @@ def serve_batch(arch: str, *, reduced: bool = True, batch: int = 4,
     ``"torch"`` (the plain versions).  Returns the generated tokens
     (``(batch, gen_len)``, -1 past a request's end), throughput, the
     engine's stats snapshot and its CUDA graph captures (none on the
-    CPU).  ``page_size`` switches the KV cache to the paged pool (it
-    must divide ``prompt_len + gen_len``), ``num_pages`` sizes the pool
+    CPU).  The encdec and vlm families get :func:`make_requests`' stub
+    frontends; a vlm prefix widens ``max_len`` to prompt + prefix +
+    generation, and an encdec engine's cross-attention extent is
+    ``enc_len = prompt_len``.  ``page_size`` switches the KV cache to
+    the paged pool (it must divide ``max_len``), ``num_pages`` sizes the pool
     (default: no oversubscription) and ``prefill_chunk`` ingests long
-    prompts chunk by chunk between decode dispatches.
+    prompts chunk by chunk between decode dispatches.  ``n_layers``
+    cuts a layer-list family's depth (the first ``n_layers`` blocks at
+    the config's widths), for a model whose full depth does not fit one
+    card.
     """
     device = resolve_device(device)
     cfg = get_config(arch, reduced=reduced)
+    if n_layers is not None:
+        if cfg.family in ("encdec", "hybrid"):
+            raise ValueError(f"n_layers cuts the depth of the dense, vlm, "
+                             f"MoE and SSM families, not {cfg.family!r}")
+        cfg = dataclasses.replace(cfg, n_layers=int(n_layers))
     model = build_model(cfg)
     ctx = Ctx(plan=backend, dtype=dtype)
     params = model.init(seed=seed, dtype=dtype, device=device)
     slots = num_slots or min(batch, 4)
-    engine = ServeEngine(model, params, ctx, num_slots=slots,
-                         max_len=prompt_len + gen_len, cache_dtype=dtype,
-                         steps_per_dispatch=steps_per_dispatch, seed=seed,
-                         device=device, page_size=page_size,
-                         num_pages=num_pages, prefill_chunk=prefill_chunk)
+    n_prefix = 0 if cfg.family == "encdec" else frontend_len(cfg, prompt_len)
+    engine = ServeEngine(
+        model, params, ctx, num_slots=slots,
+        max_len=prompt_len + n_prefix + gen_len, cache_dtype=dtype,
+        steps_per_dispatch=steps_per_dispatch, seed=seed, device=device,
+        page_size=page_size, num_pages=num_pages,
+        prefill_chunk=prefill_chunk,
+        cache_kwargs=({"enc_len": prompt_len} if cfg.family == "encdec"
+                      else None))
     reqs = make_requests(cfg, seed, batch, prompt_len, gen_len, mixed,
-                         temperature=temperature, top_k=top_k, top_p=top_p)
+                         temperature=temperature, top_k=top_k, top_p=top_p,
+                         device=device, dtype=dtype)
     results = engine.run(reqs, step_timeout_s=step_timeout_s)
     tp = engine.throughput()
     gen = np.full((batch, gen_len), -1, np.int64)
@@ -126,6 +177,9 @@ def main(argv=None) -> None:
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="ingest prompts longer than this in chunks of "
                     "this many tokens between decode dispatches")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve only the first N layers (a depth cut for "
+                    "a model that does not fit the card)")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="write a JSONL span/event trace of the run here "
                     "(implies tracing on; one JSON object per line)")
@@ -142,7 +196,8 @@ def main(argv=None) -> None:
             temperature=args.temperature, top_k=args.top_k,
             top_p=args.top_p, step_timeout_s=args.step_timeout,
             device=args.device, page_size=args.page_size,
-            num_pages=args.num_pages, prefill_chunk=args.prefill_chunk)
+            num_pages=args.num_pages, prefill_chunk=args.prefill_chunk,
+            n_layers=args.layers)
     finally:
         if args.trace_out:
             obs.disable()

@@ -168,15 +168,15 @@ def _gqa_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
-              positions: torch.Tensor,
+              positions: torch.Tensor, causal: bool = True,
               lengths: torch.Tensor | None = None) -> torch.Tensor:
-    """Full-sequence causal attention (forward / prefill)."""
+    """Full-sequence self-attention (forward / prefill / encoder)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     q, k, v = _qkv(p, x, cfg, ctx)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    o = _gqa_full(q, k, v, causal=True, config=ctx.plan, lengths=lengths)
+    o = _gqa_full(q, k, v, causal=causal, config=ctx.plan, lengths=lengths)
     return linear(p["wo"], o.reshape(B, S, cfg.n_heads * hd), ctx)
 
 
@@ -310,8 +310,10 @@ def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx) -> torch.Tensor:
     elif cfg.mlp_type == "geglu":
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(linear(p["wg"], x, ctx), approximate="tanh") * h
+    elif cfg.mlp_type == "mlp":
+        h = F.gelu(h, approximate="tanh")
     else:
-        raise ValueError(f"mlp_type {cfg.mlp_type!r} is not ported")
+        raise ValueError(f"unknown mlp_type {cfg.mlp_type!r}")
     return linear(p["wo"], h, ctx)
 
 
@@ -322,17 +324,17 @@ def embed(p: Params, tokens: torch.Tensor, ctx: Ctx) -> torch.Tensor:
 def unembed(p: Params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
     """(B, S, d) -> (B, S, V) fp32 logits through the zero-stall engine.
 
-    A tied head reads the (V, d) embedding table in place through the
-    kernel's transposed-B layout: no (d, V) copy is made per call."""
+    Both heads are read K-major, through the kernel's transposed-B
+    layout: a tied head the (V, d) embedding table in place, an untied
+    one the (V, d) buffer behind its (d, V) view (the layout of
+    ``transformer.init_embed`` and ``params_from_numpy``).  So no copy is
+    made per call, and a vocabulary whose (d, V) rows are not 16-byte
+    multiples (seamless's 256206) still takes the TMA design."""
     B, S, d = x.shape
-    if "lm_head" in p:
-        w = p["lm_head"].to(ctx.dtype)
-        logits = ops.matmul(x.reshape(B * S, d), w, config=ctx.plan,
-                            out_dtype=torch.float32)
-    else:
-        w = p["tokens"].to(ctx.dtype)
-        logits = ops.matmul(x.reshape(B * S, d), w, config=ctx.plan,
-                            out_dtype=torch.float32, trans_b=True)
+    w = p["lm_head"].t() if "lm_head" in p else p["tokens"]
+    logits = ops.matmul(x.reshape(B * S, d), w.to(ctx.dtype).contiguous(),
+                        config=ctx.plan, out_dtype=torch.float32,
+                        trans_b=True)
     return logits.reshape(B, S, logits.shape[-1])
 
 

@@ -9,17 +9,21 @@
                                              -> (logits, cache), or None
     quantize_weights(params, fmt="int8")     -> params with QTensor weights
 
-``batch`` is a dict with ``tokens`` (B, S) and optional ``lengths``
-((B,) ragged valid prefixes).  The dense, MoE, SSM (mamba2) and hybrid
-(zamba2) families are ported; encdec and vlm are not yet.
+``batch`` is a dict with ``tokens`` (B, S), optional ``lengths``
+((B,) ragged valid prefixes) and optional ``frontend_embeds`` (the vlm
+prefix (B, P, d), or the encdec source frames (B, S_enc, d), which that
+family requires).  Every family of the JAX package is ported: dense,
+vlm, MoE, SSM (mamba2), hybrid (zamba2) and encdec (seamless).
 ``quantize_weights`` is one generic walk for every family
 (:func:`repro_torch.quant.quantize_tree`); pair it with
 ``Ctx(plan=KernelConfig(quant="int8"))`` for the W8A8 kernels.
-``prefill_chunk`` is None for every family but dense, as in the JAX
+``prefill_chunk`` is None for every family but dense and vlm (whose
+engine never chunks a request that carries a frontend), as in the JAX
 package: MoE's batch-global routing (the expert capacity depends on
 every token of the call) is not chunk-invariant, and no chunked form of
 the SSM and hybrid prefill (carrying the conv window and SSD state from
-chunk to chunk) is written, in the JAX package or here.
+chunk to chunk) is written, in the JAX package or here; an encdec
+prompt's every position also depends on the encoded source.
 """
 
 from __future__ import annotations
@@ -32,17 +36,11 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import hybrid, moe, ssm, transformer
+from repro_torch.models import encdec, hybrid, moe, ssm, transformer
 from repro_torch.models.layers import Ctx, Params
 from repro_torch.quant.tensor import quantize_tree
 
 __all__ = ["Model", "build_model", "Ctx"]
-
-# where each family not ported yet stands in ROADMAP.md (queue 1)
-_LATER = {
-    "vlm": "queue 1 item 4 (the encdec and vlm families)",
-    "encdec": "queue 1 item 4 (the encdec and vlm families)",
-}
 
 
 def _quantize_weights(params: Params, fmt: str = "int8") -> Params:
@@ -72,14 +70,17 @@ def _moe_mlp_fn(cfg: ModelConfig, ctx: Ctx, token_mask=None) -> Callable:
 
 def build_model(cfg: ModelConfig) -> Model:
     fam = cfg.family
-    if fam == "dense":
+    if fam in ("dense", "vlm"):
         def prefill_logits(params, batch, ctx):
-            return transformer.forward(params, batch["tokens"], cfg, ctx,
-                                       last_only=True)
+            return transformer.forward(
+                params, batch["tokens"], cfg, ctx,
+                frontend_embeds=batch.get("frontend_embeds"), last_only=True)
 
         def prefill_fn(params, batch, ctx, max_len):
-            return transformer.prefill(params, batch["tokens"], cfg, ctx,
-                                       max_len, lengths=batch.get("lengths"))
+            return transformer.prefill(
+                params, batch["tokens"], cfg, ctx, max_len,
+                lengths=batch.get("lengths"),
+                frontend_embeds=batch.get("frontend_embeds"))
 
         def prefill_chunk_fn(params, tokens, ctx, *, cache, offset,
                              lengths):
@@ -151,8 +152,18 @@ def build_model(cfg: ModelConfig) -> Model:
             prefill_logits=prefill_logits,
             prefill=prefill_fn,
         )
-    if fam in _LATER:
-        raise NotImplementedError(
-            f"family {fam!r} is not ported to repro_torch yet; see "
-            f"ROADMAP.md {_LATER[fam]}")
+    if fam == "encdec":
+        return Model(
+            cfg=cfg,
+            init=functools.partial(encdec.init_params, cfg),
+            init_cache=functools.partial(encdec.init_cache, cfg),
+            decode=lambda params, cache, tokens, ctx: encdec.decode_step(
+                params, cache, tokens, cfg, ctx),
+            prefill_logits=lambda params, batch, ctx: encdec.forward(
+                params, batch["tokens"], batch["frontend_embeds"], cfg, ctx,
+                last_only=True),
+            prefill=lambda params, batch, ctx, max_len: encdec.prefill(
+                params, batch["tokens"], batch["frontend_embeds"], cfg, ctx,
+                max_len, lengths=batch.get("lengths")),
+        )
     raise ValueError(f"unknown family {fam!r}")

@@ -1,6 +1,7 @@
 """Dense decoder-only LM with KV-cache decode (port of ``repro.models.transformer``).
 
-Shared by the dense and MoE families (MoE swaps the MLP through the
+Shared by the dense, vlm and MoE families (vlm prepends a request's
+``frontend_embeds``; MoE swaps the MLP through the
 ``init_mlp_fn`` / ``mlp_fn`` hooks; ``mlp_fn`` has the JAX protocol
 ``(params, x) -> (y, aux_loss)``).  A Python loop over layers replaces
 ``lax.scan``; there is no remat (serving runs no backward pass).  Parameters are a dict with a list of
@@ -19,8 +20,10 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import Ctx, Params
+from repro_torch.quant.tensor import k_major
 
-__all__ = ["init_linear", "init_embed", "init_params", "forward",
+__all__ = ["init_linear", "init_embed", "init_attention", "init_mlp",
+           "init_params", "forward",
            "init_cache", "prefill", "prefill_chunk", "decode_step"]
 
 
@@ -47,33 +50,56 @@ def init_linear(g: torch.Generator, d_in: int, d_out: int, *,
 def init_embed(g: torch.Generator, cfg: ModelConfig, dtype,
                device) -> Params:
     """The token table (normal * 0.02, drawn in fp32) and, untied, the LM
-    head, as JAX's init_embed."""
+    head, as JAX's init_embed.  The head keeps JAX's logical (d, V)
+    shape, stored as the transposed view of a contiguous (V, d) buffer,
+    the layout :func:`~repro_torch.models.layers.unembed` reads."""
     emb = torch.empty((cfg.vocab_size, cfg.d_model), dtype=torch.float32,
                       device=device)
     emb.normal_(0.0, 1.0, generator=g)
     embed = {"tokens": (emb * 0.02).to(dtype)}
     del emb
     if not cfg.tie_embeddings:
-        embed["lm_head"] = _dense(g, cfg.d_model, cfg.vocab_size, dtype,
-                                  device)
+        embed["lm_head"] = k_major(_dense(g, cfg.d_model, cfg.vocab_size,
+                                          dtype, device))
     return embed
+
+
+def init_attention(g: torch.Generator, cfg: ModelConfig, dtype,
+                   device) -> Params:
+    """wq, wk, wv (biased with ``cfg.qkv_bias``) and wo, as JAX's
+    init_attention."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+
+    def lin(d_in, d_out, bias=False):
+        return init_linear(g, d_in, d_out, bias=bias, dtype=dtype,
+                           device=device)
+
+    return {"wq": lin(d, cfg.n_heads * hd, cfg.qkv_bias),
+            "wk": lin(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
+            "wv": lin(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
+            "wo": lin(cfg.n_heads * hd, d)}
+
+
+def init_mlp(g: torch.Generator, cfg: ModelConfig, dtype,
+             device) -> Params:
+    """wi, wg and wo of a gated MLP, or wi and wo of the plain gelu one
+    (``mlp_type="mlp"``), as JAX's init_mlp."""
+    def lin(d_in, d_out):
+        return init_linear(g, d_in, d_out, dtype=dtype, device=device)
+
+    d = cfg.d_model
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        return {"wi": lin(d, cfg.d_ff), "wg": lin(d, cfg.d_ff),
+                "wo": lin(cfg.d_ff, d)}
+    return {"wi": lin(d, cfg.d_ff), "wo": lin(cfg.d_ff, d)}
 
 
 def _layer_params(g, cfg: ModelConfig, dtype, device,
                   init_mlp_fn: Callable | None = None) -> Params:
-    d, hd = cfg.d_model, cfg.resolved_head_dim
-
-    def lin(d_in, d_out):
-        return init_linear(g, d_in, d_out, dtype=dtype, device=device)
-
-    attn = {"wq": lin(d, cfg.n_heads * hd), "wk": lin(d, cfg.n_kv_heads * hd),
-            "wv": lin(d, cfg.n_kv_heads * hd), "wo": lin(cfg.n_heads * hd, d)}
-    if init_mlp_fn is None:
-        mlp = {"wi": lin(d, cfg.d_ff), "wg": lin(d, cfg.d_ff),
-               "wo": lin(cfg.d_ff, d)}
-    else:
-        mlp = init_mlp_fn(g)
-    ones = torch.ones((d,), dtype=dtype, device=device)
+    attn = init_attention(g, cfg, dtype, device)
+    mlp = (init_mlp(g, cfg, dtype, device) if init_mlp_fn is None
+           else init_mlp_fn(g))
+    ones = torch.ones((cfg.d_model,), dtype=dtype, device=device)
     return {"attn_norm": {"scale": ones}, "attn": attn,
             "mlp_norm": {"scale": ones.clone()}, "mlp": mlp}
 
@@ -107,11 +133,26 @@ def _mlp_fn(cfg: ModelConfig, ctx: Ctx,
     return mlp_fn or (lambda p, v: (L.mlp(p, v, cfg, ctx), 0.0))
 
 
+def _prepend(x: torch.Tensor, frontend_embeds: torch.Tensor | None,
+             ctx: Ctx) -> tuple[torch.Tensor, int]:
+    """Prepend the (B, P, d) frontend embeddings (vlm), cast to the
+    compute dtype, to the token embeddings: (x, P)."""
+    if frontend_embeds is None:
+        return x, 0
+    fe = torch.as_tensor(frontend_embeds, device=x.device).to(ctx.dtype)
+    return torch.cat([fe, x], dim=1), fe.shape[1]
+
+
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
-            *, mlp_fn: Callable | None = None,
+            *, frontend_embeds: torch.Tensor | None = None,
+            mlp_fn: Callable | None = None,
             last_only: bool = False) -> torch.Tensor:
-    """tokens: (B, S) -> logits (B, S, V), or (B, 1, V) with last_only."""
-    x = L.embed(params["embed"], tokens, ctx)
+    """tokens: (B, S) -> logits (B, S, V), or (B, 1, V) with last_only.
+
+    ``frontend_embeds`` (B, P, d) are prepended (vlm) at positions 0..P-1;
+    logits are returned for the text positions only."""
+    x, n_front = _prepend(L.embed(params["embed"], tokens, ctx),
+                          frontend_embeds, ctx)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     fn = _mlp_fn(cfg, ctx, mlp_fn)
@@ -121,6 +162,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
         h = L.rms_norm(lp["mlp_norm"], x, cfg.norm_eps)
         x = x + fn(lp["mlp"], h)[0]
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    x = x[:, n_front:]
     if last_only:
         x = x[:, -1:]
     return L.unembed(params["embed"], x, ctx)
@@ -178,7 +220,8 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
             max_len: int, *, mlp_fn: Callable | None = None,
-            lengths: torch.Tensor | None = None
+            lengths: torch.Tensor | None = None,
+            frontend_embeds: torch.Tensor | None = None
             ) -> tuple[torch.Tensor, Params]:
     """Run the prompt in one pass: last-valid-position logits and a
     populated ``(n_layers, B, max_len, KV, D)`` cache in ``ctx.dtype``.
@@ -187,15 +230,19 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
     attention is masked per sequence, each row's logits come from its
     own last valid position and ``cache["pos"]`` is the (B,) per-row
     write position.  Without ``lengths`` ``pos`` is the scalar S.
+    ``frontend_embeds`` (B, P, d) are prepended (vlm): their P positions
+    take rope positions 0..P-1 and count toward the cache, so the valid
+    lengths become ``lengths + P``.
     """
-    x = L.embed(params["embed"], tokens, ctx)
+    x, n_front = _prepend(L.embed(params["embed"], tokens, ctx),
+                          frontend_embeds, ctx)
     B, S, _ = x.shape
     if S > max_len:
         raise ValueError(f"prompt length {S} exceeds max_len {max_len}")
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     hd = cfg.resolved_head_dim
     lens = None if lengths is None else \
-        torch.as_tensor(lengths, device=x.device).to(torch.int32)
+        torch.as_tensor(lengths, device=x.device).to(torch.int32) + n_front
     # query row 0 sits at position 0; made once, not in every layer's call
     offs = None if lens is None else torch.zeros_like(lens)
     shape = (cfg.n_layers, B, max_len, cfg.n_kv_heads, hd)

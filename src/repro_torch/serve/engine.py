@@ -56,6 +56,14 @@ it is refused for a model whose ``prefill_chunk`` is None (the MoE
 family, whose batch-global routing is not chunk-invariant).  Quantized
 params (``Model.quantize_weights``) pass through unchanged, and MoE
 decode routes every slot's token, live or not, as in the JAX engine.
+
+A request's ``frontend_embeds`` follow the JAX engine's rules: a vlm
+prefix's P positions count toward the request's budget and its prompt
+bucket (so a ``max_len`` of exactly prompt + P + generation is served),
+an encdec source's frames do not (they fill the per-slot cross-attention
+K/V, sized by ``cache_kwargs={"enc_len": ...}``, which paged encdec
+serving requires); a request with a frontend shares no prefix page and
+is never chunked.
 Execution plans and plan validation are not ported yet (ROADMAP.md,
 queue 1 items 5 and 8).
 """
@@ -139,8 +147,10 @@ class ServeEngine:
     page_size + 1`` never runs short, a smaller pool oversubscribes
     (LRU prefix eviction, then requeueing until a decode retires).
     ``prefill_chunk``: ingest prompts longer than this that many tokens
-    per engine step.  ``plan`` and ``validate=True`` are not ported yet
-    and raise.
+    per engine step.  ``cache_kwargs`` are forwarded to
+    ``model.init_cache`` (``enc_len`` for the encdec family, shared by
+    every request; ``quantize_kv`` is not ported yet and raises).
+    ``plan`` and ``validate=True`` are not ported yet and raise.
     """
 
     def __init__(self, model, params, ctx, *, num_slots: int = 4,
@@ -150,7 +160,8 @@ class ServeEngine:
                  eos_id: int | None = None, seed: int = 0, device=None,
                  page_size: int | None = None,
                  num_pages: int | None = None,
-                 prefill_chunk: int | None = None, plan=None,
+                 prefill_chunk: int | None = None,
+                 cache_kwargs: dict | None = None, plan=None,
                  validate: bool = False):
         if plan is not None:
             raise NotImplementedError(
@@ -161,6 +172,11 @@ class ServeEngine:
                 "ServeEngine(validate=True): plan and page-geometry "
                 "validation are not ported yet (ROADMAP.md queue 1 item 8: "
                 "lint_plan, lint_page_geometry)")
+        self._cache_kw = dict(cache_kwargs or {})
+        if self._cache_kw.get("quantize_kv"):
+            raise NotImplementedError(
+                "ServeEngine(cache_kwargs={'quantize_kv': True}): the int8 "
+                "KV cache is not ported yet (ROADMAP.md queue 1 item 3)")
         self.device = resolve_device(device)
         self.model = model
         self.params = params
@@ -201,7 +217,8 @@ class ServeEngine:
         self._pages_active = False
         if self.page_size is None:
             self.cache = model.init_cache(self.num_slots, self.max_len,
-                                          cache_dtype, device=self.device)
+                                          cache_dtype, device=self.device,
+                                          **self._cache_kw)
         else:
             self._init_paging(num_pages)
         self.cache["pos"] = torch.zeros((self.num_slots,), dtype=torch.int32,
@@ -241,7 +258,7 @@ class ServeEngine:
         """The shape of every cache leaf but ``pos`` at ``batch`` and
         ``max_len`` (``init_cache`` on the meta device)."""
         c = self.model.init_cache(batch, max_len, self.cache_dtype,
-                                  device="meta")
+                                  device="meta", **self._cache_kw)
         return {k: tuple(v.shape) for k, v in c.items() if k != "pos"}
 
     # -- paged KV cache --------------------------------------------------
@@ -260,6 +277,13 @@ class ServeEngine:
             raise ValueError(
                 f"page_size {ps} must be >= 1 and divide max_len "
                 f"{self.max_len}")
+        if self.model.cfg.family == "encdec" and "enc_len" not in \
+                self._cache_kw:
+            raise ValueError(
+                "paged encdec serving requires an explicit enc_len in "
+                "cache_kwargs: with enc_len defaulting to max_len the "
+                "fixed cross-attention extent would probe as a pageable "
+                "sequence axis")
         T = self.max_len // ps
         if num_pages is None:
             num_pages = self.num_slots * T + 1   # +1: the trash page
@@ -288,7 +312,8 @@ class ServeEngine:
             self._paged.add(name)
         self._pages_active = bool(self._paged)
         self.cache = self.model.init_cache(self.num_slots, self.max_len,
-                                           self.cache_dtype, device="meta")
+                                           self.cache_dtype, device="meta",
+                                           **self._cache_kw)
         for name, meta in list(self.cache.items()):
             shape, dtype = list(meta.shape), meta.dtype
             if name in self._paged:
@@ -420,15 +445,23 @@ class ServeEngine:
         return torch.stack(out, dim=1)
 
     # ------------------------------------------------------------------
+    def _n_front(self, req: Request) -> int:
+        """Cache positions a request's frontend takes: a vlm prefix's P
+        rows; an encdec source's frames fill the cross K/V instead."""
+        if req.frontend_embeds is None or self.model.cfg.family == "encdec":
+            return 0
+        return int(np.shape(req.frontend_embeds)[0])
+
     def submit(self, request: Request) -> None:
-        budget = len(request.prompt) + request.max_new_tokens
+        n_prompt = len(request.prompt) + self._n_front(request)
+        budget = n_prompt + request.max_new_tokens
         if self._geom is not None:
             # checked before the budget: a prompt that cannot even be
             # stored gets the structural error, not the generic one
             cap = self._geom.table_len * self._geom.page_size
-            if len(request.prompt) > cap:
+            if n_prompt > cap:
                 raise ValueError(
-                    f"request {request.rid}: prompt ({len(request.prompt)} "
+                    f"request {request.rid}: prompt ({n_prompt} "
                     f"tokens) alone exceeds the page-table capacity {cap} "
                     f"({self._geom.table_len} pages x "
                     f"{self._geom.page_size} tokens/page)")
@@ -448,10 +481,13 @@ class ServeEngine:
         return (not self._pending and not self._chunking
                 and all(s is None for s in self._slots))
 
-    def _bucket(self, n: int) -> int:
+    def _bucket(self, n: int, limit: int) -> int:
+        """Smallest bucket >= n, clamped to ``limit`` (``max_len`` less
+        the request's frontend positions: a prefix eats into the bucket,
+        not into the prompt; ``submit`` ensures n <= limit)."""
         for b in self.bucket_sizes:
             if b >= n:
-                return min(b, self.max_len)
+                return min(b, limit)
         raise ValueError(f"prompt length {n} exceeds the largest bucket "
                          f"{self.bucket_sizes[-1]}")
 
@@ -460,34 +496,41 @@ class ServeEngine:
         :class:`OutOfPages` (paged mode, pool exhausted even after prefix
         eviction) before any engine state changes, so the caller can
         requeue the request."""
-        n = len(req.prompt)
-        toks = torch.zeros((1, self._bucket(n)), dtype=torch.long)
+        n, n_front = len(req.prompt), self._n_front(req)
+        toks = torch.zeros((1, self._bucket(n, self.max_len - n_front)),
+                           dtype=torch.long)
         toks[0, :n] = torch.tensor(req.prompt, dtype=torch.long)
         batch = {"tokens": toks.to(self.device),
                  "lengths": torch.tensor([n], dtype=torch.int32,
                                          device=self.device)}
+        if req.frontend_embeds is not None:
+            batch["frontend_embeds"] = torch.as_tensor(
+                req.frontend_embeds)[None].to(self.device)
         logits, cache1 = self.model.prefill(self.params, batch, self.ctx,
                                             self.max_len)
-        self._install(req, slot, cache1)
+        self._install(req, slot, cache1, n + n_front)
         return self._first_token(req, slot, logits)
 
-    def _install(self, req: Request, slot: int, cache1) -> None:
+    def _install(self, req: Request, slot: int, cache1,
+                 n_prompt: int) -> None:
         """Insert a prefilled batch-1 contiguous cache into ``slot``: its
         pages first (paged mode, :meth:`_install_pages`, which raises
         :class:`OutOfPages` before it changes anything), then every leaf
         that does not page, copied into the slot along its batch axis in
         the leaf's own dtype, and ``pos``."""
         if self._pages_active:
-            self._install_pages(req, slot, cache1)
+            self._install_pages(req, slot, cache1, n_prompt)
         for name, bax in self._axes.items():
             if name not in self._paged:
                 dst = self.cache[name]
                 dst.select(bax, slot).copy_(cache1[name].select(bax, 0))
         self.cache["pos"][slot] = cache1["pos"][0]
 
-    def _install_pages(self, req: Request, slot: int, cache1) -> None:
-        """The paged leaves of an admission.  For the sharing families
-        (``_SHARE_FAMILIES``) retain the published prefix pages the prompt
+    def _install_pages(self, req: Request, slot: int, cache1,
+                       n_prompt: int) -> None:
+        """The paged leaves of an admission (``n_prompt`` cache positions,
+        a vlm prefix's included).  For the sharing families
+        (``_SHARE_FAMILIES``), and a request without a frontend, retain the published prefix pages the prompt
         hits; allocate the rest (evicting cold prefixes under pressure),
         copy the stripe's pages into the pool at ``write_ids`` (the trash
         page for shared prefix pages, which already hold these values and
@@ -497,9 +540,11 @@ class ServeEngine:
         are all private."""
         geom = self._geom
         T, ps = geom.table_len, geom.page_size
-        t_alloc = geom.pages_for(min(len(req.prompt) + req.max_new_tokens,
+        t_alloc = geom.pages_for(min(n_prompt + req.max_new_tokens,
                                      self.max_len))
-        share = self.model.cfg.family in _SHARE_FAMILIES
+        # a frontend prefix's K/V are not a function of the prompt tokens
+        share = (self.model.cfg.family in _SHARE_FAMILIES
+                 and req.frontend_embeds is None)
         shared: list[int] = []
         if share:
             _, shared = self._prefix.lookup(req.prompt)
@@ -587,7 +632,8 @@ class ServeEngine:
 
     # -- chunked prefill -------------------------------------------------
     def _chunkable(self, req: Request) -> bool:
-        return self._chunk is not None and len(req.prompt) > self._chunk
+        return (self._chunk is not None and req.frontend_embeds is None
+                and len(req.prompt) > self._chunk)
 
     def _start_chunking(self, req: Request, slot: int, queue_wait: float,
                         t_submit: float) -> None:
@@ -598,7 +644,8 @@ class ServeEngine:
         self._chunking[slot] = {
             "req": req, "off": 0, "n": len(req.prompt),
             "cache": self.model.init_cache(1, self.max_len, self.cache_dtype,
-                                           device=self.device),
+                                           device=self.device,
+                                           **self._cache_kw),
             "queue_wait": queue_wait, "t_submit": t_submit,
         }
 
@@ -639,7 +686,7 @@ class ServeEngine:
                 return []
             st["logits"] = logits
         try:
-            self._install(req, slot, st["cache"])
+            self._install(req, slot, st["cache"], st["n"])
         except OutOfPages:
             if not any(s is not None for s in self._slots):
                 raise
@@ -796,9 +843,11 @@ class ServeEngine:
 # ----------------------------------------------------------------------
 def lockstep_generate(model, params, ctx, prompts: Sequence[Sequence[int]],
                       max_new_tokens: int | Sequence[int], *, max_len: int,
-                      device=None) -> list[list[int]]:
+                      frontend_embeds=None, device=None) -> list[list[int]]:
     """Greedy lock-step oracle: one ragged batch, one prefill, then
-    synchronised decode.  The engine must match it token for token."""
+    synchronised decode.  The engine must match it token for token.
+    ``frontend_embeds``: the batch's (B, P, d) vlm prefixes or encdec
+    source frames."""
     device = resolve_device(device)
     B = len(prompts)
     max_new = ([max_new_tokens] * B if isinstance(max_new_tokens, int)
@@ -809,6 +858,9 @@ def lockstep_generate(model, params, ctx, prompts: Sequence[Sequence[int]],
         toks[i, :lens[i]] = torch.tensor(list(p), dtype=torch.long)
     batch = {"tokens": toks.to(device),
              "lengths": torch.tensor(lens, dtype=torch.int32, device=device)}
+    if frontend_embeds is not None:
+        batch["frontend_embeds"] = torch.as_tensor(frontend_embeds).to(
+            device)
     logits, cache = model.prefill(params, batch, ctx, max_len)
     tok = sampling.greedy(logits[:, -1])
     outs = [[int(t)] for t in tok.cpu().tolist()]

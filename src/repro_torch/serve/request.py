@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 __all__ = ["Request", "GenerationResult", "SlotState"]
 
@@ -12,7 +13,10 @@ class Request:
     """One generation request.
 
     ``prompt``: token ids (any int sequence).  ``max_new_tokens``
-    includes the token sampled from the prefill logits.  Sampling knobs
+    includes the token sampled from the prefill logits.
+    ``frontend_embeds``: optional (P, d) float array, the modality prefix
+    (vlm) or the (S_enc, d) source frames (encdec), for the families
+    that take them.  Sampling knobs
     (see :mod:`repro_torch.serve.sampling`): ``temperature`` (0 = exact
     greedy argmax, the default), ``top_k`` (0 disables), ``top_p`` (1.0
     disables), and ``seed`` for the request's private sample chain,
@@ -24,6 +28,7 @@ class Request:
     rid: int
     prompt: tuple[int, ...]
     max_new_tokens: int
+    frontend_embeds: Any = None
     temperature: float = 0.0
     top_k: int = 0
     top_p: float = 1.0

@@ -264,6 +264,47 @@ def test_flash_tc_takes_zamba2_head_dim(bq):
     assert fa_mod.smem_bytes(80, 64, 64, BF16) == 56320
 
 
+@pytest.mark.parametrize("Skv", [12, 128])
+def test_flash_tiles_at_one_query_row(Skv):
+    """Encdec cross-attention at decode: one query row a slot against the
+    encoder's keys, non-causal.  The bf16 design takes one 16-row q tile
+    (15 rows masked by q_lens = 1), head dim 64 (seamless: 1024 / 16) is
+    instantiated, and the tiles fit; fp32 takes a 1-row tile."""
+    bq, bkv = fa_mod.fit_tiles(BF16, 1, Skv, 32, 32)
+    assert (bq, bkv) == (16, min(32, -(-Skv // 16) * 16))
+    fa_mod.check_tc_tiles(64, bq, bkv)
+    assert fa_mod.smem_bytes(64, bq, bkv, BF16) == 144 * (16 + 4 * bkv)
+    assert fa_mod.fit_tiles(torch.float32, 1, Skv, 32, 32) == (1, min(32,
+                                                                   Skv))
+
+
+def test_ops_attention_at_one_query_row_passes_lengths(monkeypatch):
+    """Sq = 1 is ragged against the 16-row tile: ops.attention hands the
+    kernel device-side q_lens = 1 and kv_lens = Skv (no host read, so the
+    call can be captured in a CUDA graph), and on the CPU the plain
+    version gives the reference's non-causal rows."""
+    seen = []
+
+    def spy(q, k, v, **kw):
+        seen.append({n: kw[n] for n in ("q_lens", "kv_lens", "bq", "bkv",
+                                        "causal")})
+        return flash_attention(q, k, v, **kw)
+
+    monkeypatch.setattr(ops, "_flash", spy)
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.standard_normal((4, 16, 1, 64),
+                                             dtype=np.float32)).to(BF16)
+    k = torch.from_numpy(rng.standard_normal((4, 16, 12, 64),
+                                             dtype=np.float32)).to(BF16)
+    got = ops.attention(q, k, k, causal=False, config=KernelConfig())
+    (kw,) = seen
+    assert (kw["bq"], kw["bkv"], kw["causal"]) == (16, 16, False)
+    assert kw["q_lens"].tolist() == [1] * 4
+    assert kw["kv_lens"].tolist() == [12] * 4
+    torch.testing.assert_close(got, flash_attention_ref(q, k, k,
+                                                        causal=False))
+
+
 @pytest.mark.parametrize("bq,bkv", [(8, 32), (32, 8), (128, 32), (48, 32),
                                     (32, 128)])
 def test_flash_tc_rejects_other_tiles(bq, bkv):
@@ -423,3 +464,36 @@ def test_flash_tc_lengths_and_masked_row_on_card(cuda, D):
     err = (got.float() - want.float()).abs().amax(-1)
     assert bool((err <= BF16_TOL * want.float().abs().amax(-1)).all())
     assert bool((got[1] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("graph", [False, True], ids=["eager", "graph"])
+def test_flash_one_query_row_on_card(cuda, graph):
+    """Encdec cross-attention at decode, (4, 16, 1, 64) against 128
+    encoder keys, non-causal, through ops.attention: eagerly, and
+    captured in a CUDA graph and replayed on new operands, within 2e-2 of
+    each row's largest magnitude of the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=cuda, generator=g).to(BF16)
+
+    q, k, v = rnd(4, 16, 1, 64), rnd(4, 16, 128, 64), rnd(4, 16, 128, 64)
+    before = flash_attention.launches_by_design["tensor_core"]
+    if graph:
+        ops.attention(q, k, v, causal=False)           # build, warm up
+        torch.cuda.synchronize()
+        cg = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(cg):
+            got = ops.attention(q, k, v, causal=False)
+        for t in (q, k, v):
+            t.copy_(rnd(*t.shape))
+        cg.replay()
+        torch.cuda.synchronize()
+    else:
+        got = ops.attention(q, k, v, causal=False)
+    assert flash_attention.launches_by_design["tensor_core"] == \
+        before + 1 + int(graph)
+    want = flash_attention_ref(q, k, v, causal=False)
+    err = (got.float() - want.float()).abs().amax(-1)
+    assert bool((err <= BF16_TOL * want.float().abs().amax(-1)).all())

@@ -239,6 +239,64 @@ def test_split_and_fold_at_head_dim_80_matches_plain_and_jax(rng,
     assert bool((got[1] == 0).all())
 
 
+@pytest.mark.parametrize("rep", [7, 12])
+def test_gqa_decode_shapes_plan(rep):
+    """llava-next-34b (56 query heads over 8 kv heads: rep 7) and
+    mistral-large-123b (96 over 8: rep 12) at head dim 128 in bf16.  A
+    block takes 8 query rows: rep 7 fills 7 of them (one past the kv
+    head's last query head, masked in the q load and never stored),
+    rep 12 takes two blocks a kv head, the second with 4 valid rows of 8.
+    The merge of 8 rows outgrows the ring (it is written over it), and
+    the combine workspace counts the rep valid rows of each split.  llava
+    at 4 slots over a 190-page table (3040 keys) splits into 9 ranges of
+    22 pages; mistral over a 30-page table (480 keys) into 8 of 4."""
+    assert paged_rows(rep, 128, 2) == 8
+    chunks = -(-rep // 8)
+    assert chunks == (1 if rep == 7 else 2)
+    assert smem_bytes(128, 16, rep, 2, 4) == max(4 * 2 * 16 * 128 * 2,
+                                                 4 * 8 * 130 * 4) + 32
+    assert paged_stages(4, 128, 16, rep, 2) == 4
+    T = 190 if rep == 7 else 30
+    s, per = paged_splits(4, 8, T, SMS)
+    assert (s - 1) * per < T <= s * per
+    assert (s, per) == ((9, 22) if rep == 7 else (8, 4))
+
+
+def test_seamless_decode_shape_plan():
+    """seamless-m4t-large-v2's paged self-attention: 16 heads of 64 (rep
+    1), 16-token pages, a 10-page table (max_len 160): one query row a
+    block in a lane group of 8, 5 splits of 2 pages."""
+    assert paged_rows(1, 64, 2) == 1
+    assert paged_splits(4, 16, 10, SMS) == (5, 2)
+    assert paged_stages(2, 64, 16, 1, 2) == 4
+    assert smem_bytes(64, 16, 1, 2, 4) == 4 * 2 * 16 * 64 * 2 + 32
+
+
+@pytest.mark.parametrize("rep", [7, 12])
+@pytest.mark.parametrize("splits_per", [(1, 5), (2, 3)])
+def test_split_and_fold_at_gqa_ratios_matches_plain_and_jax(rng, rep,
+                                                            splits_per):
+    """The split arithmetic at rep 7 and rep 12 (rows past a kv head's
+    query heads are not the kernel's to compute: each kv head's rep rows
+    fold on their own), against the plain version and the JAX Pallas
+    kernel in interpret mode, within 2e-5 in fp32."""
+    q, kp, vp, table, kv_lens = _inputs(rng, KV=2, rep=rep, D=16)
+    splits, per = splits_per
+    got = _split_then_fold(*(torch.from_numpy(x) for x in (q, kp, vp)),
+                           table, kv_lens, splits, per)
+    want = paged_attention_ref(*(torch.from_numpy(x) for x in
+                                 (q, kp, vp, table)),
+                               kv_lens=torch.from_numpy(kv_lens))
+    torch.testing.assert_close(got, want, atol=FP32_TOL, rtol=FP32_TOL)
+    jwant = jops.paged_attention(*(jnp.asarray(x) for x in
+                                   (q, kp, vp, table)),
+                                 kv_lens=jnp.asarray(kv_lens),
+                                 config=J_INTERP)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jwant),
+                               atol=FP32_TOL, rtol=FP32_TOL)
+    assert bool((got[1] == 0).all())
+
+
 def test_cpu_paged_attention_launches_nothing(rng):
     q, kp, vp, table, kv_lens = (torch.from_numpy(x)
                                  for x in _inputs(rng))
@@ -284,6 +342,15 @@ CARD_CASES = [
          dtype=torch.float32),
     # zamba2-2.7b's decode: 32 heads of 80, rep 1, a 30-page table
     dict(B=4, H=32, KV=32, D=80, ps=16, T=30, kv_lens=[480, 300, 0, 500],
+         dtype=torch.bfloat16, trash_rows=(1,)),
+    # seamless-m4t-large-v2's decode: 16 heads of 64, rep 1
+    dict(B=4, H=16, KV=16, D=64, ps=16, T=10, kv_lens=[160, 97, 0, 170],
+         dtype=torch.bfloat16, trash_rows=(1,)),
+    # llava-next-34b: 56 heads over 8 kv heads (rep 7), about 3040 keys
+    dict(B=4, H=56, KV=8, D=128, ps=16, T=190, kv_lens=[3040, 2901, 0, 17],
+         dtype=torch.bfloat16, trash_rows=(2,)),
+    # mistral-large-123b: 96 heads over 8 kv heads (rep 12), 480 keys
+    dict(B=4, H=96, KV=8, D=128, ps=16, T=30, kv_lens=[480, 300, 0, 500],
          dtype=torch.bfloat16, trash_rows=(1,)),
 ]
 

@@ -399,8 +399,8 @@ def _shared_prefix_run(arch, prefix, tails, max_new=3, K=1):
     installed = []
     real = eng._install
 
-    def spy(req, slot, cache1):
-        real(req, slot, cache1)
+    def spy(req, slot, cache1, n_prompt):
+        real(req, slot, cache1, n_prompt)
         n, ps = len(req.prompt), eng._geom.page_size
         own = [torch.equal(eng.cache[name][:, page, :rows],
                            cache1[name][:, 0, j * ps:j * ps + rows])
