@@ -139,6 +139,25 @@ Phases, each printed as it runs:
    counts (7 L + 1 matmuls a pass, L flash calls a prefill, L paged
    calls a paged step), the first prefill's logits as in 5i, the graph
    step against the eager loop;
+5m. execution plans and the tuner (the tuner's cache a fresh file under
+   the git-ignored ``build/``, as for every phase): (a) the measured
+   oracle (CUDA events over a CUDA graph) over a bounded Hopper space at
+   phase 6's main-path shapes (gemma-7b's decode and 128-token prefill
+   products and head, bf16 and W8A8; olmoe-1b-7b's expert banks, decode
+   and prefill, bf16 and W8A8; flash at (1, 16, 128, 256)), per shape
+   the fixed default's time, the analytic choice with its predicted and
+   measured time and the measured choice, within 90 s; (b) gemma-7b bf16
+   at full width on phase 5's weights and traffic through
+   ``ServeEngine(plan="trace")``: the plan saved, reloaded and its
+   fingerprint checked, no tuner call after the constructor, launch
+   counts as phase 5's, the first prefill's logits within 5% under the
+   reloaded plan, and the graphed decode step under the fixed default,
+   the analytic plan (at most 1.05x the default's) and a plan of (a)'s
+   measured winners (``Plan.from_tune_cache``); (c)
+   ``kernel_watch.utilization_table(measure=True)`` over one decode
+   dispatch, predicted and measured utilization a row; (e) phase 5e's
+   logits margin (gemma-7b W8A8) under the analytic plan, and with flash
+   attention, then the bf16 head, swapped for its plain version;
 6. each kernel's time at the main-path shapes with CUDA events over a
    CUDA graph of many calls (device time, with the host's launch work
    taken out; operands cycled past the 50 MB L2), beside its plain
@@ -300,6 +319,12 @@ def main() -> int:
         for (code, what), n in remarks.items():
             print(f"      ptxas remark {code} x {n}: {what}")
 
+    # the tuner's cache: a fresh file, so that a run depends on no earlier
+    # one (every Ctx(plan="auto") below tunes through it)
+    from repro_torch import tune
+    TUNE_CACHE.unlink(missing_ok=True)
+    tune.set_cache(tune.TuneCache(TUNE_CACHE))
+
     kern = {"zero_stall_matmul": zero_stall_matmul,
             "flash_attention": flash_attention,
             "paged_attention": paged_attention,
@@ -324,6 +349,7 @@ def main() -> int:
     for phase in (serve_seamless_full_width, serve_llava_full_width,
                   serve_qwen_full_width, serve_mistral_full_width):
         by_path.update(phase(torch, kern))
+    serve_under_plans(torch, kern)
     timings = time_kernels(torch, kern)
     timings.update(time_new_kernels(torch, kern))
     slice8 = time_slice8(torch, kern)
@@ -2812,6 +2838,337 @@ def serve_mistral_full_width(torch, kern) -> dict:
     del eng, params
     torch.cuda.empty_cache()
     return counts
+
+
+# ----------------------------------------------------------------------
+# 5m. plans and the tuner on the card
+# ----------------------------------------------------------------------
+TUNE_CACHE = ROOT / "build" / "chip_smoke_tune.json"
+MEASURED_CACHE = ROOT / "build" / "chip_smoke_tune_measured.json"
+PLAN_FILE = ROOT / "build" / "chip_smoke_5m.plan.json"
+MEASURE_LOG = ROOT / "build" / "chip_smoke_5m_measure.jsonl"
+TUNE_BUDGET_S = 90.0
+
+
+def tune_problems() -> list[tuple[str, str, int, int, int, int, int]]:
+    """(label, op, M, N, K, groups, bytes an element) of phase 5m's
+    measured tuning: gemma-7b's four decode (M = 4) and four 128-token
+    prefill products and its head (bf16, then W8A8 with the bf16 head
+    left out: it stays bf16), olmoe-1b-7b's expert banks at decode
+    (C = 1) and a 128-token prefill (C = 20), bf16 and W8A8."""
+    out = []
+    for eb, dt in ((2, "bf16"), (1, "int8")):
+        for M, what in ((4, "decode"), (128, "prefill")):
+            for name, m, k, n, _ in gemma_matmul_shapes(M):
+                out.append((f"gemma {what} {name} {dt}", "matmul", m, n, k,
+                            1, eb))
+        if eb == 2:
+            out.append(("gemma decode head bf16", "matmul", 4, GEMMA["V"],
+                        GEMMA["d"], 1, 2))
+        for C, what in ((1, "decode"), (moe_capacity(128), "prefill")):
+            for name, G, m, k, n, _ in expert_shapes(C):
+                out.append((f"olmoe {what} {name} {dt}", "grouped_matmul",
+                            m, n, k, G, eb))
+    return out
+
+
+def measured_tuning(torch, tune, cache) -> None:
+    """5m (a): the measured oracle over the Hopper space (one grid order)
+    at phase 6's main-path shapes, every candidate measured, into
+    ``cache``; per shape the fixed default's time, the analytic choice
+    (its predicted and measured time) and the measured choice.  Every
+    measurement is written to ``MEASURE_LOG`` (the ``tune.measure``
+    events, JSONL): the data the Hopper model is held to."""
+    from repro_torch import obs
+    from repro_torch.tune import AnalyticOracle, KernelSpace, MeasuredOracle
+    space = KernelSpace(grid_orders=("ijk",))
+    analytic, measured = AnalyticOracle(), MeasuredOracle(calls=10,
+                                                          repeats=3)
+    MEASURE_LOG.unlink(missing_ok=True)
+    obs.enable(trace_path=MEASURE_LOG)
+    t0 = time.perf_counter()
+    print(f"    the measured space: bm {space.rows}, bn {space.bn_options}, "
+          f"k tiles of {space.k_bytes} bytes, slots {space.slot_options}, "
+          f"ijk, every legal candidate; CUDA events over a graph of "
+          f"{measured.calls} calls, best of {measured.repeats}; every "
+          f"measurement to {MEASURE_LOG.relative_to(ROOT)}", flush=True)
+    try:
+        tune_shapes(torch, tune, cache, space, analytic, measured)
+    finally:
+        obs.disable()
+    took = time.perf_counter() - t0
+    print(f"    5m (a) took {took:.1f} s (budget {TUNE_BUDGET_S:.0f} s); "
+          f"{len(cache)} measured entries", flush=True)
+    require(took < TUNE_BUDGET_S, f"5m (a): measured tuning took {took:.1f} "
+            f"s, over its {TUNE_BUDGET_S:.0f} s budget")
+
+
+def tune_shapes(torch, tune, cache, space, analytic, measured) -> None:
+    """The shapes of :func:`measured_tuning`, each printed as it runs."""
+    from repro_torch.tune import Problem, search
+    per_layer = {name: n for name, *_, n in gemma_matmul_shapes(4)}
+    passes: dict[tuple, list] = {}
+    for label, op, M, N, K, G, eb in tune_problems():
+        p = Problem(op, M, N, K, eb, G)
+        dtype = torch.int8 if eb == 1 else torch.bfloat16
+        default = space.default(p)
+        t_def = measured.estimate(default, p)
+        a = tune.best_config(op, M, N, K, dtype=dtype, groups=G)
+        a_pred, a_meas = analytic.estimate(a, p), measured.estimate(a, p)
+        res = search(space, measured, p, exhaustive_limit=512)
+        best, t_best = res.best, res.predicted_s
+        if best != default and t_def <= t_best * (1 + tune.MIN_GAIN):
+            best, t_best = default, t_def
+        cache.put(tune.TuneCache.key(p, backend=tune.BACKEND,
+                                     dtype="int8" if eb == 1 else "bfloat16"),
+                  best, predicted_s=t_best)
+        bound = analytic.model.matmul(M, N, K, default.bm, default.bn,
+                                      default.bk, dtype_bytes=eb,
+                                      groups=G).bound_s
+        print(f"    {label} (G {G}, M {M}, K {K}, N {N}): default "
+              f"{default.bm}x{default.bn}x{default.bk}/s{default.slots} "
+              f"{1e3 * t_def:.4f} ms; analytic {a.bm}x{a.bn}x{a.bk}/"
+              f"s{a.slots}/{a.grid_order} predicted {1e3 * a_pred:.4f}, "
+              f"measured {1e3 * a_meas:.4f} ms; measured choice "
+              f"{best.bm}x{best.bn}x{best.bk}/s{best.slots} "
+              f"{1e3 * t_best:.4f} ms ({res.evaluated} measured, "
+              f"{res.method}); bound {1e3 * bound:.4f} ms", flush=True)
+        model, what, name = label.split(" ", 2)
+        name = name.rsplit(" ", 1)[0]
+        if model == "gemma" and name in per_layer:
+            n = per_layer[name] * GEMMA["layers"]
+            passes.setdefault((what, eb), []).append(
+                (n * t_def, n * a_meas, n * t_best))
+    for (what, eb), parts in passes.items():
+        d, a, m = (1e3 * sum(x[i] for x in parts) for i in range(3))
+        print(f"    one gemma-7b {what} pass's {7 * GEMMA['layers']} "
+              f"{'W8A8' if eb == 1 else 'bf16'} projections (the head left "
+              f"out): fixed default {d:.3f} ms, analytic {a:.3f} ms "
+              f"({a / d:.3f}x), measured choices {m:.3f} ms ({m / d:.3f}x)")
+    # flash attention at gemma's prefill (1, 16, 128, 256), causal
+    kw = dict(s_q=128, s_kv=128, head_dim=GEMMA["hd"], dtype_bytes=2,
+              batch_heads=GEMMA["H"])
+    first = next(iter(space.attention_candidates(
+        s_q=128, s_kv=128, head_dim=GEMMA["hd"], dtype_bytes=2)))
+    t_def = measured.estimate_attention(*first, **kw)
+    a = tune.best_attention_config(128, 128, GEMMA["hd"],
+                                   dtype=torch.bfloat16,
+                                   batch_heads=GEMMA["H"])
+    a_pred = analytic.estimate_attention(*a, **kw)
+    a_meas = measured.estimate_attention(*a, **kw)
+    m = tune.best_attention_config(128, 128, GEMMA["hd"],
+                                   dtype=torch.bfloat16,
+                                   batch_heads=GEMMA["H"], oracle=measured,
+                                   cache=cache, force=True)
+    t_m = measured.estimate_attention(*m, **kw)
+    print(f"    flash (1, {GEMMA['H']}, 128, {GEMMA['hd']}) causal bf16: "
+          f"default {first[0]}x{first[1]} {1e3 * t_def:.4f} ms; analytic "
+          f"{a[0]}x{a[1]} predicted {1e3 * a_pred:.4f}, measured "
+          f"{1e3 * a_meas:.4f} ms; measured choice {m[0]}x{m[1]} "
+          f"{1e3 * t_m:.4f} ms")
+
+
+def graph_steps_ms(torch, engines: dict, n: int = 5) -> dict:
+    """ms a decode step under each engine's CUDA graph (K = 4, every slot
+    active), each dispatch ending in the host's read of the tile, in
+    turns forward then backward over ``engines``: {label: [ms, ms]}.  The
+    launch counters are left as they were."""
+    import numpy as np
+
+    from repro_torch.kernels import launches
+    from repro_torch.serve.engine import _host
+    before = launches.snapshot()
+    fns = {}
+    for label, eng in engines.items():
+        S = eng.num_slots
+        args = (np.zeros(S, np.int32), np.zeros(S, bool),
+                np.full(S, 2 ** 30, np.int32))
+        fns[label] = (lambda e=eng, a=args:
+                      e._decode_block(*a, greedy_only=True))
+        fns[label]()
+        fns[label]()        # captured by now
+    torch.cuda.synchronize()
+    times = {label: [] for label in engines}
+    order = list(engines)
+    for label in order + order[::-1]:
+        K = engines[label].steps_per_dispatch
+        t0 = time.perf_counter()
+        for _ in range(n):
+            _host(fns[label]())
+        times[label].append(1e3 * (time.perf_counter() - t0) / (n * K))
+    launches.add(launches.since(before), -1)
+    return times
+
+
+def logits_margin_5e(torch, model, qparams) -> None:
+    """5m (e): the margin of phase 5e (gemma-7b W8A8's first prefill
+    logits against the plain path) under the analytic plan and the fixed
+    config, and the kernel path with one op at a time swapped for its
+    plain version, to localise the op that carries the margin."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_ref, matmul_ref
+    from repro_torch.models import Ctx
+    from repro_torch.plan import KernelConfig, Plan
+    ctxs = {"analytic plan": Ctx(plan=Plan(quant="int8"),
+                                 dtype=torch.bfloat16),
+            "fixed KernelConfig(quant='int8')":
+                Ctx(plan=KernelConfig(quant="int8"), dtype=torch.bfloat16),
+            "plain": Ctx(plan=KernelConfig(backend="torch", quant="int8"),
+                         dtype=torch.bfloat16)}
+    logits = first_prefill_logits(torch, model, qparams, ctxs)
+    want = logits.pop("plain")
+    scale = want.abs().max().item()
+
+    def margin(got) -> str:
+        err = (got - want).abs().max().item()
+        return f"{err:.4g} ({err / scale:.2%} of max|plain| {scale:.4g})"
+
+    for name, got in logits.items():
+        print(f"    5e margin under the {name}: {margin(got)}")
+    judge_logits(torch, "5m (e) W8A8 first prefill logits, analytic plan",
+                 logits["analytic plan"], want)
+
+    def plain_flash(q, k, v, *, q_lens, kv_lens, q_offsets, bq, bkv, causal,
+                    scale):
+        return flash_attention_ref(q, k, v, causal=causal, scale=scale,
+                                   q_lens=q_lens, kv_lens=kv_lens,
+                                   q_offsets=q_offsets)
+
+    def plain_head(a, b, *, out_dtype, trans_b, **_):
+        return matmul_ref(a, b.t() if trans_b else b, out_dtype)
+
+    for what, attr, fn in (("flash attention", "_flash", plain_flash),
+                           ("the bf16 LM head (kernel 1)",
+                            "zero_stall_matmul", plain_head)):
+        kept = getattr(ops, attr)
+        setattr(ops, attr, fn)
+        try:
+            got = first_prefill_logits(torch, model, qparams, {
+                "x": ctxs["analytic plan"]})["x"]
+        finally:
+            setattr(ops, attr, kept)
+        print(f"    5e margin with {what} plain, the rest on the kernels "
+              f"(analytic plan): {margin(got)}")
+
+
+def serve_under_plans(torch, kern) -> None:
+    """5m: plans and the tuner on the card (see the module docstring)."""
+    from repro_torch import obs, tune
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import Ctx, build_model
+    from repro_torch.plan import Plan
+
+    kw, L, V = SERVE_KW, GEMMA["layers"], GEMMA["V"]
+    print(f"[5m] execution plans and the tuner: (a) the measured oracle at "
+          f"phase 6's shapes; (b) gemma-7b bf16 at full width on phase 5's "
+          f"weights and traffic through ServeEngine(plan='trace'); (c) "
+          f"kernel_watch's utilization of one decode dispatch; (e) the 5e "
+          f"margin under the analytic plan", flush=True)
+    MEASURED_CACHE.unlink(missing_ok=True)
+    measured_cache = tune.TuneCache(MEASURED_CACHE)
+    measured_tuning(torch, tune, measured_cache)
+
+    model = build_model(get_config("gemma-7b"))
+    params = model.init(seed=0, dtype=torch.bfloat16, device="cuda")
+    reqs = make_requests(model.cfg, kw["seed"], kw["batch"],
+                         kw["prompt_len"], kw["gen_len"], kw["mixed"])
+    obs.reset_counters("tune.")
+    t0 = time.perf_counter()
+    eng = engine_for(torch, model, params,
+                     Ctx(plan="auto", dtype=torch.bfloat16),
+                     K=kw["steps_per_dispatch"], plan="trace")
+    traced_s, traced_calls = time.perf_counter() - t0, tune.calls()
+    eng.plan.save(PLAN_FILE)
+    loaded = Plan.load(PLAN_FILE)
+    print(f"    (b) ServeEngine(plan='trace') built in {traced_s:.2f} s: "
+          f"{len(eng.plan)} plan entries from {traced_calls} tuner calls; "
+          f"saved to {PLAN_FILE.relative_to(ROOT)} and reloaded: "
+          f"fingerprint {eng.plan.fingerprint()} / {loaded.fingerprint()}",
+          flush=True)
+    require(loaded.fingerprint() == eng.plan.fingerprint(),
+            "5m: the reloaded plan's fingerprint differs")
+    obs.reset_counters("tune.")
+    reset_counts(kern)
+    res = eng.run(reqs)
+    torch.cuda.synchronize()
+    s = eng.stats
+    got = {n: k.launches for n, k in kern.items()}
+    want, why = dense_want(kern, L, s, paged=False)
+    print(f"    (b) served: decode {s.decode_tok_s:.1f} tok/s over "
+          f"{s.decode_s:.3f} s, prefill {s.prefill_tok_s:.1f} tok/s "
+          f"({s.decode_steps} steps, {s.admitted} admissions)")
+    check_counts("5m traced plan", got, want, why)
+    check_designs("5m", kern)
+    print_captures("5m traced plan", eng.captures)
+    require(sorted(res) == list(range(kw["batch"])) and all(
+        len(r.tokens) == kw["gen_len"] for r in res.values()),
+        "5m: not every request completed")
+    logits = first_prefill_logits(torch, model, params, {
+        "plan": Ctx(plan=loaded, dtype=torch.bfloat16),
+        "torch": Ctx(plan="torch", dtype=torch.bfloat16)})
+    judge_logits(torch, f"5m first prefill logits (1, 1, {V}) under the "
+                 f"reloaded traced plan", logits["plan"], logits["torch"])
+    del logits
+    measured_plan = Plan.from_tune_cache(measured_cache)
+    engines = {
+        "fixed default (plan=None)": engine_for(
+            torch, model, params, Ctx(plan=None, dtype=torch.bfloat16),
+            K=kw["steps_per_dispatch"]),
+        "analytic (the traced plan)": eng,
+        "measured (Plan.from_tune_cache)": engine_for(
+            torch, model, params, Ctx(plan="auto", dtype=torch.bfloat16),
+            K=kw["steps_per_dispatch"], plan=measured_plan)}
+    tune_calls = tune.calls()
+    steps = graph_steps_ms(torch, engines)
+    require(tune.calls() == tune_calls == 0, f"5m: the tuner was called "
+            f"{tune.calls()} times after the traced engine's constructor")
+    mean = {k: sum(v) / len(v) for k, v in steps.items()}
+    fixed, analytic = mean["fixed default (plan=None)"], \
+        mean["analytic (the traced plan)"]
+    for label, ms in steps.items():
+        print(f"    (b) {label}: graphed decode step "
+              f"{' / '.join(f'{t:.3f}' for t in ms)} ms (turns forward, "
+              f"then back), {mean[label] / fixed:.3f}x the fixed default")
+    print(f"    (b) tuner calls after the traced engine's constructor: "
+          f"{tune.calls()}")
+    require(analytic <= 1.05 * fixed, f"5m: the analytic plan's decode "
+            f"step {analytic:.3f} ms is over 1.05x the fixed default's "
+            f"{fixed:.3f} ms")
+    del engines
+
+    # (c) one decode dispatch (the eager loop of the traced engine's block,
+    # K = 4: a graph replay calls no entry point) through kernel_watch
+    from repro_torch.kernels import launches
+    before = launches.snapshot()
+    obs.reset_records()
+    with obs.capture():
+        eng._block(True)
+    torch.cuda.synchronize()
+    rows = obs.utilization_table(measure=True)
+    obs.reset_records()
+    launches.add(launches.since(before), -1)
+    print(f"    (c) kernel_watch over one decode dispatch (K = 4): "
+          f"{len(rows)} records; utilization = bound / time (bound: bytes "
+          f"over 3.35 TB/s or operations over the peak, the data sheet's)")
+    for r in rows:
+        print(f"      {r['op']} M {r['M']} N {r['N']} K {r['K']} "
+              f"{r['dtype']} x{r['count']} {r['config']}: bound "
+              f"{1e3 * r['bound_s']:.4f} ms; predicted "
+              f"{1e3 * r['predicted_s']:.4f} ms ({r['predicted_util']:.1%}); "
+              f"measured {1e3 * r['measured_s']:.4f} ms "
+              f"({r['measured_util']:.1%})")
+    require(rows and all(r["measured_s"] > 0 for r in rows),
+            "5m: kernel_watch measured nothing")
+    del eng, res
+    torch.cuda.empty_cache()
+
+    qparams = model.quantize_weights(params)
+    del params
+    torch.cuda.empty_cache()
+    logits_margin_5e(torch, model, qparams)
+    del qparams
+    torch.cuda.empty_cache()
 
 
 # ----------------------------------------------------------------------

@@ -10,7 +10,7 @@ JAX nor anything of ``repro``.
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "make_generator"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -27,3 +27,13 @@ def resolve_device(device=None) -> torch.device:
                 "device is available; pass device='cpu' to run on the host")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def make_generator(device: torch.device, seed: int) -> torch.Generator:
+    """A generator seeded with ``seed`` for drawing parameters on
+    ``device``; the meta device (shapes only, as
+    :func:`repro_torch.plan.trace_model` traces) takes a CPU generator,
+    which its random ops accept and never advance."""
+    g = torch.Generator(device="cpu" if device.type == "meta" else device)
+    g.manual_seed(seed)
+    return g

@@ -9,12 +9,36 @@ Model code calls these; they route to
     :mod:`~repro_torch.kernels.flash_attention`,
     :mod:`~repro_torch.kernels.paged_attention`), which launch the CUDA
     kernel on a CUDA tensor and run their plain version on a CPU tensor;
+    on a meta tensor (a plan's trace, shapes only) the plain version
+    gives the shapes;
   * backend ``"torch"``: the plain versions in :mod:`.ref` on any device
     (the counterpart of the JAX package's ``"jnp"``).
 
-``config`` is ``None`` (the default :class:`KernelConfig`), a backend
-name, or a :class:`KernelConfig`.  The kernels mask ragged edges
-themselves, so nothing is padded.
+Execution configuration: the single ``config`` argument
+(:mod:`repro_torch.plan`), resolved ahead of the kernel launch like the
+paper's loop-nest CSR writes, with the JAX package's vocabulary:
+
+  * ``None``: the fixed default ``KernelConfig()``;
+  * ``"auto"``: resolve through :mod:`repro_torch.tune` (the Hopper
+    model's search, memoized in a persistent cache); a backend name
+    (``"auto"`` or ``"torch"``) sets the backend;
+  * ``(bm, bn, bk)``: explicit matmul tiles (``(bq, bkv)`` for
+    :func:`attention`);
+  * a :class:`~repro_torch.plan.KernelConfig`: one complete configuration,
+    backend included;
+  * a :class:`~repro_torch.plan.Plan`: per-call-site lookup by bucketed
+    ``OpKey``; misses follow the plan's default policy and are memoized,
+    so a traced plan never consults the tuner at run time.
+
+Resolution happens on the kernel path whatever the tensors' device (the
+CPU and the meta device included), so a trace on the CPU resolves the
+call sites the card runs; the plain ``"torch"`` backend resolves
+nothing, as the JAX package's ``"jnp"``.  int8 products resolve as
+``matmul`` / ``grouped_matmul`` at dtype ``int8``; paged attention takes
+no tiles (its config selects the backend only).  Each entry point
+reports its dispatch to :mod:`repro_torch.obs.kernel_watch` when
+observability is on.  The kernels mask ragged edges themselves, so
+nothing is padded.
 """
 
 from __future__ import annotations
@@ -33,25 +57,50 @@ from repro_torch.kernels.paged_attention import paged_attention as _paged
 from repro_torch.kernels.quantized_matmul import (
     quantized_grouped_zero_stall_matmul, quantized_zero_stall_matmul)
 from repro_torch.kernels.zero_stall_matmul import zero_stall_matmul
-from repro_torch.plan.config import KernelConfig, dtype_from_name
+from repro_torch.plan.config import KernelConfig, OpKey, dtype_from_name, \
+    dtype_name
+from repro_torch.plan.plan import Plan, config_backend, resolve
 from repro_torch.quant.tensor import QTensor, quantize_rows
 
 __all__ = ["matmul", "grouped_matmul", "quantized_matmul",
            "quantized_grouped_matmul", "attention", "paged_attention",
-           "as_config", "fallback_counts", "reset_fallback_warnings",
-           "strict_fallbacks", "FallbackError"]
+           "fallback_counts", "reset_fallback_warnings", "strict_fallbacks",
+           "FallbackError"]
 
 
-def as_config(config) -> KernelConfig:
-    """Normalise the ``config`` vocabulary to one :class:`KernelConfig`."""
-    if config is None:
-        return KernelConfig()
+def _record(op: str, *, M, N, K, dtype, backend, config=None, groups=1,
+            batch_heads=1) -> None:
+    """Report this dispatch to :mod:`repro_torch.obs.kernel_watch` (when
+    observability is on; off, one boolean check)."""
+    if _obs.enabled():
+        _obs.record_dispatch(op, M=M, N=N, K=K, dtype=dtype,
+                             backend=backend, config=config, groups=groups,
+                             batch_heads=batch_heads)
+
+
+def _out_dtype(out_dtype, config, key: tuple, default: torch.dtype):
+    """The output dtype priority of every matmul entry point: the
+    argument, then the config's ``out_dtype`` (for a Plan: the entry of
+    the call site ``key`` = (op, M, N, K, groups, dtype name), a pure
+    lookup with no tuning, then its default config), then ``default``."""
+    if out_dtype is not None:
+        return out_dtype
+    candidates = []
     if isinstance(config, KernelConfig):
-        return config
-    if isinstance(config, str):
-        return KernelConfig(backend=config)
-    raise ValueError(f"config must be a KernelConfig, a backend name or "
-                     f"None, got {config!r}")
+        candidates.append(config)
+    elif isinstance(config, Plan):
+        if config.entries:
+            op, M, N, K, groups, dtype = key
+            hit = config.lookup(OpKey(op, M, N, K, groups=groups,
+                                      dtype=dtype))
+            if hit is not None:
+                candidates.append(hit)
+        if isinstance(config.default, KernelConfig):
+            candidates.append(config.default)
+    for cfg in candidates:
+        if cfg.out_dtype is not None:
+            return dtype_from_name(cfg.out_dtype)
+    return default
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *, config=None,
@@ -64,23 +113,23 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, config=None,
     the config's ``out_dtype``, then A's dtype.  ``trans_b`` takes B as
     (N, K) row-major and computes A @ B.T (the tied LM head).
     """
-    cfg = as_config(config)
-    out_dtype = _out_dtype(out_dtype, cfg, a.dtype)
-    if cfg.backend == "torch":
+    backend = config_backend(config, "matmul")
+    M, K = a.shape
+    N = b.shape[0] if trans_b else b.shape[1]
+    out_dtype = _out_dtype(out_dtype, config,
+                           ("matmul", M, N, K, 1, dtype_name(a.dtype)),
+                           a.dtype)
+    if backend == "torch":
+        _record("matmul", M=M, N=N, K=K, dtype=a.dtype, backend=backend)
+        return _ref.matmul_ref(a, b.t() if trans_b else b, out_dtype)
+    cfg = resolve(config, op="matmul", M=M, N=N, K=K, dtype=a.dtype)
+    _record("matmul", M=M, N=N, K=K, dtype=a.dtype, backend=backend,
+            config=cfg)
+    if a.is_meta:
         return _ref.matmul_ref(a, b.t() if trans_b else b, out_dtype)
     return zero_stall_matmul(a.contiguous(), b, out_dtype=out_dtype,
                              trans_b=trans_b,
                              **cfg.matmul_kwargs(a.dtype))
-
-
-def _out_dtype(out_dtype, cfg: KernelConfig, default: torch.dtype):
-    """The output dtype priority of every matmul entry point: the
-    argument, then the config's ``out_dtype``, then ``default``."""
-    if out_dtype is not None:
-        return out_dtype
-    if cfg.out_dtype is not None:
-        return dtype_from_name(cfg.out_dtype)
-    return default
 
 
 def grouped_matmul(a: torch.Tensor, b: torch.Tensor, *, config=None,
@@ -89,9 +138,21 @@ def grouped_matmul(a: torch.Tensor, b: torch.Tensor, *, config=None,
     grouped zero-stall engine (the MoE dispatch path,
     ``models.moe.moe_mlp``).  Same ``config`` vocabulary and out_dtype
     priority as :func:`matmul`."""
-    cfg = as_config(config)
-    out_dtype = _out_dtype(out_dtype, cfg, a.dtype)
-    if cfg.backend == "torch":
+    backend = config_backend(config, "grouped_matmul")
+    G, M, K = a.shape
+    N = b.shape[2]
+    out_dtype = _out_dtype(out_dtype, config,
+                           ("grouped_matmul", M, N, K, G, dtype_name(a.dtype)),
+                           a.dtype)
+    if backend == "torch":
+        _record("grouped_matmul", M=M, N=N, K=K, dtype=a.dtype,
+                backend=backend, groups=G)
+        return _ref.grouped_matmul_ref(a, b, out_dtype)
+    cfg = resolve(config, op="grouped_matmul", M=M, N=N, K=K, dtype=a.dtype,
+                  groups=G)
+    _record("grouped_matmul", M=M, N=N, K=K, dtype=a.dtype, backend=backend,
+            config=cfg, groups=G)
+    if a.is_meta:
         return _ref.grouped_matmul_ref(a, b, out_dtype)
     return grouped_zero_stall_matmul(
         a.contiguous(), b.contiguous(), out_dtype=out_dtype,
@@ -111,19 +172,30 @@ def quantized_matmul(x: torch.Tensor, qw: QTensor, *, config=None,
     outside the kernel (:func:`~repro_torch.quant.quantize_rows`, as in
     the JAX package); ``qw`` a :class:`~repro_torch.quant.QTensor`.  The
     kernel accumulates in exact int32 and fuses the dequantising
-    epilogue.  The output dtype priority is that of :func:`matmul`.  An
-    fp8 QTensor takes the simulated-fp8 route: dequantize to x's dtype
-    and run :func:`matmul`.
+    epilogue.  The output dtype priority is that of :func:`matmul`; the
+    call site resolves as ``matmul`` at dtype ``int8`` (the int8 tile
+    space, whose plan entries never collide with bf16's).  An fp8
+    QTensor takes the simulated-fp8 route: dequantize to x's dtype and
+    run :func:`matmul`.
     """
     _check_qtensor(qw)
     if qw.fmt != "int8":
         return matmul(x, qw.dequantize(x.dtype), config=config,
                       out_dtype=out_dtype)
-    cfg = as_config(config)
-    out_dtype = _out_dtype(out_dtype, cfg, x.dtype)
+    backend = config_backend(config, "matmul")
+    M, K = x.shape
+    N = qw.shape[1]
+    out_dtype = _out_dtype(out_dtype, config, ("matmul", M, N, K, 1, "int8"),
+                           x.dtype)
     x_q, x_s = quantize_rows(x)
     w_s = qw.scale.to(torch.float32)
-    if cfg.backend == "torch":
+    if backend == "torch":
+        _record("matmul", M=M, N=N, K=K, dtype="int8", backend=backend)
+        return _ref.quantized_matmul_ref(x_q, qw.data, x_s, w_s, out_dtype)
+    cfg = resolve(config, op="matmul", M=M, N=N, K=K, dtype=torch.int8)
+    _record("matmul", M=M, N=N, K=K, dtype="int8", backend=backend,
+            config=cfg)
+    if x.is_meta:
         return _ref.quantized_matmul_ref(x_q, qw.data, x_s, w_s, out_dtype)
     return quantized_zero_stall_matmul(x_q, qw.data, x_s, w_s.contiguous(),
                                        out_dtype=out_dtype,
@@ -134,17 +206,30 @@ def quantized_grouped_matmul(x: torch.Tensor, qw: QTensor, *, config=None,
                              out_dtype: torch.dtype | None = None
                              ) -> torch.Tensor:
     """(G, M, K) activations @ a QTensor (G, K, N) expert bank (W8A8
-    MoE), with the contracts of :func:`quantized_matmul`; an fp8 bank
-    dequantizes onto :func:`grouped_matmul`."""
+    MoE), with the contracts of :func:`quantized_matmul` (resolved as
+    ``grouped_matmul`` at dtype ``int8``); an fp8 bank dequantizes onto
+    :func:`grouped_matmul`."""
     _check_qtensor(qw)
     if qw.fmt != "int8":
         return grouped_matmul(x, qw.dequantize(x.dtype), config=config,
                               out_dtype=out_dtype)
-    cfg = as_config(config)
-    out_dtype = _out_dtype(out_dtype, cfg, x.dtype)
+    backend = config_backend(config, "grouped_matmul")
+    G, M, K = x.shape
+    N = qw.shape[2]
+    out_dtype = _out_dtype(out_dtype, config,
+                           ("grouped_matmul", M, N, K, G, "int8"), x.dtype)
     x_q, x_s = quantize_rows(x)
     w_s = qw.scale.to(torch.float32)
-    if cfg.backend == "torch":
+    if backend == "torch":
+        _record("grouped_matmul", M=M, N=N, K=K, dtype="int8",
+                backend=backend, groups=G)
+        return _ref.quantized_grouped_matmul_ref(x_q, qw.data, x_s, w_s,
+                                                 out_dtype)
+    cfg = resolve(config, op="grouped_matmul", M=M, N=N, K=K,
+                  dtype=torch.int8, groups=G)
+    _record("grouped_matmul", M=M, N=N, K=K, dtype="int8", backend=backend,
+            config=cfg, groups=G)
+    if x.is_meta:
         return _ref.quantized_grouped_matmul_ref(x_q, qw.data, x_s, w_s,
                                                  out_dtype)
     return quantized_grouped_zero_stall_matmul(
@@ -217,6 +302,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               strict: bool | None = None) -> torch.Tensor:
     """(B,H,S,D) flash attention; the plain reference on the torch path.
 
+    ``config`` follows the module vocabulary (tile tuples are ``(bq,
+    bkv)`` pairs here; a KernelConfig contributes its ``bq``/``bkv``);
+    the resolved tiles are fit to the sequences (:func:`fit_tiles`).
     ``q_lens``/``kv_lens``: optional (B,) valid lengths; ``q_offsets``:
     optional (B,) absolute position of query row 0.  Causal attention
     with Sq != Skv and no length operand follows the reference's
@@ -227,12 +315,16 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kernel then runs end-aligned, through ``q_offsets = Skv - Sq``.  With
     Sq > Skv the leading rows see no key at all, which the reference
     averages uniformly and the kernel zeroes: that case runs the plain
-    reference on a CPU tensor and raises on a CUDA one.
+    reference on a CPU tensor (resolving nothing, recorded as
+    ``"torch"``, as the JAX package records its fallback as ``"jnp"``)
+    and raises on a CUDA one.
     """
-    cfg = as_config(config)
+    backend = config_backend(config, "attention")
     B, H, Sq, D = q.shape
     Skv = k.shape[2]
-    if cfg.backend == "torch":
+    rec = dict(M=Sq, N=D, K=Skv, dtype=q.dtype, batch_heads=B * H)
+    if backend == "torch":
+        _record("attention", backend=backend, **rec)
         return _ref.flash_attention_ref(q, k, v, causal=causal, scale=scale,
                                         q_lens=q_lens, kv_lens=kv_lens,
                                         q_offsets=q_offsets)
@@ -244,11 +336,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                 "length operands has ambiguous alignment; "
                                 "falling back to the plain reference",
                                 strict=strict)
-            if q.device.type != "cpu":
+            if q.device.type == "cuda":
                 raise ValueError(
                     f"ops.attention: causal attention with Sq={Sq} > "
                     f"Skv={Skv} and no length operands has rows that see no "
                     f"key; pass q_lens/kv_lens/q_offsets to run the kernel")
+            _record("attention", backend="torch", **rec)
             return _ref.flash_attention_ref(q, k, v, causal=causal,
                                             scale=scale)
         _warn_fallback_once("attention_causal_unaligned",
@@ -260,6 +353,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                device=q.device)
         q_lens = kv_lens = torch.full((B,), Skv, dtype=torch.int32,
                                       device=q.device)
+    cfg = resolve(config, op="attention", M=Sq, N=D, K=Skv, dtype=q.dtype,
+                  batch_heads=B * H)
+    _record("attention", backend=backend, config=cfg, **rec)
+    if q.is_meta:
+        return torch.empty_like(q)
     bq, bkv = fit_tiles(q.dtype, Sq, Skv, cfg.bq, cfg.bkv)
     if Sq % bq or Skv % bkv:
         # ragged tiles: the lengths default to the unragged extents
@@ -288,9 +386,17 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     (B, T) each slot's logical -> physical pages and ``kv_lens`` (B,)
     the valid kv extents.  ``config`` only selects the backend: the page
     geometry is the schedule (one page per step), so there is no tile
-    to resolve and no fallback rule.
+    to resolve and no fallback rule.  The dispatch is recorded as an
+    ``attention`` of M = H // KV query rows over K = T * ps keys, as in
+    the JAX package.
     """
-    if as_config(config).backend == "torch":
+    backend = config_backend(config, "attention")
+    B, H, D = q.shape
+    ps, KV = k_pool.shape[1], k_pool.shape[2]
+    T = page_table.shape[1]
+    _record("attention", M=H // KV, N=D, K=T * ps, dtype=q.dtype,
+            backend=backend, batch_heads=B * KV)
+    if backend == "torch" or q.is_meta:
         return _ref.paged_attention_ref(q, k_pool, v_pool, page_table,
                                         kv_lens=kv_lens, scale=scale)
     return _paged(q, k_pool, v_pool, page_table, kv_lens=kv_lens,

@@ -21,7 +21,11 @@ frames, or the image's patch positions before the prompt):
 
 Pass ``--device cpu`` to run the plain versions of the kernels on the
 host (at the reduced size), and ``--trace-out PATH`` to stream the
-engine's spans and events to a JSONL file.
+engine's spans and events to a JSONL file.  ``--plan trace`` resolves
+every kernel config of the engine's call shapes ahead of serving
+(:func:`repro_torch.plan.trace_model` on the meta device), ``--plan
+PATH`` serves under a saved plan (the JAX package's plan files load
+too), and ``--plan-out PATH`` saves the engine's active plan.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import torch
 from repro_torch import obs, resolve_device
 from repro_torch.configs import get_config
 from repro_torch.models import Ctx, build_model
+from repro_torch.plan import Plan
 from repro_torch.plan.config import dtype_from_name
 from repro_torch.serve import Request, ServeEngine
 
@@ -93,7 +98,8 @@ def serve_batch(arch: str, *, reduced: bool = True, batch: int = 4,
                 step_timeout_s: float | None = None, device=None,
                 page_size: int | None = None, num_pages: int | None = None,
                 prefill_chunk: int | None = None,
-                n_layers: int | None = None) -> dict:
+                n_layers: int | None = None, plan=None,
+                plan_out: str | None = None) -> dict:
     """Run a synthetic request batch through the serving engine.
 
     Parameters are made from ``seed`` directly in ``dtype`` on
@@ -111,7 +117,9 @@ def serve_batch(arch: str, *, reduced: bool = True, batch: int = 4,
     prompts chunk by chunk between decode dispatches.  ``n_layers``
     cuts a layer-list family's depth (the first ``n_layers`` blocks at
     the config's widths), for a model whose full depth does not fit one
-    card.
+    card.  ``plan`` is forwarded to :class:`ServeEngine` (a
+    :class:`~repro_torch.plan.Plan`, a path to a saved plan JSON, or
+    ``"trace"``); ``plan_out`` saves the engine's active plan there.
     """
     device = resolve_device(device)
     cfg = get_config(arch, reduced=reduced)
@@ -123,6 +131,8 @@ def serve_batch(arch: str, *, reduced: bool = True, batch: int = 4,
     model = build_model(cfg)
     ctx = Ctx(plan=backend, dtype=dtype)
     params = model.init(seed=seed, dtype=dtype, device=device)
+    if isinstance(plan, str) and plan != "trace":
+        plan = Plan.load(plan)
     slots = num_slots or min(batch, 4)
     n_prefix = 0 if cfg.family == "encdec" else frontend_len(cfg, prompt_len)
     engine = ServeEngine(
@@ -132,17 +142,19 @@ def serve_batch(arch: str, *, reduced: bool = True, batch: int = 4,
         page_size=page_size, num_pages=num_pages,
         prefill_chunk=prefill_chunk,
         cache_kwargs=({"enc_len": prompt_len} if cfg.family == "encdec"
-                      else None))
+                      else None), plan=plan)
     reqs = make_requests(cfg, seed, batch, prompt_len, gen_len, mixed,
                          temperature=temperature, top_k=top_k, top_p=top_p,
                          device=device, dtype=dtype)
     results = engine.run(reqs, step_timeout_s=step_timeout_s)
+    if plan_out:
+        engine.plan.save(plan_out)
     tp = engine.throughput()
     gen = np.full((batch, gen_len), -1, np.int64)
     for rid, res in results.items():
         gen[rid, :len(res.tokens)] = res.tokens
     return {"generated": gen, **tp, "stats": engine.stats.snapshot(),
-            "captures": engine.captures}
+            "captures": engine.captures, "plan": engine.plan}
 
 
 def main(argv=None) -> None:
@@ -180,6 +192,11 @@ def main(argv=None) -> None:
     ap.add_argument("--layers", type=int, default=None,
                     help="serve only the first N layers (a depth cut for "
                     "a model that does not fit the card)")
+    ap.add_argument("--plan", default=None, metavar="trace|PATH",
+                    help="'trace' to resolve every kernel config ahead of "
+                    "time, or a path to a saved plan JSON")
+    ap.add_argument("--plan-out", default=None, metavar="PATH",
+                    help="save the engine's active execution plan here")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="write a JSONL span/event trace of the run here "
                     "(implies tracing on; one JSON object per line)")
@@ -197,7 +214,7 @@ def main(argv=None) -> None:
             top_p=args.top_p, step_timeout_s=args.step_timeout,
             device=args.device, page_size=args.page_size,
             num_pages=args.num_pages, prefill_chunk=args.prefill_chunk,
-            n_layers=args.layers)
+            n_layers=args.layers, plan=args.plan, plan_out=args.plan_out)
     finally:
         if args.trace_out:
             obs.disable()
@@ -213,6 +230,9 @@ def main(argv=None) -> None:
         print(f"pages in use (peak): {s['pages_in_use']}  "
               f"shared: {s['pages_shared']}  "
               f"prefill chunks: {s['prefill_chunks']}")
+    print(f"plan: {out['plan']!r} fingerprint {out['plan'].fingerprint()}")
+    if args.plan_out:
+        print(f"plan written to {args.plan_out}")
     if args.trace_out:
         print(f"trace written to {args.trace_out}")
 

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
-from repro_torch.plan.config import KernelConfig
+from repro_torch.plan.plan import Plan, as_plan
 from repro_torch.quant.tensor import QTensor
 
 __all__ = ["Ctx", "Params", "linear", "rms_norm", "rope", "attention",
@@ -34,16 +34,26 @@ Params = dict[str, Any]
 class Ctx:
     """Per-call execution context.
 
-    ``plan`` is a backend name (``"auto"`` | ``"torch"``), a
-    :class:`~repro_torch.plan.KernelConfig` or ``None``;
-    it is normalised to a ``KernelConfig`` at construction.  ``dtype``
-    is the compute dtype.
+    ``plan`` is the one execution-configuration field
+    (:mod:`repro_torch.plan`): a backend name (``"auto"``, kernel configs
+    tuned per call site through :mod:`repro_torch.tune` and memoized
+    into the plan; ``"torch"``, the plain versions), a
+    :class:`~repro_torch.plan.KernelConfig` (one fixed config
+    everywhere), a :class:`~repro_torch.plan.Plan` (a per-call-site
+    table, e.g. from :func:`repro_torch.plan.trace_model`), a tile
+    tuple, or ``None`` (the fixed default ``KernelConfig()``).  It is
+    normalized to a ``Plan`` at construction; quantized execution is the
+    plan's ``quant`` field.  ``dtype`` is the compute dtype.
     """
     plan: Any = "auto"
     dtype: torch.dtype = torch.bfloat16
 
     def __post_init__(self):
-        object.__setattr__(self, "plan", ops.as_config(self.plan))
+        object.__setattr__(self, "plan", as_plan(self.plan))
+
+    def with_plan(self, plan) -> "Ctx":
+        """This context with a different execution plan."""
+        return Ctx(plan=plan, dtype=self.dtype)
 
 
 def linear(p: Params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
@@ -123,7 +133,7 @@ def _lengths_mask(S: int, T: int, lengths: torch.Tensor, causal: bool,
 
 
 def _gqa_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool, config: KernelConfig,
+              causal: bool, config: Plan,
               lengths: torch.Tensor | None = None,
               q_offset: torch.Tensor | None = None) -> torch.Tensor:
     """q: (B,S,H,D), k/v: (B,T,KV,D) -> (B,S,H,D).

@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch import resolve_device
+from repro_torch import make_generator, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import Ctx, Params
@@ -290,8 +290,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     JAX package's distributions (see
     :func:`repro_torch.models.transformer.init_params`)."""
     device = resolve_device(device)
-    g = torch.Generator(device=device)
-    g.manual_seed(seed)
+    g = make_generator(device, seed)
     return {"embed": init_embed(g, cfg, dtype, device),
             "layers": [init_layer(g, cfg, dtype, device)
                        for _ in range(cfg.n_layers)],

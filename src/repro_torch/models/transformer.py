@@ -16,7 +16,7 @@ import torch
 
 from typing import Callable
 
-from repro_torch import resolve_device
+from repro_torch import make_generator, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import Ctx, Params
@@ -115,8 +115,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     the generators differ.  ``init_mlp_fn(generator) -> params`` replaces
     each layer's dense MLP (the MoE family's experts)."""
     device = resolve_device(device)
-    g = torch.Generator(device=device)
-    g.manual_seed(seed)
+    g = make_generator(device, seed)
     return {"embed": init_embed(g, cfg, dtype, device),
             "layers": [_layer_params(g, cfg, dtype, device, init_mlp_fn)
                        for _ in range(cfg.n_layers)],

@@ -1,15 +1,29 @@
-"""Observability: spans, events and always-on counters, and latency
-summaries (the port of ``repro.obs`` without its kernel watch).
+"""Observability: spans, events and always-on counters, kernel
+utilization accounting, and latency summaries (the port of
+``repro.obs``).
 
 * **counters**: always-on monotonic integers (:func:`counter_inc` /
-  :func:`counters`); ``ops.fallback_counts`` reads them.
+  :func:`counters`); ``ops.fallback_counts`` and ``tune.calls`` read
+  them.
 * **spans / events**: structured JSONL tracing (:func:`span` /
   :func:`event`), a shared no-op when disabled; switch with
   :func:`enable` / :func:`disable` or the scoped :func:`capture`.
+* **kernel watch**: per-dispatch :class:`OpRecord` accounting of the
+  resolved :class:`~repro_torch.plan.KernelConfig`, joined with the
+  Hopper model's prediction and an optional measurement on the card
+  into :func:`utilization_table`.
 * **metrics**: :func:`percentile` and :func:`summarize` of latency
   samples.
 """
 
+from repro_torch.obs.kernel_watch import (
+    OpRecord,
+    measure_recorded,
+    record_dispatch,
+    recorded_ops,
+    reset_records,
+    utilization_table,
+)
 from repro_torch.obs.metrics import percentile, summarize
 from repro_torch.obs.trace import (
     JsonlSink,
@@ -33,4 +47,7 @@ __all__ = [
     "reset_counters",
     # metrics
     "percentile", "summarize",
+    # kernel watch
+    "OpRecord", "record_dispatch", "recorded_ops", "reset_records",
+    "utilization_table", "measure_recorded",
 ]

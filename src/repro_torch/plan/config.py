@@ -1,10 +1,24 @@
-"""`KernelConfig`: one validated execution configuration of the kernels.
+"""`KernelConfig` and `OpKey`: the typed vocabulary of execution plans.
 
 The port's counterpart of ``repro.plan.config``.  ``backend`` is
 ``"auto"`` (the hand-written CUDA kernel on a CUDA tensor, its plain
 PyTorch version on a CPU tensor) or ``"torch"`` (the plain version on
-any device, the counterpart of the JAX package's ``"jnp"``).  Plans,
-tracing and the tuner come in later slices.
+any device, the counterpart of the JAX package's ``"jnp"``).
+
+An :class:`OpKey` names one kernel call site by its mathematical
+signature ``(op, M, N, K, groups, dtype)``; keys bucket their shape to
+the next power of two, the same rule as the tune cache's keys
+(:func:`_next_pow2`), so a ragged serving shape resolves to its
+bucket's entry.
+
+JSON (``KernelConfig.to_json`` / ``from_json``) is the JAX package's
+plan schema: a field is written where it differs from the schema's
+default, which is the JAX package's default config (128 x 128 x 128
+tiles, 128 x 128 attention tiles), and a field left out reads as that
+default, so a plan file moves between the two packages unchanged.
+The port's own defaults differ (``bk=None``, ``bq=bkv=32``, see
+:class:`KernelConfig`), so they are written out; ``bk=None`` is written
+as the k tile it resolves to wherever the dtype is known.
 """
 
 from __future__ import annotations
@@ -13,15 +27,44 @@ import dataclasses
 
 import torch
 
-__all__ = ["BACKENDS", "KernelConfig", "resolve_slots", "dtype_name",
-           "dtype_from_name"]
+__all__ = ["BACKENDS", "UNSET", "KernelConfig", "OpKey", "resolve_slots",
+           "dtype_name", "dtype_from_name"]
+
+
+class _Unset:
+    """Sentinel for 'keyword not passed' with a stable repr."""
+
+    _instance = None
+
+    def __new__(cls):
+        if cls._instance is None:
+            cls._instance = super().__new__(cls)
+        return cls._instance
+
+    def __repr__(self):
+        return "<unset>"
+
+
+#: Module-wide "keyword not passed" sentinel.
+UNSET = _Unset()
 
 BACKENDS = ("auto", "torch")
+# the JAX package's backend names, read from its plan files: its plain
+# "jnp" is the port's "torch", its kernel backends the port's "auto"
+_JAX_BACKENDS = {"jnp": "torch", "pallas": "auto", "interpret": "auto"}
+_OPS = ("matmul", "grouped_matmul", "attention")
 _QUANTS = (None, "int8", "fp8")
 _VARIANTS = ("dobu", "single")
 _GRID_ORDERS = ("ijk", "jik")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
+_DTYPE_BYTES = {"float64": 8, "float32": 4, "int32": 4, "bfloat16": 2,
+                "float16": 2, "int8": 1, "uint8": 1, "float8_e4m3fn": 1,
+                "float8_e5m2": 1}
+# the plan schema's defaults: the JAX package's KernelConfig()
+_JSON_DEFAULTS = {"backend": "auto", "bm": 128, "bn": 128, "bk": 128,
+                  "variant": "dobu", "slots": None, "grid_order": "ijk",
+                  "bq": 128, "bkv": 128, "quant": None, "out_dtype": None}
 
 
 def dtype_name(dtype) -> str:
@@ -29,6 +72,20 @@ def dtype_name(dtype) -> str:
     if isinstance(dtype, str):
         return dtype
     return str(dtype).removeprefix("torch.")
+
+
+def dtype_bytes(name: str) -> int:
+    """Bytes an element of the named dtype."""
+    if name not in _DTYPE_BYTES:
+        raise ValueError(f"unknown dtype name {name!r}; have "
+                         f"{sorted(_DTYPE_BYTES)}")
+    return _DTYPE_BYTES[name]
+
+
+def _next_pow2(n: int) -> int:
+    """THE shape-bucketing rule: OpKey.bucketed and the tune cache's keys
+    round every dim up to the next power of two with it."""
+    return 1 if n <= 1 else 1 << (n - 1).bit_length()
 
 
 def dtype_from_name(name: str) -> torch.dtype:
@@ -135,13 +192,13 @@ class KernelConfig:
         """Buffer depth: explicit ``slots`` wins, else variant default."""
         return resolve_slots(self.variant, self.slots)
 
-    def resolved_bk(self, dtype: torch.dtype) -> int:
-        """The k tile for inputs of ``dtype`` (see the class docstring)."""
+    def resolved_bk(self, dtype) -> int:
+        """The k tile for inputs of ``dtype`` (a torch dtype or its name;
+        see the class docstring)."""
         if self.bk is not None:
             return self.bk
-        if dtype == torch.int8:
-            return 256
-        return 64 if dtype == torch.float32 else 128
+        size = dtype_bytes(dtype_name(dtype))
+        return 256 // size if size in (1, 2, 4) else 128
 
     def matmul_kwargs(self, dtype: torch.dtype, *,
                       grouped: bool = False) -> dict:
@@ -154,3 +211,79 @@ class KernelConfig:
         if not grouped:
             kw["grid_order"] = self.grid_order
         return kw
+
+    # ------------------------------------------------------------------
+    def to_json(self, dtype=None) -> dict:
+        """The fields that differ from the plan schema's defaults (the
+        JAX package's config); ``bk=None`` becomes the k tile it resolves
+        to for inputs of ``dtype`` when that is given, else JSON null."""
+        out = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if f.name == "bk" and v is None and dtype is not None:
+                v = self.resolved_bk(dtype)
+            if v != _JSON_DEFAULTS[f.name]:
+                out[f.name] = v
+        return out
+
+    @classmethod
+    def from_json(cls, d: dict) -> "KernelConfig":
+        """Inverse of :meth:`to_json`, and the reader of the JAX
+        package's plan entries: a field left out is the schema's default,
+        and a JAX backend name maps to the port's."""
+        kw = dict(_JSON_DEFAULTS)
+        kw.update({k: v for k, v in d.items() if k in _JSON_DEFAULTS})
+        kw["backend"] = _JAX_BACKENDS.get(kw["backend"], kw["backend"])
+        return cls(**kw)
+
+    @classmethod
+    def from_candidate(cls, cand, **overrides) -> "KernelConfig":
+        """Build from a :class:`repro_torch.tune.Candidate` (duck-typed)."""
+        kw = {"bm": cand.bm, "bn": cand.bn, "bk": cand.bk,
+              "variant": cand.variant, "slots": cand.slots,
+              "grid_order": cand.grid_order}
+        kw.update(overrides)
+        return cls(**kw)
+
+
+@dataclasses.dataclass(frozen=True, order=True)
+class OpKey:
+    """The signature of one kernel call site.
+
+    For matmuls, ``(M, N, K)`` are the GEMM dims (``groups`` > 1 for the
+    grouped/MoE form; int8 products carry dtype ``"int8"``); for
+    attention, ``M`` = query length, ``N`` = head dim, ``K`` = kv
+    length: the convention of :class:`repro_torch.tune.Problem`.
+    """
+
+    op: str
+    M: int
+    N: int
+    K: int
+    groups: int = 1
+    dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.op not in _OPS:
+            raise ValueError(f"OpKey.op must be one of {_OPS}, "
+                             f"got {self.op!r}")
+
+    def bucketed(self) -> "OpKey":
+        """Power-of-two shape bucket (same rounding as the tune cache)."""
+        return dataclasses.replace(
+            self, M=_next_pow2(self.M), N=_next_pow2(self.N),
+            K=_next_pow2(self.K), groups=_next_pow2(self.groups))
+
+    @property
+    def dtype_bytes(self) -> int:
+        return dtype_bytes(self.dtype)
+
+    def to_str(self) -> str:
+        return (f"{self.op}|{self.M}x{self.N}x{self.K}"
+                f"|g{self.groups}|{self.dtype}")
+
+    @classmethod
+    def from_str(cls, s: str) -> "OpKey":
+        op, dims, g, dtype = s.split("|")
+        M, N, K = (int(d) for d in dims.split("x"))
+        return cls(op=op, M=M, N=N, K=K, groups=int(g[1:]), dtype=dtype)

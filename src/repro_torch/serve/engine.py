@@ -64,8 +64,16 @@ an encdec source's frames do not (they fill the per-slot cross-attention
 K/V, sized by ``cache_kwargs={"enc_len": ...}``, which paged encdec
 serving requires); a request with a frontend shares no prefix page and
 is never chunked.
-Execution plans and plan validation are not ported yet (ROADMAP.md,
-queue 1 items 5 and 8).
+
+``plan=`` takes a :class:`~repro_torch.plan.Plan` (or a saved one,
+loaded by the caller) or ``"trace"``: :func:`repro_torch.plan.trace_model`
+on the meta device resolves every kernel config the engine's buckets,
+frontends and decode width need at construction, so serving never
+consults the tuner; ``self.plan`` is the active plan.  A plan's misses
+(e.g. the chunk shapes of chunked prefill, which the trace does not
+cover, as in the JAX engine) resolve eagerly, at the first dispatch
+of their shape; none ever resolves inside a CUDA-graph capture.  Plan
+validation is not ported yet (ROADMAP.md queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -150,7 +158,8 @@ class ServeEngine:
     per engine step.  ``cache_kwargs`` are forwarded to
     ``model.init_cache`` (``enc_len`` for the encdec family, shared by
     every request; ``quantize_kv`` is not ported yet and raises).
-    ``plan`` and ``validate=True`` are not ported yet and raise.
+    ``plan``: a :class:`~repro_torch.plan.Plan` or ``"trace"`` (see the
+    module docstring); ``validate=True`` is not ported yet and raises.
     """
 
     def __init__(self, model, params, ctx, *, num_slots: int = 4,
@@ -163,10 +172,6 @@ class ServeEngine:
                  prefill_chunk: int | None = None,
                  cache_kwargs: dict | None = None, plan=None,
                  validate: bool = False):
-        if plan is not None:
-            raise NotImplementedError(
-                "ServeEngine(plan=...): execution plans are not ported yet "
-                "(ROADMAP.md queue 1 item 5: OpKey, Plan, trace_model)")
         if validate:
             raise NotImplementedError(
                 "ServeEngine(validate=True): plan and page-geometry "
@@ -180,7 +185,6 @@ class ServeEngine:
         self.device = resolve_device(device)
         self.model = model
         self.params = params
-        self.ctx = ctx
         self.num_slots = int(num_slots)
         self.max_len = int(max_len)
         self.cache_dtype = cache_dtype
@@ -207,6 +211,13 @@ class ServeEngine:
                 b *= 2
             bucket_sizes.append(max_len)
         self.bucket_sizes = tuple(sorted(set(int(b) for b in bucket_sizes)))
+
+        if plan is not None:
+            if isinstance(plan, str) and plan == "trace":
+                plan = self._trace_plan(model, ctx, cache_dtype)
+            ctx = ctx.with_plan(plan)
+        self.ctx = ctx
+        self.plan = ctx.plan
 
         # each cache leaf's batch axis, probed once from two batch sizes
         # on the meta device (shapes only, nothing allocated)
@@ -253,6 +264,39 @@ class ServeEngine:
         self._submit_t: dict[int, float] = {}
         self._last_prefill_s = 0.0
         self._last_dispatch_s = 0.0
+
+    def _trace_plan(self, model, ctx, cache_dtype):
+        """Resolve every kernel config this engine will need, ahead of
+        time: one meta-device prefill per bucket size (batch 1, exactly
+        the admission shape, with the family's frontend) plus one decode
+        at the slot width, with the engine's real params (moved to the
+        meta device: their dtypes and layouts, no data)."""
+        from repro_torch.plan import trace_model
+        cfg = model.cfg
+        n_front = 0
+        if cfg.family == "encdec":
+            front = (1, int(self._cache_kw.get("enc_len", 8)), cfg.d_model)
+        elif getattr(cfg, "frontend", None):
+            front = (1, cfg.frontend_tokens, cfg.d_model)
+            n_front = cfg.frontend_tokens
+        else:
+            front = None
+        shapes, seen = [], set()
+        for b in self.bucket_sizes:
+            sb = min(b, self.max_len - n_front)
+            if sb < 1 or sb in seen:
+                continue
+            seen.add(sb)
+            bs = {"tokens": ((1, sb), torch.int32),
+                  "lengths": ((1,), torch.int32)}
+            if front is not None:
+                bs["frontend_embeds"] = (front, ctx.dtype)
+            shapes.append(bs)
+        return trace_model(model, shapes, ctx, max_len=self.max_len,
+                           modes=("prefill", "decode"),
+                           decode_batch=self.num_slots,
+                           cache_dtype=cache_dtype,
+                           cache_kwargs=self._cache_kw, params=self.params)
 
     def _shapes(self, batch: int, max_len: int) -> dict[str, tuple]:
         """The shape of every cache leaf but ``pos`` at ``batch`` and

@@ -37,6 +37,7 @@ from repro_torch.interop import params_from_numpy
 from repro_torch.models import Ctx, build_model, encdec
 from repro_torch.models import layers as L
 from repro_torch.serve import Request, ServeEngine, lockstep_generate
+from torch_tune_cache import port_tune_cache  # noqa: F401 (autouse)
 
 TOL = 1e-4
 FP32_TOL = 2e-5

@@ -34,6 +34,7 @@ from repro_torch.models import Ctx, build_model
 from repro_torch.plan import KernelConfig
 from repro_torch.quant import QTensor
 from repro_torch.serve import Request, ServeEngine, sampling
+from torch_tune_cache import port_tune_cache  # noqa: F401 (autouse)
 
 TOL = 1e-4
 ARCH = "zamba2-2.7b"

@@ -33,6 +33,7 @@ from repro_torch.kernels.ref import (flash_attention_ref, grouped_matmul_ref,
 from repro_torch.kernels.zero_stall_matmul import zero_stall_matmul
 from repro_torch.plan import KernelConfig, resolve_slots
 from repro_torch.quant import quantize, quantize_rows
+from torch_tune_cache import port_tune_cache  # noqa: F401 (autouse)
 
 FP32_TOL, BF16_TOL = 2e-5, 2e-2
 J_INTERP_MM = JKernelConfig(backend="interpret", bm=8, bn=8, bk=8)
@@ -294,8 +295,10 @@ def test_kernel_config_validates():
     assert KernelConfig(out_dtype=torch.float32).out_dtype == "float32"
     assert KernelConfig().resolved_bk(torch.bfloat16) == 128
     assert KernelConfig(bm=16).matmul_kwargs(torch.float32)["bk"] == 64
+    # the config vocabulary takes tile tuples now; a pair on a matmul
+    # is a typo (its tiles would be ignored) and still raises
     with pytest.raises(ValueError, match="config"):
-        ops.as_config((8, 8, 8))
+        ops.matmul(torch.zeros(2, 8), torch.zeros(8, 8), config=(8, 8))
 
 
 # ----------------------------------------------------------------------

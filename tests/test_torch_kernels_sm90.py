@@ -30,6 +30,7 @@ from repro_torch.kernels.zero_stall_matmul import (select_design, sm90_rows,
                                                    split_plan,
                                                    zero_stall_matmul)
 from repro_torch.plan import KernelConfig
+from torch_tune_cache import port_tune_cache  # noqa: F401 (autouse)
 
 BF16_TOL = 2e-2
 SMS = 132                            # streaming multiprocessors of an H100

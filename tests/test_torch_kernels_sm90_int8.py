@@ -31,6 +31,7 @@ from repro_torch.kernels.zero_stall_matmul import (select_design, sm90_rows,
                                                    split_plan)
 from repro_torch.plan import KernelConfig
 from repro_torch.quant import quantize, quantize_rows
+from torch_tune_cache import port_tune_cache  # noqa: F401 (autouse)
 
 SMS = 132                            # streaming multiprocessors of an H100
 INT8 = torch.int8

@@ -28,6 +28,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer
 from repro_torch.plan import KernelConfig
 from repro_torch.quant import quantize
+from torch_tune_cache import port_tune_cache  # noqa: F401 (autouse)
 
 FP32_TOL, MODEL_TOL = 2e-5, 1e-4
 J_CTX = JCtx(plan="jnp", dtype=jnp.float32)

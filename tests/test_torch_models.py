@@ -23,6 +23,7 @@ from repro_torch.interop import params_from_numpy, tensor_from_numpy
 from repro_torch.models import Ctx, build_model
 from repro_torch.models import layers as L
 from repro_torch.models import transformer
+from torch_tune_cache import port_tune_cache  # noqa: F401 (autouse)
 
 TOL = 1e-4
 ARCHS = ["gemma-7b", "deepseek-coder-33b"]

@@ -32,6 +32,7 @@ from repro_torch.kernels.ref import grouped_matmul_ref
 from repro_torch.models import Ctx, build_model, moe
 from repro_torch.plan import KernelConfig
 from repro_torch.serve import Request, ServeEngine
+from torch_tune_cache import port_tune_cache  # noqa: F401 (autouse)
 
 TOL = 1e-4
 FP32_TOL, BF16_TOL = 2e-5, 2e-2

@@ -30,6 +30,7 @@ from repro_torch.interop import params_from_numpy
 from repro_torch.kernels import ops
 from repro_torch.models import Ctx, build_model
 from repro_torch.serve import Request, ServeEngine
+from torch_tune_cache import port_tune_cache  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True)

@@ -28,6 +28,7 @@ from repro_torch.kernels.paged_attention import (paged_attention, paged_rows,
                                                  paged_splits, paged_stages,
                                                  smem_bytes)
 from repro_torch.kernels.ref import NEG_INF, paged_attention_ref
+from torch_tune_cache import port_tune_cache  # noqa: F401 (autouse)
 
 SMS = 132                            # streaming multiprocessors of an H100
 FP32_TOL, BF16_TOL = 2e-5, 2e-2

@@ -18,6 +18,7 @@ import pytest
 
 from repro.serve import paging as jpaging
 from repro_torch.serve import paging as tpaging
+from torch_tune_cache import port_tune_cache  # noqa: F401 (autouse)
 
 MODS = {"port": tpaging, "jax": jpaging}
 

@@ -39,6 +39,7 @@ from repro_torch.models import Ctx, build_model
 from repro_torch.models import layers as L
 from repro_torch.plan import KernelConfig
 from repro_torch.quant import QTensor, quantize, quantize_rows, quantize_tree
+from torch_tune_cache import port_tune_cache  # noqa: F401 (autouse)
 
 TOL = 1e-4
 J_INTERP = JKernelConfig(backend="interpret", bm=8, bn=8, bk=8)

@@ -34,6 +34,7 @@ from repro_torch.kernels.zero_stall_matmul import zero_stall_matmul
 from repro_torch.models import Ctx, build_model
 from repro_torch.serve import Request, ServeEngine
 from repro_torch.serve import sampling
+from torch_tune_cache import port_tune_cache  # noqa: F401 (autouse)
 
 SEEDS = [0, 1, 7, 2 ** 31 - 1]
 KNOBS = dict(temperature=0.9, top_k=20, top_p=0.95)

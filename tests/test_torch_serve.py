@@ -35,6 +35,7 @@ from repro_torch.serve import (EngineStats, Request, ServeEngine,
                                lockstep_generate)
 from repro_torch.serve import engine as engine_mod
 from repro_torch.serve import sampling
+from torch_tune_cache import port_tune_cache  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 CTX = Ctx(plan="auto", dtype=torch.float32)
@@ -228,13 +229,14 @@ def test_request_validation_and_stats():
 
 
 def test_engine_rejects_what_slice_two_brings(gemma):
-    """Paging and chunked prefill came with slice 2 of the port; plans and
-    validation did not, and their refusal names their ROADMAP items."""
+    """Paging and chunked prefill came with slice 2 of the port and plans
+    with slice 10; plan validation did not, and its refusal names its
+    ROADMAP item.  A plan argument outside the vocabulary raises."""
     _, _, m, tp = gemma
-    for kw, item in (({"plan": object()}, "queue 1 item 5:"),
-                     ({"validate": True}, "queue 1 item 8:")):
-        with pytest.raises(NotImplementedError, match=item):
-            _engine(m, tp, **kw)
+    with pytest.raises(ValueError, match="execution plan"):
+        _engine(m, tp, plan=object())
+    with pytest.raises(NotImplementedError, match="queue 1 item 8:"):
+        _engine(m, tp, validate=True)
     _engine(m, tp, page_size=8, prefill_chunk=4)
     engine = _engine(m, tp)
     with pytest.raises(ValueError, match="exceeds max_len"):
@@ -305,8 +307,9 @@ print("clean")
 """
 
 
-def test_port_imports_neither_jax_nor_the_jax_package():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               REPRO_TORCH_TUNE_CACHE=str(tmp_path / "tune.json"))
     out = subprocess.run([sys.executable, "-c", _NO_JAX], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

@@ -39,6 +39,7 @@ from repro_torch.models import Ctx, build_model
 from repro_torch.models import layers as L
 from repro_torch.serve import (TRASH_PAGE, OutOfPages, Request,
                                ServeEngine)
+from torch_tune_cache import port_tune_cache  # noqa: F401 (autouse)
 
 FP32_TOL, BF16_TOL = 2e-5, 2e-2
 J_INTERP = JKernelConfig(backend="interpret")

@@ -32,6 +32,7 @@ from repro_torch.kernels.ref import ssd_scan_ref
 from repro_torch.models import Ctx, build_model, ssm
 from repro_torch.quant import QTensor, quantize_tree
 from repro_torch.serve import Request, ServeEngine
+from torch_tune_cache import port_tune_cache  # noqa: F401 (autouse)
 
 KERNEL_TOL = 2e-5       # fp32, tests/test_kernels.py's tolerance
 TOL = 1e-4              # whole models, as tests/test_torch_models.py

@@ -32,6 +32,7 @@ from repro_torch.configs import get_config
 from repro_torch.interop import params_from_numpy
 from repro_torch.models import Ctx, build_model
 from repro_torch.serve import Request, ServeEngine, lockstep_generate
+from torch_tune_cache import port_tune_cache  # noqa: F401 (autouse)
 
 TOL = 1e-4
 ARCH = "llava-next-34b"
