@@ -158,6 +158,21 @@ Phases, each printed as it runs:
    dispatch, predicted and measured utilization a row; (e) phase 5e's
    logits margin (gemma-7b W8A8) under the analytic plan, and with flash
    attention, then the bf16 head, swapped for its plain version;
+5n. the int8 KV cache and the static analyzer, on phase 5's gemma-7b
+   bf16 weights: (a) 4 rows, 128 prompt tokens fed through
+   ``Model.decode`` one at a time, then 32 greedy tokens, on an int8
+   cache (``init_cache(quantize_kv=True)``) beside a bf16 cache: every
+   step's logits within 5% of the largest bf16-cache logit (the JAX
+   package's own gate), argmax agreement, ms a step and both caches'
+   bytes; (b) ``ServeEngine(plan="trace", validate=True)`` contiguous and
+   paged (16-token pages) and the launcher's ``validate_plan`` on phase
+   5's traffic: no error diagnostic, phase 5's first tokens; a plan
+   accumulating int8 in int8 refused naming ZS-L004; (c) ``lint_program``
+   over one eager K = 4 dispatch of the engine on CUDA tensors: no
+   ZS-P001, no ZS-P002, the allowlist hits; (d) ``lint_kernel_ir`` over
+   the launch geometry the six wrappers record at real launches (phase
+   6's shapes, and a prefill and a decode pass under 5m's measured plan):
+   no ZS-K error;
 6. each kernel's time at the main-path shapes with CUDA events over a
    CUDA graph of many calls (device time, with the host's launch work
    taken out; operands cycled past the 50 MB L2), beside its plain
@@ -350,6 +365,7 @@ def main() -> int:
                   serve_qwen_full_width, serve_mistral_full_width):
         by_path.update(phase(torch, kern))
     serve_under_plans(torch, kern)
+    serve_int8_kv_and_analyze(torch, kern)
     timings = time_kernels(torch, kern)
     timings.update(time_new_kernels(torch, kern))
     slice8 = time_slice8(torch, kern)
@@ -1566,6 +1582,7 @@ def serve_full_width(torch, kern):
     require(err <= tol, "full-width prefill logits disagree")
     del logits
     greedy = serve_block_full_width(torch, kern, model, params, gen)
+    PHASE5["tokens"] = greedy
     serve_sampled_full_width(torch, kern, model, params, greedy)
     del params
     torch.cuda.empty_cache()
@@ -3169,6 +3186,259 @@ def serve_under_plans(torch, kern) -> None:
     logits_margin_5e(torch, model, qparams)
     del qparams
     torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------------
+# 5n. the int8 KV cache and the static analyzer on the card
+# ----------------------------------------------------------------------
+# phase 5's greedy tokens (ServeEngine on phase 5's weights), which the
+# validated engines of 5n must reproduce
+PHASE5: dict = {}
+# 5n (a): rows, prompt tokens fed one at a time, greedy tokens after them
+KV8 = {"B": 4, "prompt": 128, "gen": 32}
+
+
+def int8_kv_decode(torch, kern, model, params, ctx) -> None:
+    """5n (a): the int8 KV cache (``init_cache(quantize_kv=True)``)
+    against the bf16 cache on the same weights, token by token through
+    ``Model.decode``: the prompt teacher-forced, then the bf16 cache's
+    greedy tokens fed to both."""
+    import numpy as np
+    B, P, G = KV8["B"], KV8["prompt"], KV8["gen"]
+    L, V, S = GEMMA["layers"], GEMMA["V"], KV8["prompt"] + KV8["gen"]
+    toks = torch.tensor(np.random.default_rng(7).integers(0, V, (B, P)),
+                        device="cuda")
+    caches = {"bf16": model.init_cache(B, S, torch.bfloat16, device="cuda"),
+              "int8": model.init_cache(B, S, torch.bfloat16, device="cuda",
+                                       quantize_kv=True)}
+    nbytes = {name: {leaf: t.numel() * t.element_size()
+                     for leaf, t in c.items() if leaf != "pos"}
+              for name, c in caches.items()}
+    reset_counts(kern)
+    spent = {"bf16": 0.0, "int8": 0.0}
+    worst = agree = 0
+    tok = toks[:, :1]
+    for s in range(S):
+        last = {}
+        for name in ("bf16", "int8"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, caches[name] = model.decode(params, caches[name], tok, ctx)
+            torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t0
+            last[name] = lg[:, -1].float()
+        require(bool(torch.isfinite(last["int8"]).all()),
+                f"5n (a): non-finite int8-cache logits at step {s}")
+        rel = ((last["int8"] - last["bf16"]).abs().max()
+               / last["bf16"].abs().max()).item()
+        worst = max(worst, rel)
+        best = last["bf16"].argmax(-1)
+        agree += int((last["int8"].argmax(-1) == best).sum())
+        tok = toks[:, s + 1:s + 2] if s + 1 < P else best[:, None]
+    got = {n: k.launches for n, k in kern.items()}
+    want = {n: 0 for n in kern}
+    want["zero_stall_matmul"] = 2 * S * (7 * L + 1)
+    check_counts("5n (a)", got, want, f"two caches x {S} decode steps x "
+                 f"(7*{L}+1) matmuls; decode attention is plain torch on "
+                 f"both caches")
+    kb = sum(nbytes["int8"][k] for k in ("k", "v"))
+    sb = sum(nbytes["int8"][k] for k in ("k_scale", "v_scale"))
+    print(f"    (a) int8 KV cache vs bf16 cache, {B} rows, {P} prompt "
+          f"tokens one at a time then {G} greedy: worst step max|int8 - "
+          f"bf16| / max|bf16| {worst:.4g} (gate 0.05); argmax agreement "
+          f"{agree}/{B * S}; ms a step (eager, host-paced, {L} layers): bf16 "
+          f"{1e3 * spent['bf16'] / S:.2f}, int8 {1e3 * spent['int8'] / S:.2f};"
+          f" cache bytes: bf16 {sum(nbytes['bf16'].values())}, int8 {kb} "
+          f"codes + {sb} scales", flush=True)
+    require(worst < 0.05, f"5n (a): the int8 cache's logits sit {worst:.4g} "
+            f"of the largest bf16-cache logit from it, over 0.05")
+    del caches
+
+
+def validated_engines(torch, kern, model, params, ctx):
+    """5n (b): ``ServeEngine(plan="trace", validate=True)`` contiguous
+    and paged, and ``serve_batch(validate_plan=True)`` (the launcher's
+    ``--validate-plan``), on phase 5's traffic: no error diagnostic and
+    phase 5's first tokens; a plan accumulating int8 in int8 is refused.
+    Returns the contiguous engine (its eager block is 5n (c)'s program)."""
+    from repro_torch.analyze import lint_plan
+    from repro_torch.launch.serve import make_requests, serve_batch
+    from repro_torch.plan import KernelConfig, OpKey, Plan
+    kw = SERVE_KW
+    want = [PHASE5["tokens"][i][0] for i in range(kw["batch"])]
+    kept = None
+    for label, mode in (("contiguous", {}), ("paged", {"page_size": 16})):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always", RuntimeWarning)
+            eng = engine_for(torch, model, params, ctx,
+                             K=kw["steps_per_dispatch"], plan="trace",
+                             validate=True, **mode)
+        report = lint_plan(eng.plan)
+        require(not report.errors, f"5n (b) {label}: the traced plan has "
+                f"error diagnostics: {report.format()}")
+        res = eng.run(make_requests(model.cfg, kw["seed"], kw["batch"],
+                                    kw["prompt_len"], kw["gen_len"],
+                                    kw["mixed"]))
+        first = [res[i].tokens[0] for i in range(kw["batch"])]
+        print(f"    (b) ServeEngine(plan='trace', validate=True) {label}: "
+              f"{len(eng.plan)} plan entries, {report!r} ({len(caught)} "
+              f"analysis warnings raised); first tokens {first}, phase 5's "
+              f"{want}")
+        require(first == want, f"5n (b) {label}: first tokens differ from "
+                f"phase 5's engine")
+        if kept is None:
+            kept = eng
+        else:
+            del eng
+    out = serve_batch("gemma-7b", reduced=False, dtype=torch.bfloat16,
+                      device="cuda", plan="trace", validate_plan=True, **kw)
+    first = [int(t) for t in out["generated"][:, 0]]
+    print(f"    (b) launch.serve --validate-plan (serve_batch(validate_plan="
+          f"True, plan='trace')): {out['plan']!r}; decode "
+          f"{out['decode_tok_s']:.1f} tok/s; first tokens {first}")
+    require(first == want, "5n (b): the launcher's first tokens differ "
+            "from phase 5's engine")
+    del out
+    bad = Plan(quant="int8")
+    bad.add(OpKey("matmul", 64, 64, 64, dtype="int8").bucketed(),
+            KernelConfig(bm=16, bn=16, bk=16, slots=2, out_dtype="int8"))
+    try:
+        engine_for(torch, model, params, ctx, K=1, plan=bad, validate=True)
+    except ValueError as e:
+        require("ZS-L004" in str(e), f"5n (b): the refusal names no "
+                f"ZS-L004: {e}")
+        print("    (b) a plan accumulating int8 in int8: refused, "
+              "ValueError naming ZS-L004")
+    else:
+        require(False, "5n (b): ServeEngine(validate=True) took a plan "
+                "accumulating int8 in int8")
+    torch.cuda.empty_cache()
+    return kept
+
+
+def lint_engine_block(torch, eng) -> None:
+    """5n (c): ``lint_program`` over one eager K = 4 dispatch of the
+    engine's block on its CUDA tensors (the program its graph captures):
+    no fallback product, no host sync."""
+    from repro_torch.analyze import lint_program
+    from repro_torch.kernels import launches
+    before = launches.snapshot()
+    rep = lint_program(eng._block, True)
+    torch.cuda.synchronize()
+    launches.add(launches.since(before), -1)
+    rules = rep.rule_counts()
+    hits = {k: v for k, v in rep.meta["allow_hits"].items() if v}
+    print(f"    (c) lint_program over one eager K = "
+          f"{eng.steps_per_dispatch} dispatch on the card: {rep!r}, rule "
+          f"counts {rules}; allowlist hits {hits}")
+    require(not rules.get("ZS-P001") and not rules.get("ZS-P002"),
+            f"5n (c): the engine's block has fallback products or host "
+            f"syncs: {rep.format()}")
+
+
+def lint_recorded_launches(torch, kern, model, params) -> None:
+    """5n (d): ``lint_kernel_ir`` over the geometry the wrappers record at
+    real launches: each kernel once at phase 6's shapes, then a prefill
+    and a decode pass under 5m's measured plan."""
+    import numpy as np
+    from repro_torch import tune
+    from repro_torch.analyze import lint_kernel_ir
+    from repro_torch.kernels.meta import record_launches
+    from repro_torch.models import Ctx
+    from repro_torch.plan import Plan
+    dev = "cuda"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+
+    def bf(*shape):
+        return torch.randn(*shape, device=dev, generator=gen).to(
+            torch.bfloat16)
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, device=dev, generator=gen,
+                             dtype=torch.int8)
+
+    d, V = GEMMA["d"], GEMMA["V"]
+    with record_launches() as recorded:
+        for M in (4, 128):
+            for _, m, k, n, _ in gemma_matmul_shapes(M):
+                kern["zero_stall_matmul"](bf(m, k), bf(k, n))
+                kern["quantized_zero_stall_matmul"](
+                    i8(m, k), i8(n, k).t(), torch.rand(m, 1, device=dev),
+                    torch.rand(1, n, device=dev))
+            for _, g, c, k, n, _ in expert_shapes(moe_capacity(M)):
+                kern["grouped_zero_stall_matmul"](bf(g, c, k), bf(g, k, n))
+                kern["quantized_grouped_zero_stall_matmul"](
+                    i8(g, c, k), i8(g, n, k).mT,
+                    torch.rand(g, c, 1, device=dev),
+                    torch.rand(g, 1, n, device=dev))
+        kern["zero_stall_matmul"](bf(4, d), bf(V, d), trans_b=True,
+                                  out_dtype=torch.float32)
+        q = bf(1, GEMMA["H"], 128, GEMMA["hd"])
+        for lens in (None, torch.tensor([101], dtype=torch.int32,
+                                        device=dev)):
+            kern["flash_attention"](q, bf(*q.shape), bf(*q.shape),
+                                    q_lens=lens, kv_lens=lens)
+        case = paged_case(torch, gen, B=GEMMA["slots"], H=GEMMA["H"],
+                          KV=GEMMA["H"], D=GEMMA["hd"], ps=16, T=10,
+                          kv_lens=[144, 112, 96, 128], dtype=torch.bfloat16)
+        kern["paged_attention"](*case[:4], kv_lens=case[4])
+        n_phase6 = len(recorded)
+        measured = Plan.from_tune_cache(tune.TuneCache(MEASURED_CACHE))
+        ctx = Ctx(plan=measured, dtype=torch.bfloat16)
+        toks = np.random.default_rng(3).integers(0, V, (1, 128))
+        batch = {"tokens": torch.tensor(toks, device=dev),
+                 "lengths": torch.tensor([128], dtype=torch.int32,
+                                         device=dev)}
+        _, cache = model.prefill(params, batch, ctx, 160)
+        model.decode(params, cache, batch["tokens"][:, :1], ctx)
+    torch.cuda.synchronize()
+    errors, families = {}, {}
+    for ir in recorded:
+        rep = lint_kernel_ir(ir)
+        families[ir.family] = families.get(ir.family, 0) + 1
+        for dg in rep.errors:
+            errors[dg.rule] = errors.get(dg.rule, 0) + 1
+            if errors[dg.rule] <= 3:
+                print(f"      {dg.format()}")
+    print(f"    (d) lint_kernel_ir over {len(recorded)} recorded launches "
+          f"({n_phase6} at phase 6's shapes, {len(recorded) - n_phase6} of "
+          f"a prefill and a decode pass under 5m's measured plan, "
+          f"{len(measured)} entries): kernels_verified {len(recorded)}, by "
+          f"family {families}; ZS-K errors {errors}")
+    require(set(families) == set(kern), f"5n (d): launches of "
+            f"{sorted(set(kern) - set(families))} were not recorded")
+    require(not errors, f"5n (d): ZS-K errors {errors}")
+
+
+def serve_int8_kv_and_analyze(torch, kern) -> None:
+    """5n: the int8 KV cache and the static analyzer on the card (see the
+    module docstring), on phase 5's gemma-7b bf16 weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Ctx, build_model
+    t0 = time.perf_counter()
+    print("[5n] gemma-7b full width bf16 on phase 5's weights: (a) the int8 "
+          "KV cache against the bf16 cache; (b) validated engines and the "
+          "launcher's --validate-plan; (c) program lint of one eager "
+          "dispatch; (d) kernel lint of recorded launches", flush=True)
+    model = build_model(get_config("gemma-7b"))
+    params = model.init(seed=0, dtype=torch.bfloat16, device="cuda")
+    ctx = Ctx(plan="auto", dtype=torch.bfloat16)
+    ta = time.perf_counter()
+    int8_kv_decode(torch, kern, model, params, ctx)
+    tb = time.perf_counter()
+    eng = validated_engines(torch, kern, model, params, ctx)
+    tc = time.perf_counter()
+    lint_engine_block(torch, eng)
+    del eng
+    torch.cuda.empty_cache()
+    td = time.perf_counter()
+    lint_recorded_launches(torch, kern, model, params)
+    del params
+    torch.cuda.empty_cache()
+    print(f"    5n took {time.perf_counter() - t0:.1f} s: weights "
+          f"{ta - t0:.1f}, (a) {tb - ta:.1f}, (b) {tc - tb:.1f}, (c) "
+          f"{td - tc:.1f}, (d) {time.perf_counter() - td:.1f}", flush=True)
 
 
 # ----------------------------------------------------------------------

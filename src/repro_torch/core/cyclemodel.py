@@ -39,15 +39,27 @@ and olmoe-1b-7b's shapes by ``chip_smoke.py`` phase 5m
 (``tests/data/h100_matmul_tables.csv``, and flash's tiles at (1, 16,
 128, 256)), all on an NVIDIA H100 80GB HBM3 at 700 W;
 ``tests/test_torch_tune.py`` holds the model to them.
+
+Beside it, copied from the JAX package unchanged, the paper's own
+instrument: ``SnitchClusterModel``, the cycle model of the Snitch cluster
+in its five configurations (``SNITCH_CONFIGS``, paper Table I), which the
+static analyzer (:mod:`repro_torch.analyze.hazards`) reads for the
+silicon's conflict-freedom.  It is plain Python and numpy.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
+import numpy as np
 import torch
 
-__all__ = ["HopperParams", "HopperPipelineModel", "KernelEstimate"]
+from repro_torch.core.loopnest import Loop, LoopNest
+
+__all__ = ["HopperParams", "HopperPipelineModel", "KernelEstimate",
+           "SnitchConfig", "SNITCH_CONFIGS", "SnitchClusterModel",
+           "MatmulResult"]
 
 # the matmul kernels' types by element width: 1 byte int8, 2 bf16, 4 fp32
 _DTYPES = {1: torch.int8, 2: torch.bfloat16, 4: torch.float32}
@@ -316,3 +328,259 @@ class HopperPipelineModel:
                               design="tensor_core" if eb == 2 else
                               "cuda_core", blocks=blocks, splits=1,
                               stages=n_steps)
+
+
+# ----------------------------------------------------------------------
+# Snitch cluster configurations (paper Table I)
+# ----------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class SnitchConfig:
+    name: str
+    zonl: bool            # zero-overhead loop nests
+    banks: int            # TCDM banks
+    hyperbanks: int       # 1 = single address space (fc), 2 = dobu
+    dobu: bool            # double-buffering-aware interconnect
+    tcdm_kib: int
+    # --- energy model (relative units, calibrated to Table II) ---
+    # per-TCDM-access interconnect+bank energy [pJ]; larger crossbars
+    # cost more per access (paper Sec. V-B / Gautschi et al.).
+    e_access_pj: float
+    # control (cores, I$, sequencer) power at full issue rate [mW].
+    p_ctrl_mw: float
+
+    @property
+    def conflict_free(self) -> bool:
+        """Zero-conflict memory subsystem?
+
+        64 banks satisfy the worst-case RISC-V port demand
+        ((3 reads + 1 write) * 8 cores * 2 = 64); 48 banks with the
+        Dobu interconnect are conflict-free for double-buffered matmul
+        (24-bank hyperbank >= 24 simultaneous core requests, DMA in the
+        other hyperbank).
+        """
+        return self.banks >= 64 or (self.dobu and self.banks >= 48)
+
+
+# Calibration notes:
+#   * e_access_pj reproduces Table II "L1 Mem.+Interco." power ratios:
+#     Base32fc 47.5+36.9 mW vs Zonl48dobu 36.9+36.9 mW, and the +12%
+#     median energy of Zonl64fc (Fig. 5) from its big 64-port crossbar.
+#   * p_ctrl_mw reproduces Ctrl 186.3 (base) / 189.2 (zonl) mW: the
+#     sequencer adds ~3 mW but saves I$ fetches in steady state.
+SNITCH_CONFIGS = {
+    "base32fc": SnitchConfig("base32fc", False, 32, 1, False, 128, 1.00, 186.3),
+    "zonl32fc": SnitchConfig("zonl32fc", True, 32, 1, False, 128, 1.00, 189.2),
+    "zonl64fc": SnitchConfig("zonl64fc", True, 64, 1, False, 128, 1.90, 189.2),
+    "zonl64dobu": SnitchConfig("zonl64dobu", True, 64, 2, True, 128, 1.12, 189.2),
+    "zonl48dobu": SnitchConfig("zonl48dobu", True, 48, 2, True, 96, 0.95, 189.2),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class MatmulResult:
+    config: str
+    M: int
+    N: int
+    K: int
+    cycles: int
+    useful_cycles: int          # FPU MAC-issue cycles (paper's utilization basis)
+    stall_cycles_conflict: int
+    overhead_cycles_loop: int
+    dma_cycles: int
+    power_mw: float
+
+    @property
+    def utilization(self) -> float:
+        return self.useful_cycles / self.cycles
+
+    @property
+    def perf_gflops(self) -> float:
+        # Paper accounting: peak = 8 DPGflop/s for 8 FPUs @ 1 GHz.
+        return 8.0 * self.utilization
+
+    @property
+    def energy_eff_gflops_w(self) -> float:
+        return self.perf_gflops / (self.power_mw * 1e-3)
+
+
+class SnitchClusterModel:
+    """Cycle model of the 8+1-core Snitch cluster running FP64 matmul."""
+
+    N_CORES = 8
+    UNROLL = 8                # paper footnote 2: actual implementations use 8
+    FPU_LATENCY = 4           # RAW distance hidden by unrolling
+    DMA_BYTES_PER_CYCLE = 64  # 512-bit port
+    WORD = 8                  # FP64
+    # Calibrated once against Table II (32x32x32 anchors: base 95.3%,
+    # zonl48dobu 99.0%):
+    KERNEL_STARTUP = 41       # SSR/FREP config + pipeline fill per tile kernel
+    OUTER_OVERHEAD = 10       # per outer-loop iteration, non-ZONL (2 mgmt
+                              # instrs + taken-branch refetch + addr bookkeeping)
+    # L1 block tiling used for double-buffered execution (paper: layout
+    # constrains each matrix to 8 banks / 32 KiB -> 32x32 FP64 blocks; a
+    # 32x32x32 block is the common case, footnote to Sec. III-A).
+    BLOCK = 32
+    # Compute-core power at full utilization [mW] (Table II: 106.7 mW at
+    # 95.3% util -> 112 mW at 100%).
+    P_COMP_FULL = 112.0
+    # Interconnect static+clock power [mW] (Table II column shared 36.9).
+    P_INTERCO = 36.9
+
+    def __init__(self, config: SnitchConfig):
+        self.cfg = config
+
+    # ------------------------------------------------------------------
+    # Core issue timing for one (m_rows x N x K) slice on one core
+    # ------------------------------------------------------------------
+    def _core_cycles(self, m_rows: int, n: int, k: int) -> tuple[int, int, int]:
+        """(issue_cycles, useful_cycles, loop_overhead) for one core.
+
+        Kernel structure (paper Fig. 1b): collapsed outer loop over
+        m_rows * ceil(n/unroll) groups; each group runs k steps of
+        `u_eff` MAC instructions (first iteration fmul, last writes
+        back through the store SSR — both useful FPU work).  When
+        u_eff < FPU latency the accumulator RAW dependence stalls the
+        pipe to FPU_LATENCY cycles per step.
+        """
+        if m_rows == 0 or n == 0 or k == 0:
+            return 0, 0, 0
+        useful = 0
+        issue = 0
+        n_outer = 0
+        full_groups, rem = divmod(n, self.UNROLL)
+        for u_eff, groups in ((self.UNROLL, full_groups), (rem, 1 if rem else 0)):
+            if groups == 0:
+                continue
+            per_group_useful = k * u_eff
+            per_group_issue = k * max(u_eff, self.FPU_LATENCY)
+            useful += m_rows * groups * per_group_useful
+            issue += m_rows * groups * per_group_issue
+            n_outer += m_rows * groups
+        overhead = 0 if self.cfg.zonl else n_outer * self.OUTER_OVERHEAD
+        return issue + overhead + self.KERNEL_STARTUP, useful, overhead
+
+    # ------------------------------------------------------------------
+    # Bank-conflict model (32-bank configurations only)
+    # ------------------------------------------------------------------
+    def _conflict_probability(self, rng: np.random.Generator | None = None) -> float:
+        """P(core stalls | DMA active this cycle), from bank geometry.
+
+        Layout (from [6], adopted by the paper): A, B, C each constrained
+        to one 8-bank superbank -> core reads spread over the 16 banks
+        of A/B superbanks (+8 for C writeback).  The DMA moves next A/B
+        and previous C through its 512-bit port, sweeping one superbank
+        per cycle.  A core stalls if either of its two SSR reads hits
+        the superbank the DMA occupies (the per-superbank mux grants the
+        DMA, paper Sec. II).  Conflict-free configs return 0.
+        """
+        if self.cfg.conflict_free:
+            return 0.0
+        # With 32 banks = 4 superbanks and 6 live buffers (A,B,C x 2 for
+        # double buffering, each pinned to an 8-bank superbank by the
+        # conflict-minimizing layout of [6]), buffer placement cannot be
+        # disjoint: current A(8)+B(8)+C(8) occupy 3 superbanks, leaving
+        # one free.  Next-A lands in the free superbank; prev-C overlaps
+        # the C superbank the cores touch only once per K cycles
+        # (negligible); next-B must share a live read superbank.  The
+        # DMA services its three streams round-robin, so during an
+        # active DMA cycle the 512-bit beat (covering a whole superbank)
+        # collides with the cores' B-stream reads 1/3 of the time, and
+        # the per-superbank mux grants the DMA (paper Sec. II).
+        return 1.0 / 3.0
+
+    # ------------------------------------------------------------------
+    # Whole-problem execution (double-buffered over 32^3 L1 blocks)
+    # ------------------------------------------------------------------
+    def matmul(self, M: int, N: int, K: int, *,
+               include_dma: bool = True) -> MatmulResult:
+        B = self.BLOCK
+        mb, nb, kb = (math.ceil(M / B), math.ceil(N / B), math.ceil(K / B))
+
+        total_issue = 0
+        total_useful = 0
+        total_loop_oh = 0
+        total_dma = 0
+        total_conflict = 0
+        p_conf = self._conflict_probability() if include_dma else 0.0
+
+        # Iterate L1 blocks; each block: rows split round-robin over 8
+        # cores; cluster time = max over cores (barrier); DMA moves the
+        # next A/B blocks and previous C block concurrently.
+        for bm in range(mb):
+            m_blk = min(B, M - bm * B)
+            for bn in range(nb):
+                n_blk = min(B, N - bn * B)
+                for bk in range(kb):
+                    k_blk = min(B, K - bk * B)
+                    rows = [m_blk // self.N_CORES
+                            + (1 if c < m_blk % self.N_CORES else 0)
+                            for c in range(self.N_CORES)]
+                    per_core = [self._core_cycles(r, n_blk, k_blk) for r in rows]
+                    blk_issue = max(c for c, _, _ in per_core)
+                    blk_useful = sum(u for _, u, _ in per_core)
+                    blk_loop_oh = max((o for _, _, o in per_core), default=0)
+
+                    dma_bytes = (m_blk * k_blk + k_blk * n_blk) * self.WORD
+                    if bk == kb - 1:  # C writeback + next C prefetch
+                        dma_bytes += 2 * m_blk * n_blk * self.WORD
+                    dma_cyc = math.ceil(dma_bytes / self.DMA_BYTES_PER_CYCLE)
+
+                    if include_dma:
+                        if self.cfg.conflict_free:
+                            # Dobu/64-bank: DMA fully overlapped, zero stalls.
+                            blk_time = max(blk_issue, dma_cyc)
+                            conflict = 0
+                        else:
+                            # Shared banks: while the DMA is active the losing
+                            # core requests stall (superbank mux).
+                            overlap = min(blk_issue, dma_cyc)
+                            conflict = math.ceil(
+                                overlap * p_conf / max(1e-9, 1 - p_conf))
+                            blk_time = max(blk_issue + conflict, dma_cyc)
+                    else:
+                        blk_time = blk_issue
+                        conflict = 0
+                        dma_cyc = 0
+
+                    total_issue += blk_time
+                    total_useful += blk_useful
+                    total_loop_oh += blk_loop_oh
+                    total_dma += dma_cyc
+                    total_conflict += conflict
+
+        # utilization basis: useful MAC issue slots per core-cycle
+        cycles = total_issue
+        useful = math.ceil(total_useful / self.N_CORES)
+        power = self._power(useful / cycles, p_conf if include_dma else 0.0)
+        return MatmulResult(
+            config=self.cfg.name, M=M, N=N, K=K,
+            cycles=cycles, useful_cycles=useful,
+            stall_cycles_conflict=total_conflict,
+            overhead_cycles_loop=total_loop_oh,
+            dma_cycles=total_dma,
+            power_mw=power,
+        )
+
+    # ------------------------------------------------------------------
+    def _power(self, util: float, p_conf: float) -> float:
+        """Component power model calibrated to Table II (mW)."""
+        p_comp = self.P_COMP_FULL * util
+        # Memory accesses: 2 reads/MAC-cycle/core (+~1/K writes, folded in),
+        # at ~2.1 GHz-normalized access rate; conflicts re-issue requests
+        # (wasted energy, paper Sec. IV-B).
+        access_rate = 2.0 * self.N_CORES * util * (1.0 + 0.5 * p_conf)
+        p_mem = 2.31 * access_rate * self.cfg.e_access_pj  # mW @ 1 GHz
+        return p_comp + p_mem + self.P_INTERCO + self.cfg.p_ctrl_mw
+
+    # ------------------------------------------------------------------
+    def loopnest_for_block(self, m_rows: int, n: int, k: int) -> LoopNest:
+        """The per-core matmul nest as a LoopNest (for cross-validation)."""
+        groups = max(1, n // self.UNROLL)
+        return LoopNest(
+            num_insts=self.UNROLL,
+            loops=(
+                Loop(trips=max(1, m_rows * groups), start=0,
+                     end=self.UNROLL - 1, name="mn"),
+                Loop(trips=max(1, k), start=0, end=self.UNROLL - 1, name="k"),
+            ),
+        )

@@ -25,10 +25,17 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import meta as _meta
 from repro_torch.kernels.ref import flash_attention_ref
 
 __all__ = ["flash_attention", "smem_bytes", "design", "fit_tiles",
-           "check_tc_tiles", "SMEM_LIMIT", "TC_HEAD_DIMS", "TC_TILES"]
+           "check_tc_tiles", "launch_geometry", "kv_tiles", "SMEM_LIMIT",
+           "TC_HEAD_DIMS", "TC_TILES"]
+
+# grid_rank counts the axes of the CUDA launch grid: (q tiles, B * H);
+# the kv walk runs inside a block, so only that loop carries state
+_meta.register_family("flash_attention", grid_rank=2, managed_dma=False,
+                      sequential_axes="last")
 
 SMEM_LIMIT = 232448
 TC_HEAD_DIMS = (16, 32, 64, 80, 128, 256)  # instantiated bf16 head dims
@@ -84,6 +91,37 @@ def check_tc_tiles(D: int, bq: int, bkv: int) -> None:
         raise ValueError(f"flash_attention (bf16): bkv={bkv} at head dim "
                          f"{D} exceeds the register budget bkv * D <= "
                          f"{_TC_REGS}")
+
+
+def kv_tiles(q0: int, *, Sq: int, Skv: int, bq: int, bkv: int,
+             causal: bool, q_len: int, kv_len: int, q_off: int,
+             design: str = "tensor_core") -> int:
+    """The kv tiles (0, 1, ...) the block of query rows q0 .. q0 + bq - 1
+    walks, the rule of ``csrc/flash_attention.cu``: none when the block's
+    first row lies at or past ``q_len``; else up to min(Skv, kv_len),
+    causal: up to the frontier of the block's last row (the tensor-core
+    design counts the rows that exist, the CUDA-core one all bq)."""
+    kv_end = min(Skv, kv_len)
+    if causal:
+        rows = min(bq, Sq - q0) if design == "tensor_core" else bq
+        kv_end = min(kv_end, q_off + q0 + rows)
+    if q_off + q0 >= q_len:
+        kv_end = 0
+    return -(-kv_end // bkv) if kv_end > 0 else 0
+
+
+def launch_geometry(B: int, H: int, Sq: int, Skv: int, D: int, *,
+                    dtype: torch.dtype, bq: int, bkv: int,
+                    causal: bool = True) -> _meta.Launch:
+    """The launch of :func:`flash_attention`: one block a (q tile of bq
+    rows, b * h), grid (ceil(Sq / bq), B * H), each walking
+    :func:`kv_tiles` kv tiles of bkv keys through a two-stage copy
+    pipeline.  Params: ``B, H, Sq, Skv, D, bq, bkv, causal``."""
+    return _meta.Launch(
+        name=_meta.kernel_name("flash_attention"), design=design(dtype),
+        grid=(-(-Sq // bq), B * H),
+        params=dict(B=B, H=H, Sq=Sq, Skv=Skv, D=D, bq=bq, bkv=bkv,
+                    causal=int(causal)))
 
 
 def _lens(x: torch.Tensor | None, default: torch.Tensor) -> torch.Tensor:
@@ -153,6 +191,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.empty_like(q)
     if Sq == 0:
         return o
+    _meta.note(lambda: launch_geometry(B, H, Sq, Skv, D, dtype=q.dtype, bq=bq,
+                                       bkv=bkv, causal=causal),
+        lens={"q_lens": q_lens, "kv_lens": kv_lens, "q_offsets": q_offsets},
+        ins=(("q", q), ("k", k), ("v", v), ("q_lens", q_lens),
+             ("kv_lens", kv_lens), ("q_offsets", q_offsets)),
+        outs=(("o", o),))
     fn = _build.bind("flash_attention", _ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with _build.on_device(q.device):

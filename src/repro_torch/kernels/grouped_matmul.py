@@ -32,15 +32,23 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import meta as _meta
 from repro_torch.kernels.ref import grouped_matmul_ref
-from repro_torch.kernels.zero_stall_matmul import (_ARGTYPES, _check_config,
+from repro_torch.kernels.zero_stall_matmul import (H100_SMS, _ARGTYPES,
+                                                   _check_config,
                                                    _check_sm90_config,
-                                                   _sm_count, _vec_ok,
-                                                   select_design, sm90_rows)
+                                                   _vec_ok, matmul_launch,
+                                                   select_design, sm90_rows,
+                                                   sms_of)
 from repro_torch.plan.config import resolve_slots
 
 __all__ = ["grouped_zero_stall_matmul", "grouped_blocks", "grouped_walk",
-           "MAX_GROUPS"]
+           "plan_launch", "launch_geometry", "MAX_GROUPS"]
+
+# grid_rank counts the axes of the CUDA launch grid: (persistent blocks,
+# 1) on the sm90 design, (a group's output tiles, groups) on the ring
+_meta.register_family("grouped_zero_stall_matmul", grid_rank=2,
+                      managed_dma=True, sequential_axes="all")
 
 MAX_GROUPS = 65535           # gridDim.y of the ring's launch
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -66,6 +74,50 @@ def grouped_walk(G: int, M: int, N: int, rows: int, bn: int,
     blocks = grouped_blocks(G, M, N, rows, bn, sms)
     return [[(t // (gm * gn), t % (gm * gn) // gn, t % gn)
              for t in range(b, G * gm * gn, blocks)] for b in range(blocks)]
+
+
+def plan_launch(G: int, M: int, N: int, *, dtype: torch.dtype, K: int,
+                bm: int, bn: int, trans_b: bool, sms: int, a_ptr: int = 0,
+                b_ptr: int = 0) -> tuple[str, int, int]:
+    """(design, rows, blocks) of a grouped product: on the sm90 design
+    :func:`grouped_blocks` persistent blocks over ``sms`` SMs, each
+    walking its tiles with one ring (no split); on the ring design one
+    block a tile and group.  The wrappers launch from these integers and
+    :func:`launch_geometry` records them."""
+    design = select_design(dtype, K, N, trans_b, a_ptr, b_ptr)
+    if design == "sm90":
+        rows = sm90_rows(M, bm)
+        return design, rows, grouped_blocks(G, M, N, rows, bn, sms)
+    return design, bm, G * -(-M // bm) * -(-N // bn)
+
+
+def grouped_launch(family: str, design: str, *, G: int, M: int, N: int,
+                   K: int, rows: int, bn: int, bk: int, slots: int,
+                   blocks: int) -> _meta.Launch:
+    """The :class:`~repro_torch.kernels.meta.Launch` of a grouped product
+    (see :func:`~repro_torch.kernels.zero_stall_matmul.matmul_launch`
+    for the params)."""
+    return matmul_launch(family, design, G=G, M=M, N=N, K=K, rows=rows,
+                         bn=bn, bk=bk, slots=slots, grid_order=None,
+                         splits=1, per=max(1, -(-K // bk)), blocks=blocks)
+
+
+def launch_geometry(G: int, M: int, N: int, K: int, *, dtype: torch.dtype,
+                    bm: int = 128, bn: int = 128, bk: int = 128,
+                    variant: str = "dobu", slots: int | None = None,
+                    trans_b: bool = False, sms: int = H100_SMS,
+                    a_ptr: int = 0, b_ptr: int = 0,
+                    family: str = "grouped_zero_stall_matmul"
+                    ) -> _meta.Launch:
+    """The launch of a grouped product, bf16/fp32 or (``family``
+    ``"quantized_grouped_zero_stall_matmul"``, ``trans_b``) int8, at
+    :func:`plan_launch`'s geometry."""
+    design, rows, blocks = plan_launch(G, M, N, dtype=dtype, K=K, bm=bm,
+                                       bn=bn, trans_b=trans_b, sms=sms,
+                                       a_ptr=a_ptr, b_ptr=b_ptr)
+    return grouped_launch(family, design, G=G, M=M, N=N, K=K, rows=rows,
+                          bn=bn, bk=bk, slots=resolve_slots(variant, slots),
+                          blocks=blocks)
 
 
 def grouped_zero_stall_matmul(a: torch.Tensor, b: torch.Tensor, *,
@@ -110,7 +162,10 @@ def grouped_zero_stall_matmul(a: torch.Tensor, b: torch.Tensor, *,
         raise ValueError(f"grouped_zero_stall_matmul: at most {MAX_GROUPS} "
                          f"groups of int32-indexable size, got "
                          f"{(G, M, K, N)}")
-    kind = select_design(a.dtype, K, N, False, a.data_ptr(), b.data_ptr())
+    kind, rows, blocks = plan_launch(G, M, N, dtype=a.dtype, K=K, bm=bm,
+                                     bn=bn, trans_b=False,
+                                     sms=sms_of(a.device),
+                                     a_ptr=a.data_ptr(), b_ptr=b.data_ptr())
     if kind == "sm90":
         _check_sm90_config(M, bm, bn, bk, slots,
                            kernel="grouped_zero_stall_matmul")
@@ -124,9 +179,11 @@ def grouped_zero_stall_matmul(a: torch.Tensor, b: torch.Tensor, *,
         return c.zero_()
     stream = torch.cuda.current_stream(a.device).cuda_stream
     out_f32 = int(out_dtype == torch.float32)
+    _meta.note(lambda: grouped_launch(
+        "grouped_zero_stall_matmul", kind, G=G, M=M, N=N, K=K, rows=rows,
+        bn=bn, bk=bk, slots=slots, blocks=blocks),
+        ins=(("a", a), ("b", b)), outs=(("c", c),))
     if kind == "sm90":
-        rows = sm90_rows(M, bm)
-        blocks = grouped_blocks(G, M, N, rows, bn, _sm_count(a.device.index))
         fn = _build.bind("grouped_zero_stall_matmul_sm90", _SM90_ARGTYPES,
                          "zero_stall_sm90")
         with _build.on_device(a.device):

@@ -9,8 +9,10 @@ Model code calls these; they route to
     :mod:`~repro_torch.kernels.flash_attention`,
     :mod:`~repro_torch.kernels.paged_attention`), which launch the CUDA
     kernel on a CUDA tensor and run their plain version on a CPU tensor;
-    on a meta tensor (a plan's trace, shapes only) the plain version
-    gives the shapes;
+    on a meta tensor (a plan's trace, shapes only) the entry point
+    returns an empty result of the kernel's shape and records the launch
+    geometry the wrapper would run (:mod:`~repro_torch.kernels.meta`),
+    in place of the launch;
   * backend ``"torch"``: the plain versions in :mod:`.ref` on any device
     (the counterpart of the JAX package's ``"jnp"``).
 
@@ -49,7 +51,13 @@ import warnings
 import torch
 
 from repro_torch import obs as _obs
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import grouped_matmul as _grouped
+from repro_torch.kernels import meta as _meta
+from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import quantized_matmul as _quant
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import zero_stall_matmul as _zs
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.flash_attention import fit_tiles
 from repro_torch.kernels.grouped_matmul import grouped_zero_stall_matmul
@@ -126,7 +134,10 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, config=None,
     _record("matmul", M=M, N=N, K=K, dtype=a.dtype, backend=backend,
             config=cfg)
     if a.is_meta:
-        return _ref.matmul_ref(a, b.t() if trans_b else b, out_dtype)
+        _meta.note(lambda: _zs.launch_geometry(
+            M, N, K, dtype=a.dtype, trans_b=trans_b, sms=_zs.sms_of(a.device),
+            **cfg.matmul_kwargs(a.dtype)))
+        return a.new_empty((M, N), dtype=out_dtype)
     return zero_stall_matmul(a.contiguous(), b, out_dtype=out_dtype,
                              trans_b=trans_b,
                              **cfg.matmul_kwargs(a.dtype))
@@ -153,7 +164,10 @@ def grouped_matmul(a: torch.Tensor, b: torch.Tensor, *, config=None,
     _record("grouped_matmul", M=M, N=N, K=K, dtype=a.dtype, backend=backend,
             config=cfg, groups=G)
     if a.is_meta:
-        return _ref.grouped_matmul_ref(a, b, out_dtype)
+        _meta.note(lambda: _grouped.launch_geometry(
+            G, M, N, K, dtype=a.dtype, sms=_zs.sms_of(a.device),
+            **cfg.matmul_kwargs(a.dtype, grouped=True)))
+        return a.new_empty((G, M, N), dtype=out_dtype)
     return grouped_zero_stall_matmul(
         a.contiguous(), b.contiguous(), out_dtype=out_dtype,
         **cfg.matmul_kwargs(a.dtype, grouped=True))
@@ -196,7 +210,10 @@ def quantized_matmul(x: torch.Tensor, qw: QTensor, *, config=None,
     _record("matmul", M=M, N=N, K=K, dtype="int8", backend=backend,
             config=cfg)
     if x.is_meta:
-        return _ref.quantized_matmul_ref(x_q, qw.data, x_s, w_s, out_dtype)
+        _meta.note(lambda: _quant.launch_geometry(
+            M, N, K, sms=_zs.sms_of(x.device),
+            **cfg.matmul_kwargs(torch.int8)))
+        return x.new_empty((M, N), dtype=out_dtype)
     return quantized_zero_stall_matmul(x_q, qw.data, x_s, w_s.contiguous(),
                                        out_dtype=out_dtype,
                                        **cfg.matmul_kwargs(torch.int8))
@@ -230,8 +247,10 @@ def quantized_grouped_matmul(x: torch.Tensor, qw: QTensor, *, config=None,
     _record("grouped_matmul", M=M, N=N, K=K, dtype="int8", backend=backend,
             config=cfg, groups=G)
     if x.is_meta:
-        return _ref.quantized_grouped_matmul_ref(x_q, qw.data, x_s, w_s,
-                                                 out_dtype)
+        _meta.note(lambda: _quant.grouped_launch_geometry(
+            G, M, N, K, sms=_zs.sms_of(x.device),
+            **cfg.matmul_kwargs(torch.int8, grouped=True)))
+        return x.new_empty((G, M, N), dtype=out_dtype)
     return quantized_grouped_zero_stall_matmul(
         x_q, qw.data, x_s, w_s.contiguous(), out_dtype=out_dtype,
         **cfg.matmul_kwargs(torch.int8, grouped=True))
@@ -356,9 +375,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     cfg = resolve(config, op="attention", M=Sq, N=D, K=Skv, dtype=q.dtype,
                   batch_heads=B * H)
     _record("attention", backend=backend, config=cfg, **rec)
-    if q.is_meta:
-        return torch.empty_like(q)
     bq, bkv = fit_tiles(q.dtype, Sq, Skv, cfg.bq, cfg.bkv)
+    if q.is_meta:
+        _meta.note(lambda: _fa.launch_geometry(B, H, Sq, Skv, D, dtype=q.dtype,
+                                               bq=bq, bkv=bkv, causal=causal))
+        return torch.empty_like(q)
     if Sq % bq or Skv % bkv:
         # ragged tiles: the lengths default to the unragged extents
         # (absolute, so offsets shift them); the kernel masks the edge
@@ -396,8 +417,13 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     T = page_table.shape[1]
     _record("attention", M=H // KV, N=D, K=T * ps, dtype=q.dtype,
             backend=backend, batch_heads=B * KV)
-    if backend == "torch" or q.is_meta:
+    if backend == "torch":
         return _ref.paged_attention_ref(q, k_pool, v_pool, page_table,
                                         kv_lens=kv_lens, scale=scale)
+    if q.is_meta:
+        _meta.note(lambda: _pa.launch_geometry(
+            B, H, D, KV, T, ps, elt=q.element_size(),
+            sms=_zs.sms_of(q.device)))
+        return torch.empty_like(q)
     return _paged(q, k_pool, v_pool, page_table, kv_lens=kv_lens,
                   scale=scale)

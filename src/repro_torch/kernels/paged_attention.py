@@ -32,11 +32,18 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import meta as _meta
 from repro_torch.kernels.ref import paged_attention_ref
-from repro_torch.kernels.zero_stall_matmul import _sm_count
+from repro_torch.kernels.zero_stall_matmul import H100_SMS, sms_of
 
 __all__ = ["paged_attention", "paged_splits", "paged_stages", "paged_rows",
-           "smem_bytes", "SMEM_LIMIT", "MAX_ROW_BYTES"]
+           "smem_bytes", "plan_launch", "launch_geometry", "SMEM_LIMIT",
+           "MAX_ROW_BYTES"]
+
+# grid_rank counts the axes of the CUDA launch grid of the split pass:
+# (B * KV * row chunks, page splits); the page walk runs inside a block
+_meta.register_family("paged_attention", grid_rank=2, managed_dma=False,
+                      sequential_axes="last")
 
 SMEM_LIMIT = 232448
 MAX_ROW_BYTES = 1024         # a head's row: at most two 16-byte vectors a lane
@@ -89,6 +96,37 @@ def paged_stages(per: int, D: int, ps: int, rep: int, elt: int) -> int:
     if per >= 2 and smem_bytes(D, ps, rep, elt, 4) <= SMEM_LIMIT:
         return 4
     return 2
+
+
+def plan_launch(B: int, KV: int, T: int, rep: int, D: int, ps: int, *,
+                elt: int, sms: int) -> tuple[int, int, int, int]:
+    """(splits, per, rows, stages) of :func:`paged_attention` over a
+    (B, T) page table of ``ps``-token pages, ``elt``-byte elements:
+    :func:`paged_splits` over ``sms`` SMs, :func:`paged_rows` query rows
+    a block, a ring of :func:`paged_stages` pages.  The wrapper launches
+    from these integers and :func:`launch_geometry` records them."""
+    splits, per = paged_splits(B, KV, T, sms)
+    return (splits, per, paged_rows(rep, D, elt),
+            paged_stages(per, D, ps, rep, elt))
+
+
+def launch_geometry(B: int, H: int, D: int, KV: int, T: int, ps: int, *,
+                    elt: int, sms: int = H100_SMS) -> _meta.Launch:
+    """The launch of :func:`paged_attention` at :func:`plan_launch`'s
+    geometry: ``row_chunks`` blocks a kv head, the split pass's grid
+    (B * KV * row_chunks, splits), and the combine pass folding the
+    splits in ``reduce_order``.  Params: ``B, H, D, KV, T, ps, rep, rows,
+    row_chunks, splits, per, stages, reduce_order``."""
+    rep = H // KV
+    splits, per, rows, stages = plan_launch(B, KV, T, rep, D, ps, elt=elt,
+                                            sms=sms)
+    chunks = -(-rep // rows)
+    return _meta.Launch(
+        name=_meta.kernel_name("paged_attention"), design="split_kv",
+        grid=(B * KV * chunks, splits),
+        params=dict(B=B, H=H, D=D, KV=KV, T=T, ps=ps, rep=rep, rows=rows,
+                    row_chunks=chunks, splits=splits, per=per,
+                    stages=stages, reduce_order=tuple(range(splits))))
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -156,17 +194,23 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     o = torch.empty_like(q)
     if B == 0:
         return o
-    splits, per = paged_splits(B, KV, T, _sm_count(dev.index))
+    sms = sms_of(dev)
+    splits, per, rows, stages = plan_launch(B, KV, T, rep, D, ps, elt=elt,
+                                            sms=sms)
     ws = (torch.empty(B * KV * splits * rep * (D + 2), dtype=torch.float32,
                       device=dev) if splits > 1 else None)
+    _meta.note(lambda: launch_geometry(B, H, D, KV, T, ps, elt=elt, sms=sms),
+               lens={"kv_lens": kv_lens},
+               ins=(("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+                    ("page_table", page_table), ("kv_lens", kv_lens)),
+               outs=(("o", o),), ws=(("ws", ws),))
     fn = _build.bind("paged_attention", _ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with _build.on_device(dev):
         code = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                   o.data_ptr(), page_table.data_ptr(), kv_lens.data_ptr(),
                   None if ws is None else ws.data_ptr(), B, KV, T, ps, D,
-                  rep, paged_rows(rep, D, elt), splits, per,
-                  paged_stages(per, D, ps, rep, elt), float(scale),
+                  rep, rows, splits, per, stages, float(scale),
                   int(q.dtype == torch.bfloat16), stream)
     _build.check("paged_attention", code)
     paged_attention.launches += 1

@@ -37,18 +37,48 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.grouped_matmul import MAX_GROUPS, grouped_blocks
+from repro_torch.kernels import grouped_matmul as _grouped
+from repro_torch.kernels import meta as _meta
+from repro_torch.kernels import zero_stall_matmul as _zs
+from repro_torch.kernels.grouped_matmul import MAX_GROUPS
 from repro_torch.kernels.ref import (quantized_grouped_matmul_ref,
                                      quantized_matmul_ref)
 from repro_torch.kernels.zero_stall_matmul import (_check_config,
                                                    _check_sm90_config,
-                                                   _sm_count, _vec_ok,
-                                                   select_design, sm90_rows,
-                                                   split_plan)
+                                                   _vec_ok, sms_of)
 from repro_torch.plan.config import resolve_slots
 
 __all__ = ["quantized_zero_stall_matmul",
-           "quantized_grouped_zero_stall_matmul"]
+           "quantized_grouped_zero_stall_matmul", "launch_geometry",
+           "grouped_launch_geometry"]
+
+# grid_rank counts the axes of the CUDA launch grid, as for the bf16
+# products: (output tiles, k splits) or (persistent blocks, 1) on sm90,
+# (a group's output tiles, groups) on the ring
+_meta.register_family("quantized_zero_stall_matmul", grid_rank=2,
+                      managed_dma=True, sequential_axes="all")
+_meta.register_family("quantized_grouped_zero_stall_matmul", grid_rank=2,
+                      managed_dma=True, sequential_axes="all")
+
+
+def launch_geometry(M: int, N: int, K: int, **kw) -> _meta.Launch:
+    """The launch of :func:`quantized_zero_stall_matmul`: the plain
+    product's geometry
+    (:func:`~repro_torch.kernels.zero_stall_matmul.launch_geometry`) on
+    K-major int8 codes; ``kw`` as there, less the dtype."""
+    return _zs.launch_geometry(M, N, K, dtype=torch.int8, trans_b=True,
+                               family="quantized_zero_stall_matmul", **kw)
+
+
+def grouped_launch_geometry(G: int, M: int, N: int, K: int,
+                            **kw) -> _meta.Launch:
+    """The launch of :func:`quantized_grouped_zero_stall_matmul`: the
+    grouped product's geometry
+    (:func:`~repro_torch.kernels.grouped_matmul.launch_geometry`) on
+    K-major int8 codes."""
+    return _grouped.launch_geometry(
+        G, M, N, K, dtype=torch.int8, trans_b=True,
+        family="quantized_grouped_zero_stall_matmul", **kw)
 
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
 # a, b, a_scale, b_scale, c, then ten ints (M, N, K, bm, bn, bk, slots,
@@ -137,7 +167,9 @@ def quantized_zero_stall_matmul(a: torch.Tensor, b: torch.Tensor,
     _check_card(kernel, a, b, a_scale, b_scale)
     if max(M, N, K) >= 2 ** 31:
         raise ValueError(f"{kernel}: dimensions must fit in int32")
-    kind = select_design(torch.int8, K, N, True, a.data_ptr(), b.data_ptr())
+    kind, rows, splits, per = _zs.plan_launch(
+        M, N, K, dtype=torch.int8, bm=bm, bn=bn, bk=bk, trans_b=True,
+        sms=sms_of(a.device), a_ptr=a.data_ptr(), b_ptr=b.data_ptr())
     if kind == "sm90":
         _check_sm90_config(M, bm, bn, bk, slots, torch.int8, kernel)
     else:
@@ -149,19 +181,23 @@ def quantized_zero_stall_matmul(a: torch.Tensor, b: torch.Tensor,
         return c.zero_()
     stream = torch.cuda.current_stream(a.device).cuda_stream
     jik, out_f32 = int(grid_order == "jik"), int(out_dtype == torch.float32)
+    ws = (torch.empty((splits, M, N), dtype=torch.int32, device=a.device)
+          if splits > 1 else None)
+    _meta.note(lambda: _zs.matmul_launch(
+        kernel, kind, G=1, M=M, N=N, K=K, rows=rows, bn=bn, bk=bk,
+        slots=slots, grid_order=grid_order, splits=splits, per=per,
+        blocks=-(-M // rows) * -(-N // bn)),
+        ins=(("a", a), ("b", b), ("a_scale", a_scale), ("b_scale", b_scale)),
+        outs=(("c", c),), ws=(("ws", ws),))
     if kind == "sm90":
-        splits, per = split_plan(M, N, K, bm, bn, bk,
-                                 _sm_count(a.device.index))
-        ws = (torch.empty((splits, M, N), dtype=torch.int32,
-                          device=a.device) if splits > 1 else None)
         fn = _build.bind("quantized_zero_stall_matmul_sm90", _SM90_ARGTYPES,
                          "quantized_sm90")
         with _build.on_device(a.device):
             code = fn(a.data_ptr(), b.data_ptr(), a_scale.data_ptr(),
                       b_scale.data_ptr(), c.data_ptr(),
                       None if ws is None else ws.data_ptr(), M, N, K,
-                      sm90_rows(M, bm), bn, bk, slots, jik, out_f32, splits,
-                      per, stream)
+                      rows, bn, bk, slots, jik, out_f32, splits, per,
+                      stream)
         _build.check("quantized_sm90", code)
     else:
         fn = _build.bind(kernel, _ARGTYPES, source="quantized_matmul")
@@ -203,7 +239,9 @@ def quantized_grouped_zero_stall_matmul(a: torch.Tensor, b: torch.Tensor,
     if G > MAX_GROUPS or max(M * K, K * N, M * N) >= 2 ** 31:
         raise ValueError(f"{kernel}: at most {MAX_GROUPS} groups of "
                          f"int32-indexable size, got {(G, M, K, N)}")
-    kind = select_design(torch.int8, K, N, True, a.data_ptr(), b.data_ptr())
+    kind, rows, blocks = _grouped.plan_launch(
+        G, M, N, dtype=torch.int8, K=K, bm=bm, bn=bn, trans_b=True,
+        sms=sms_of(a.device), a_ptr=a.data_ptr(), b_ptr=b.data_ptr())
     if kind == "sm90":
         _check_sm90_config(M, bm, bn, bk, slots, torch.int8, kernel)
     else:
@@ -215,15 +253,18 @@ def quantized_grouped_zero_stall_matmul(a: torch.Tensor, b: torch.Tensor,
         return c.zero_()
     stream = torch.cuda.current_stream(a.device).cuda_stream
     out_f32 = int(out_dtype == torch.float32)
+    _meta.note(lambda: _grouped.grouped_launch(
+        kernel, kind, G=G, M=M, N=N, K=K, rows=rows, bn=bn, bk=bk,
+        slots=slots, blocks=blocks),
+        ins=(("a", a), ("b", b), ("a_scale", a_scale), ("b_scale", b_scale)),
+        outs=(("c", c),))
     if kind == "sm90":
-        rows = sm90_rows(M, bm)
-        blocks = grouped_blocks(G, M, N, rows, bn, _sm_count(a.device.index))
         fn = _build.bind("quantized_grouped_zero_stall_matmul_sm90",
                          _GROUPED_SM90_ARGTYPES, "quantized_sm90")
         with _build.on_device(a.device):
             code = fn(a.data_ptr(), b.data_ptr(), a_scale.data_ptr(),
-                      b_scale.data_ptr(), c.data_ptr(), G, M, N, K, rows, bn,
-                      bk, slots, out_f32, blocks, stream)
+                      b_scale.data_ptr(), c.data_ptr(), G, M, N, K,
+                      rows, bn, bk, slots, out_f32, blocks, stream)
         _build.check("quantized_sm90", code)
     else:
         fn = _build.bind(kernel, _ARGTYPES, source="quantized_matmul")

@@ -40,12 +40,19 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import meta as _meta
 from repro_torch.kernels.ref import matmul_ref
 from repro_torch.plan.config import dtype_name, resolve_slots
 
 __all__ = ["zero_stall_matmul", "smem_bytes", "sm90_smem_bytes",
-           "select_design", "sm90_rows", "split_plan", "SMEM_LIMIT",
-           "MAX_THREADS", "SM90_DTYPES"]
+           "select_design", "sm90_rows", "split_plan", "smem_footprint",
+           "plan_launch", "launch_geometry", "matmul_launch", "sms_of",
+           "SMEM_LIMIT", "MAX_THREADS", "SM90_DTYPES", "H100_SMS"]
+
+# grid_rank counts the axes of the CUDA launch grid: (output tiles, k
+# splits) on the sm90 design, (output tiles, groups) on the ring design
+_meta.register_family("zero_stall_matmul", grid_rank=2, managed_dma=True,
+                      sequential_axes="all")
 
 SMEM_LIMIT = 232448          # bytes of shared memory one Hopper block may use
 MAX_THREADS = 512            # the kernel's __launch_bounds__
@@ -61,6 +68,7 @@ _SM90_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 \
 SM90_DTYPES = (torch.bfloat16, torch.int8)    # wgmma types of the design
 SM90_ROWS = (8, 16, 32, 64, 128)    # rows of A a block may own
 SM90_BN = (64, 128)                 # columns of C a block may own
+H100_SMS = 132               # an H100 SXM's SMs: a launch planned off the card
 
 
 def smem_bytes(bm: int, bn: int, bk: int, slots: int, dtype: torch.dtype,
@@ -145,6 +153,22 @@ def sm90_smem_bytes(rows: int, bn: int, bk: int, slots: int,
     return 1024 + slots * ((bn + rows) * bk * element_size + 16)
 
 
+def smem_footprint(M: int, N: int, K: int, bm: int, bn: int, bk: int,
+                   slots: int, element_size: int) -> tuple[str, int]:
+    """(design, shared-memory bytes of one block) of a product with these
+    tiles: the design :func:`select_design` picks at aligned bases (int8
+    codes K-major, other types with a (K, N) B, as the wrappers take
+    them) and that design's own formula (:func:`sm90_smem_bytes` at
+    :func:`sm90_rows`, or :func:`smem_bytes`)."""
+    dtype = {1: torch.int8, 2: torch.bfloat16, 4: torch.float32}[element_size]
+    trans_b = element_size == 1
+    design = select_design(dtype, K, N, trans_b)
+    if design == "sm90":
+        return design, sm90_smem_bytes(sm90_rows(M, bm), bn, bk, slots,
+                                       element_size)
+    return design, smem_bytes(bm, bn, bk, slots, dtype, trans_b)
+
+
 def _check_sm90_config(M: int, bm: int, bn: int, bk: int, slots: int,
                        dtype: torch.dtype = torch.bfloat16,
                        kernel: str = "zero_stall_matmul") -> None:
@@ -187,6 +211,77 @@ def split_plan(M: int, N: int, K: int, bm: int, bn: int, bk: int,
 def _sm_count(index: int) -> int:
     """Streaming multiprocessors of CUDA device ``index``, read once."""
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sms_of(device: torch.device) -> int:
+    """The SMs a launch on ``device`` is planned for: a CUDA device's
+    own; for the meta device (a plan's trace) the current CUDA device's,
+    else an H100 SXM's :data:`H100_SMS`."""
+    if device.type == "cuda":
+        return _sm_count(device.index)
+    if torch.cuda.is_available():
+        return _sm_count(torch.cuda.current_device())
+    return H100_SMS
+
+
+def matmul_launch(family: str, design: str, *, G: int, M: int, N: int,
+                  K: int, rows: int, bn: int, bk: int, slots: int,
+                  grid_order: str | None, splits: int, per: int,
+                  blocks: int) -> _meta.Launch:
+    """The :class:`~repro_torch.kernels.meta.Launch` of one product of
+    the four matmul wrappers.  Its params: ``G, M, N, K``; ``rows`` the
+    rows of A a block owns (the sm90 wgmma width, the ring's bm);
+    ``bn, bk``; ``slots`` the ring depth; ``jik``; ``gm, gn`` a group's
+    row and column tiles, ``tiles`` all of them; ``steps`` the k stages
+    of a tile; ``splits`` and ``per`` (stages a split); ``lookahead`` the
+    stages the producer keeps in flight beyond the one computed (slots -
+    1 in both rings: the TMA producer refills a stage once its last use
+    is released, the cp.async ring issues step t + slots - 1 at step t);
+    ``k_inner`` 1 (a block runs a tile's k stages before its next tile);
+    ``reduce_order`` the order split-k partials are summed in.  The sm90
+    grid is (``blocks``, splits): block x walks tiles x, x + blocks, ...
+    (one tile unless persistent); the ring's is (tiles of a group, G)."""
+    gm, gn = -(-M // rows), -(-N // bn)
+    grid = (blocks, splits) if design == "sm90" else (gm * gn, G)
+    name = _meta.kernel_name(family, slots=slots, grid_order=grid_order)
+    return _meta.Launch(name=name, design=design, grid=grid, params=dict(
+        G=G, M=M, N=N, K=K, rows=rows, bn=bn, bk=bk, slots=slots,
+        jik=int(grid_order == "jik"), gm=gm, gn=gn, tiles=G * gm * gn,
+        steps=max(1, -(-K // bk)), splits=splits, per=per,
+        lookahead=slots - 1, k_inner=1, reduce_order=tuple(range(splits))))
+
+
+def plan_launch(M: int, N: int, K: int, *, dtype: torch.dtype, bm: int,
+                bk: int, bn: int, trans_b: bool, sms: int, a_ptr: int = 0,
+                b_ptr: int = 0) -> tuple[str, int, int, int]:
+    """(design, rows, splits, per) of a plain (G = 1) product: the design
+    of :func:`select_design`; on sm90 the rows of :func:`sm90_rows` and
+    the k splits of :func:`split_plan` over ``sms`` SMs, one block a
+    tile; the ring runs bm x bn tiles with every k stage.  The wrappers
+    launch from these integers and :func:`launch_geometry` records them."""
+    design = select_design(dtype, K, N, trans_b, a_ptr, b_ptr)
+    if design == "sm90":
+        return (design, sm90_rows(M, bm),
+                *split_plan(M, N, K, bm, bn, bk, sms))
+    return design, bm, 1, max(1, -(-K // bk))
+
+
+def launch_geometry(M: int, N: int, K: int, *, dtype: torch.dtype,
+                    bm: int = 128, bn: int = 128, bk: int = 128,
+                    variant: str = "dobu", slots: int | None = None,
+                    grid_order: str = "ijk", trans_b: bool = False,
+                    sms: int = H100_SMS, a_ptr: int = 0, b_ptr: int = 0,
+                    family: str = "zero_stall_matmul") -> _meta.Launch:
+    """The launch of a plain (G = 1) product, bf16/fp32 or (``family``
+    ``"quantized_zero_stall_matmul"``) int8, at :func:`plan_launch`'s
+    geometry."""
+    design, rows, splits, per = plan_launch(
+        M, N, K, dtype=dtype, bm=bm, bn=bn, bk=bk, trans_b=trans_b, sms=sms,
+        a_ptr=a_ptr, b_ptr=b_ptr)
+    return matmul_launch(family, design, G=1, M=M, N=N, K=K, rows=rows,
+                         bn=bn, bk=bk, slots=resolve_slots(variant, slots),
+                         grid_order=grid_order, splits=splits, per=per,
+                         blocks=-(-M // rows) * -(-N // bn))
 
 
 def _vec_ok(a: torch.Tensor, b: torch.Tensor, K: int, N: int,
@@ -242,7 +337,9 @@ def zero_stall_matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
                          "row-major (pass trans_b=True for a (N, K) B)")
     if max(M, N, K) >= 2 ** 31:
         raise ValueError("zero_stall_matmul: dimensions must fit in int32")
-    kind = select_design(a.dtype, K, N, trans_b, a.data_ptr(), b.data_ptr())
+    kind, rows, splits, per = plan_launch(
+        M, N, K, dtype=a.dtype, bm=bm, bn=bn, bk=bk, trans_b=trans_b,
+        sms=sms_of(a.device), a_ptr=a.data_ptr(), b_ptr=b.data_ptr())
     if kind == "sm90":
         _check_sm90_config(M, bm, bn, bk, slots)
     else:
@@ -254,17 +351,20 @@ def zero_stall_matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
         return c.zero_()
     stream = torch.cuda.current_stream(a.device).cuda_stream
     jik = int(grid_order == "jik")
+    ws = (torch.empty((splits, M, N), dtype=torch.float32, device=a.device)
+          if splits > 1 else None)
+    _meta.note(lambda: matmul_launch(
+        "zero_stall_matmul", kind, G=1, M=M, N=N, K=K, rows=rows, bn=bn,
+        bk=bk, slots=slots, grid_order=grid_order, splits=splits, per=per,
+        blocks=-(-M // rows) * -(-N // bn)),
+        ins=(("a", a), ("b", b)), outs=(("c", c),), ws=(("ws", ws),))
     if kind == "sm90":
-        splits, per = split_plan(M, N, K, bm, bn, bk,
-                                 _sm_count(a.device.index))
-        ws = (torch.empty((splits, M, N), dtype=torch.float32,
-                          device=a.device) if splits > 1 else None)
         fn = _build.bind("zero_stall_matmul_sm90", _SM90_ARGTYPES,
                          "zero_stall_sm90")
         with _build.on_device(a.device):
             code = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(),
                       None if ws is None else ws.data_ptr(), M, N, K,
-                      sm90_rows(M, bm), bn, bk, slots, jik,
+                      rows, bn, bk, slots, jik,
                       int(out_dtype == torch.float32), int(trans_b), splits,
                       per, stream)
         _build.check("zero_stall_sm90", code)

@@ -26,6 +26,10 @@ every kernel config of the engine's call shapes ahead of serving
 (:func:`repro_torch.plan.trace_model` on the meta device), ``--plan
 PATH`` serves under a saved plan (the JAX package's plan files load
 too), and ``--plan-out PATH`` saves the engine's active plan.
+``--validate-plan`` runs the static analyzer over the active plan (and,
+paged, the page geometry) when the engine is built
+(``ServeEngine(validate=True)``) and refuses a plan with an error
+diagnostic.
 """
 
 from __future__ import annotations
@@ -99,7 +103,8 @@ def serve_batch(arch: str, *, reduced: bool = True, batch: int = 4,
                 page_size: int | None = None, num_pages: int | None = None,
                 prefill_chunk: int | None = None,
                 n_layers: int | None = None, plan=None,
-                plan_out: str | None = None) -> dict:
+                plan_out: str | None = None,
+                validate_plan: bool = False) -> dict:
     """Run a synthetic request batch through the serving engine.
 
     Parameters are made from ``seed`` directly in ``dtype`` on
@@ -119,7 +124,8 @@ def serve_batch(arch: str, *, reduced: bool = True, batch: int = 4,
     the config's widths), for a model whose full depth does not fit one
     card.  ``plan`` is forwarded to :class:`ServeEngine` (a
     :class:`~repro_torch.plan.Plan`, a path to a saved plan JSON, or
-    ``"trace"``); ``plan_out`` saves the engine's active plan there.
+    ``"trace"``); ``plan_out`` saves the engine's active plan there;
+    ``validate_plan`` builds the engine with ``validate=True``.
     """
     device = resolve_device(device)
     cfg = get_config(arch, reduced=reduced)
@@ -142,7 +148,7 @@ def serve_batch(arch: str, *, reduced: bool = True, batch: int = 4,
         page_size=page_size, num_pages=num_pages,
         prefill_chunk=prefill_chunk,
         cache_kwargs=({"enc_len": prompt_len} if cfg.family == "encdec"
-                      else None), plan=plan)
+                      else None), plan=plan, validate=validate_plan)
     reqs = make_requests(cfg, seed, batch, prompt_len, gen_len, mixed,
                          temperature=temperature, top_k=top_k, top_p=top_p,
                          device=device, dtype=dtype)
@@ -197,6 +203,10 @@ def main(argv=None) -> None:
                     "time, or a path to a saved plan JSON")
     ap.add_argument("--plan-out", default=None, metavar="PATH",
                     help="save the engine's active execution plan here")
+    ap.add_argument("--validate-plan", action="store_true",
+                    help="run the static analyzer over the active plan "
+                    "(and page geometry) at engine construction; a plan "
+                    "with an error diagnostic is refused")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="write a JSONL span/event trace of the run here "
                     "(implies tracing on; one JSON object per line)")
@@ -214,7 +224,8 @@ def main(argv=None) -> None:
             top_p=args.top_p, step_timeout_s=args.step_timeout,
             device=args.device, page_size=args.page_size,
             num_pages=args.num_pages, prefill_chunk=args.prefill_chunk,
-            n_layers=args.layers, plan=args.plan, plan_out=args.plan_out)
+            n_layers=args.layers, plan=args.plan, plan_out=args.plan_out,
+            validate_plan=args.validate_plan)
     finally:
         if args.trace_out:
             obs.disable()

@@ -28,8 +28,8 @@ from repro_torch.models.layers import Ctx, Params
 from repro_torch.models.transformer import (init_attention, init_embed,
                                             init_mlp)
 
-__all__ = ["init_params", "encode", "forward", "init_cache", "prefill",
-           "decode_step"]
+__all__ = ["init_params", "encode", "forward", "loss_fn", "init_cache",
+           "prefill", "decode_step"]
 
 
 def _norm(cfg: ModelConfig, dtype, device) -> Params:
@@ -123,6 +123,15 @@ def forward(params: Params, tokens: torch.Tensor, frames: torch.Tensor,
     if last_only:
         x = x[:, -1:]
     return L.unembed(params["embed"], x, ctx)
+
+
+def loss_fn(params: Params, batch: dict, cfg: ModelConfig,
+            ctx: Ctx) -> torch.Tensor:
+    """The forward training objective: the cross entropy of the logits
+    against ``batch["targets"]``, as the reference."""
+    logits = forward(params, batch["tokens"], batch["frontend_embeds"],
+                     cfg, ctx)
+    return L.cross_entropy(logits, batch["targets"])
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -31,7 +31,8 @@ from repro_torch.models.layers import Ctx, Params
 from repro_torch.models.transformer import (_layer_params, init_embed,
                                             init_linear)
 
-__all__ = ["init_params", "forward", "init_cache", "decode_step", "prefill"]
+__all__ = ["init_params", "forward", "loss_fn", "init_cache", "decode_step",
+           "prefill"]
 
 
 def _n_groups(cfg: ModelConfig) -> int:
@@ -95,6 +96,14 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     if last_only:
         x = x[:, -1:]
     return L.unembed(params["embed"], x, ctx)
+
+
+def loss_fn(params: Params, batch: dict, cfg: ModelConfig,
+            ctx: Ctx) -> torch.Tensor:
+    """The forward training objective: the cross entropy of the logits
+    against ``batch["targets"]``, as the reference."""
+    logits = forward(params, batch["tokens"], cfg, ctx)
+    return L.cross_entropy(logits, batch["targets"])
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -1,6 +1,7 @@
 """build_model: the uniform per-family bundle (port of ``repro.models.model``).
 
     init(seed=, dtype=, device=)             -> params
+    loss(params, batch, ctx)                 -> scalar training loss
     init_cache(batch, max_len, dtype, device=) -> decode cache
     decode(params, cache, tokens, ctx)       -> (logits, cache)
     prefill_logits(params, batch, ctx)       -> (B, 1, V) logits
@@ -12,8 +13,12 @@
 ``batch`` is a dict with ``tokens`` (B, S), optional ``lengths``
 ((B,) ragged valid prefixes) and optional ``frontend_embeds`` (the vlm
 prefix (B, P, d), or the encdec source frames (B, S_enc, d), which that
-family requires).  Every family of the JAX package is ported: dense,
-vlm, MoE, SSM (mamba2), hybrid (zamba2) and encdec (seamless).
+family requires); ``loss`` also reads ``targets`` (B, S).  ``loss`` is
+the forward objective only (the port runs no backward pass).  The
+dense, vlm and MoE ``init_cache`` take ``quantize_kv`` (the int8 cache);
+the encdec, SSM and hybrid ones do not, as in the JAX package.  Every
+family of the JAX package is ported: dense, vlm, MoE, SSM (mamba2),
+hybrid (zamba2) and encdec (seamless).
 ``quantize_weights`` is one generic walk for every family
 (:func:`repro_torch.quant.quantize_tree`); pair it with
 ``Ctx(plan=KernelConfig(quant="int8"))`` for the W8A8 kernels.
@@ -52,6 +57,7 @@ def _quantize_weights(params: Params, fmt: str = "int8") -> Params:
 class Model:
     cfg: ModelConfig
     init: Callable[..., Params]
+    loss: Callable[..., torch.Tensor]
     init_cache: Callable[..., Params]
     decode: Callable[..., tuple]
     prefill_logits: Callable[..., Any]
@@ -71,6 +77,9 @@ def _moe_mlp_fn(cfg: ModelConfig, ctx: Ctx, token_mask=None) -> Callable:
 def build_model(cfg: ModelConfig) -> Model:
     fam = cfg.family
     if fam in ("dense", "vlm"):
+        def loss(params, batch, ctx):
+            return transformer.loss_fn(params, batch, cfg, ctx)
+
         def prefill_logits(params, batch, ctx):
             return transformer.forward(
                 params, batch["tokens"], cfg, ctx,
@@ -91,6 +100,7 @@ def build_model(cfg: ModelConfig) -> Model:
         return Model(
             cfg=cfg,
             init=functools.partial(transformer.init_params, cfg),
+            loss=loss,
             init_cache=functools.partial(transformer.init_cache, cfg),
             decode=lambda params, cache, tokens, ctx: transformer.decode_step(
                 params, cache, tokens, cfg, ctx),
@@ -105,6 +115,10 @@ def build_model(cfg: ModelConfig) -> Model:
                 cfg, seed=seed, dtype=dtype, device=device,
                 init_mlp_fn=lambda g: moe.init_moe_mlp(g, cfg, dtype,
                                                        device))
+
+        def loss(params, batch, ctx):
+            return transformer.loss_fn(params, batch, cfg, ctx,
+                                       mlp_fn=_moe_mlp_fn(cfg, ctx))
 
         def prefill_logits(params, batch, ctx):
             return transformer.forward(params, batch["tokens"], cfg, ctx,
@@ -128,7 +142,7 @@ def build_model(cfg: ModelConfig) -> Model:
                                        mlp_fn=_moe_mlp_fn(cfg, ctx, mask),
                                        lengths=lens)
 
-        return Model(cfg=cfg, init=init,
+        return Model(cfg=cfg, init=init, loss=loss,
                      init_cache=functools.partial(transformer.init_cache, cfg),
                      decode=decode, prefill_logits=prefill_logits,
                      prefill=prefill_fn)
@@ -146,6 +160,8 @@ def build_model(cfg: ModelConfig) -> Model:
         return Model(
             cfg=cfg,
             init=functools.partial(mod.init_params, cfg),
+            loss=lambda params, batch, ctx: mod.loss_fn(params, batch, cfg,
+                                                        ctx),
             init_cache=functools.partial(mod.init_cache, cfg),
             decode=lambda params, cache, tokens, ctx: mod.decode_step(
                 params, cache, tokens, cfg, ctx),
@@ -156,6 +172,8 @@ def build_model(cfg: ModelConfig) -> Model:
         return Model(
             cfg=cfg,
             init=functools.partial(encdec.init_params, cfg),
+            loss=lambda params, batch, ctx: encdec.loss_fn(params, batch, cfg,
+                                                           ctx),
             init_cache=functools.partial(encdec.init_cache, cfg),
             decode=lambda params, cache, tokens, ctx: encdec.decode_step(
                 params, cache, tokens, cfg, ctx),

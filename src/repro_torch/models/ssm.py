@@ -32,7 +32,8 @@ from repro_torch.models.transformer import init_embed, init_linear
 
 __all__ = ["ssd_chunked", "init_mamba", "mamba_forward", "mamba_decode",
            "mamba_prefill", "init_ssm_state", "init_params", "forward",
-           "decode_step", "init_cache", "prefill", "DEFAULT_CHUNK"]
+           "loss_fn", "decode_step", "init_cache", "prefill",
+           "DEFAULT_CHUNK"]
 
 DEFAULT_CHUNK = 64
 
@@ -309,6 +310,14 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     if last_only:
         x = x[:, -1:]
     return L.unembed(params["embed"], x, ctx)
+
+
+def loss_fn(params: Params, batch: dict, cfg: ModelConfig,
+            ctx: Ctx) -> torch.Tensor:
+    """The forward training objective: the cross entropy of the logits
+    against ``batch["targets"]``, as the reference."""
+    logits = forward(params, batch["tokens"], cfg, ctx)
+    return L.cross_entropy(logits, batch["targets"])
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -4,9 +4,11 @@ Shared by the dense, vlm and MoE families (vlm prepends a request's
 ``frontend_embeds``; MoE swaps the MLP through the
 ``init_mlp_fn`` / ``mlp_fn`` hooks; ``mlp_fn`` has the JAX protocol
 ``(params, x) -> (y, aux_loss)``).  A Python loop over layers replaces
-``lax.scan``; there is no remat (serving runs no backward pass).  Parameters are a dict with a list of
-per-layer dicts under ``"layers"``; the KV cache keeps the JAX layout,
-stacked ``(n_layers, B, max_len, KV, D)`` tensors, and is updated in
+``lax.scan``; there is no remat (the port runs no backward pass:
+:func:`loss_fn` is the forward objective).  Parameters are a dict with
+a list of per-layer dicts under ``"layers"``; the KV cache keeps the JAX
+layout, stacked ``(n_layers, B, max_len, KV, D)`` tensors (int8 codes
+and scales with ``init_cache(quantize_kv=True)``), and is updated in
 place by :func:`decode_step`.
 """
 
@@ -23,7 +25,7 @@ from repro_torch.models.layers import Ctx, Params
 from repro_torch.quant.tensor import k_major
 
 __all__ = ["init_linear", "init_embed", "init_attention", "init_mlp",
-           "init_params", "forward",
+           "init_params", "forward", "loss_fn",
            "init_cache", "prefill", "prefill_chunk", "decode_step"]
 
 
@@ -144,37 +146,72 @@ def _prepend(x: torch.Tensor, frontend_embeds: torch.Tensor | None,
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
             *, frontend_embeds: torch.Tensor | None = None,
-            mlp_fn: Callable | None = None,
-            last_only: bool = False) -> torch.Tensor:
+            mlp_fn: Callable | None = None, last_only: bool = False,
+            return_aux: bool = False):
     """tokens: (B, S) -> logits (B, S, V), or (B, 1, V) with last_only.
 
     ``frontend_embeds`` (B, P, d) are prepended (vlm) at positions 0..P-1;
-    logits are returned for the text positions only."""
+    logits are returned for the text positions only.  ``return_aux``
+    also returns the mean over layers of ``mlp_fn``'s auxiliary loss
+    (MoE load balancing; 0 for the dense MLP), as the reference."""
     x, n_front = _prepend(L.embed(params["embed"], tokens, ctx),
                           frontend_embeds, ctx)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     fn = _mlp_fn(cfg, ctx, mlp_fn)
+    auxes = []
     for lp in params["layers"]:
         h = L.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
         x = x + L.attention(lp["attn"], h, cfg, ctx, positions=positions)
         h = L.rms_norm(lp["mlp_norm"], x, cfg.norm_eps)
-        x = x + fn(lp["mlp"], h)[0]
+        y, aux = fn(lp["mlp"], h)
+        x = x + y
+        auxes.append(torch.as_tensor(aux, dtype=torch.float32,
+                                     device=x.device))
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     x = x[:, n_front:]
     if last_only:
         x = x[:, -1:]
-    return L.unembed(params["embed"], x, ctx)
+    logits = L.unembed(params["embed"], x, ctx)
+    if return_aux:
+        return logits, torch.stack(auxes).mean()
+    return logits
+
+
+def loss_fn(params: Params, batch: dict, cfg: ModelConfig, ctx: Ctx, *,
+            mlp_fn: Callable | None = None,
+            aux_coef: float = 0.01) -> torch.Tensor:
+    """The training objective, forward only: the next-token cross
+    entropy of ``batch["tokens"]`` against ``batch["targets"]`` plus
+    ``aux_coef`` x the layers' mean auxiliary loss (MoE), as the
+    reference."""
+    logits, aux = forward(params, batch["tokens"], cfg, ctx,
+                          frontend_embeds=batch.get("frontend_embeds"),
+                          mlp_fn=mlp_fn, return_aux=True)
+    return L.cross_entropy(logits, batch["targets"]) + aux_coef * aux
 
 
 # ----------------------------------------------------------------------
 # decode
 # ----------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype: torch.dtype = torch.bfloat16, *, device=None) -> Params:
+               dtype: torch.dtype = torch.bfloat16, *, device=None,
+               quantize_kv: bool = False) -> Params:
+    """The decode cache: K/V (n_layers, B, max_len, KV, D) in ``dtype``,
+    or with ``quantize_kv`` int8 K/V codes plus ``k_scale``/``v_scale``
+    (n_layers, B, max_len, KV, 1) in ``dtype``, half the bytes of a bf16
+    cache (:func:`~repro_torch.models.layers.attention_decode_quantized`
+    reads it)."""
     device = resolve_device(device)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
              cfg.resolved_head_dim)
+    if quantize_kv:
+        sshape = shape[:-1] + (1,)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(sshape, dtype=dtype, device=device),
+                "v_scale": torch.zeros(sshape, dtype=dtype, device=device),
+                "pos": torch.zeros((), dtype=torch.int32, device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "pos": torch.zeros((), dtype=torch.int32, device=device)}
@@ -191,27 +228,35 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
     ``(n_layers, P, ps, KV, D)`` pools
     (:func:`~repro_torch.models.layers.attention_decode_paged`); the
     table passes through unchanged (the engine rewrites it on admission
-    and retirement)."""
+    and retirement).  A ``"k_scale"`` leaf (``init_cache(quantize_kv=
+    True)``) switches every layer to the int8 cache
+    (:func:`~repro_torch.models.layers.attention_decode_quantized`)."""
     pos = cache["pos"]
     page_table = cache.get("page_table")
+    quantized = "k_scale" in cache
+    leaves = ("k", "v", "k_scale", "v_scale") if quantized else ("k", "v")
     x = L.embed(params["embed"], tokens, ctx)
     fn = _mlp_fn(cfg, ctx, mlp_fn)
     for i, lp in enumerate(params["layers"]):
         h = L.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
-        layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
-        if page_table is None:
-            a, _ = L.attention_decode(lp["attn"], h, cfg, ctx,
-                                      cache=layer_cache, pos=pos)
-        else:
+        layer_cache = {name: cache[name][i] for name in leaves}
+        if page_table is not None:
             a, _ = L.attention_decode_paged(lp["attn"], h, cfg, ctx,
                                             cache=layer_cache,
                                             page_table=page_table, pos=pos)
+        elif quantized:
+            a, _ = L.attention_decode_quantized(lp["attn"], h, cfg, ctx,
+                                                cache=layer_cache, pos=pos)
+        else:
+            a, _ = L.attention_decode(lp["attn"], h, cfg, ctx,
+                                      cache=layer_cache, pos=pos)
         x = x + a
         h = L.rms_norm(lp["mlp_norm"], x, cfg.norm_eps)
         x = x + fn(lp["mlp"], h)[0]
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     logits = L.unembed(params["embed"], x, ctx)
-    out = {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+    out = {name: cache[name] for name in leaves}
+    out["pos"] = pos + 1
     if page_table is not None:
         out["page_table"] = page_table
     return logits, out

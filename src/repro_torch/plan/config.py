@@ -133,7 +133,8 @@ class KernelConfig:
     quantized execution mode (``"int8"`` runs QTensor int8 weights on
     the W8A8 kernels; ``None`` or ``"fp8"`` dequantizes QTensor weights
     onto the standard kernels), ``out_dtype`` an optional output dtype
-    name.
+    name (the kernels write fp32 or bf16; another known name loads and
+    is refused where it is used).
     """
 
     backend: str = "auto"
@@ -183,8 +184,11 @@ class KernelConfig:
                 f"KernelConfig.quant must be one of {_QUANTS}, "
                 f"got {self.quant!r}")
         if self.out_dtype is not None:
+            # any known dtype name, as the JAX package's schema: a plan
+            # asking the kernels for an int8 output loads, and the static
+            # analyzer rejects it (ZS-L004) before it runs
             name = dtype_name(self.out_dtype)
-            dtype_from_name(name)
+            dtype_bytes(name)
             object.__setattr__(self, "out_dtype", name)
 
     @property

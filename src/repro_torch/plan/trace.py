@@ -1,9 +1,9 @@
 """Ahead-of-time plan resolution on the meta device.
 
 The port's counterpart of ``repro.plan.trace``.  ``trace_model`` runs a
-model's prefill and decode entry points on tensors of PyTorch's
-``meta`` device (shapes only: no data, no operations, no memory; the
-counterpart of ``jax.eval_shape``) with an auto-resolving
+model's prefill, decode and (``"train"``) loss entry points on tensors
+of PyTorch's ``meta`` device (shapes only: no data, no operations, no
+memory; the counterpart of ``jax.eval_shape``) with an auto-resolving
 :class:`~repro_torch.plan.Plan` threaded through the ``Ctx``.  Every
 ``ops`` call the model makes resolves its
 :class:`~repro_torch.plan.KernelConfig` during the trace (through
@@ -73,9 +73,9 @@ def trace_model(model, batch_shapes: Sequence[Mapping[str, Any]], ctx, *,
         (int32 assumed), a ``(shape, dtype)`` pair or a tensor; one
         prefill trace per dict (e.g. one per serving bucket).
     max_len : cache capacity (required).
-    modes : any of ``"prefill"`` and ``"decode"``; ``"train"`` needs the
-        training slice of the port (``ROADMAP.md`` queue 1 item 9) and
-        raises.
+    modes : any of ``"prefill"``, ``"decode"`` and ``"train"`` (the
+        forward of ``model.loss`` on each batch, ``targets`` defaulting
+        to ``tokens``, as in the JAX package).
     decode_batch : decode batch width (e.g. ``ServeEngine.num_slots``);
         defaults to the largest batch dim in ``batch_shapes``.
     params : the params to trace with (moved to the meta device, no copy
@@ -89,12 +89,7 @@ def trace_model(model, batch_shapes: Sequence[Mapping[str, Any]], ctx, *,
     unknown = set(modes) - {"prefill", "decode", "train"}
     if unknown:
         raise ValueError(f"trace_model: unknown modes {sorted(unknown)}")
-    if "train" in modes:
-        raise NotImplementedError(
-            "trace_model(modes=('train',)): the port has no training path "
-            "yet (ROADMAP.md queue 1 item 9: cross_entropy, loss_fn, the "
-            "backward pass)")
-    if max_len is None:
+    if max_len is None and ("prefill" in modes or "decode" in modes):
         raise ValueError("trace_model: max_len is required for the "
                          "'prefill'/'decode' modes")
     batches = [{k: _as_meta(v) for k, v in bs.items()} for bs in batch_shapes]
@@ -105,9 +100,15 @@ def trace_model(model, batch_shapes: Sequence[Mapping[str, Any]], ctx, *,
     else:
         params = _to_meta(params)
 
-    if "prefill" in modes:
-        for batch in batches:
+    for batch in batches:
+        if "prefill" in modes:
             model.prefill(params, batch, ctx, max_len)
+        if "train" in modes:
+            # forward only: the port runs no backward pass, and the
+            # reference traces no backward product through ops.* either
+            train_batch = dict(batch)
+            train_batch.setdefault("targets", train_batch["tokens"])
+            model.loss(params, train_batch, ctx)
     if "decode" in modes:
         if decode_batch is None:
             decode_batch = max((b["tokens"].shape[0] for b in batches

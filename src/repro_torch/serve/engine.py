@@ -72,14 +72,26 @@ frontends and decode width need at construction, so serving never
 consults the tuner; ``self.plan`` is the active plan.  A plan's misses
 (e.g. the chunk shapes of chunked prefill, which the trace does not
 cover, as in the JAX engine) resolve eagerly, at the first dispatch
-of their shape; none ever resolves inside a CUDA-graph capture.  Plan
-validation is not ported yet (ROADMAP.md queue 1 item 8).
+of their shape; none ever resolves inside a CUDA-graph capture.
+``validate=True`` runs the static analyzer over the active plan at
+construction (:func:`repro_torch.analyze.lint_plan`) and, paged, over
+the page geometry (:func:`repro_torch.analyze.lint_page_geometry`): an
+error diagnostic raises ``ValueError`` before any request is admitted,
+warnings are reported as a ``RuntimeWarning``, as in the JAX engine.
+
+The int8 KV cache (``cache_kwargs={"quantize_kv": True}``) is refused:
+paged with the JAX engine's error, contiguous because the reference
+engine cannot serve it either (its prefill returns a cache without
+``k_scale``/``v_scale`` leaves, so its first admission fails in
+``_install``, ``src/repro/serve/engine.py:659``).  The cache itself is
+the model's: ``init_cache(quantize_kv=True)`` and ``decode_step``.
 """
 
 from __future__ import annotations
 
 import collections
 import time
+import warnings
 from typing import Sequence
 
 import numpy as np
@@ -157,9 +169,10 @@ class ServeEngine:
     ``prefill_chunk``: ingest prompts longer than this that many tokens
     per engine step.  ``cache_kwargs`` are forwarded to
     ``model.init_cache`` (``enc_len`` for the encdec family, shared by
-    every request; ``quantize_kv`` is not ported yet and raises).
-    ``plan``: a :class:`~repro_torch.plan.Plan` or ``"trace"`` (see the
-    module docstring); ``validate=True`` is not ported yet and raises.
+    every request; ``quantize_kv`` raises, see the module docstring).
+    ``plan``: a :class:`~repro_torch.plan.Plan` or ``"trace"``;
+    ``validate``: lint the plan (and the page geometry) at construction
+    (see the module docstring).
     """
 
     def __init__(self, model, params, ctx, *, num_slots: int = 4,
@@ -172,16 +185,7 @@ class ServeEngine:
                  prefill_chunk: int | None = None,
                  cache_kwargs: dict | None = None, plan=None,
                  validate: bool = False):
-        if validate:
-            raise NotImplementedError(
-                "ServeEngine(validate=True): plan and page-geometry "
-                "validation are not ported yet (ROADMAP.md queue 1 item 8: "
-                "lint_plan, lint_page_geometry)")
         self._cache_kw = dict(cache_kwargs or {})
-        if self._cache_kw.get("quantize_kv"):
-            raise NotImplementedError(
-                "ServeEngine(cache_kwargs={'quantize_kv': True}): the int8 "
-                "KV cache is not ported yet (ROADMAP.md queue 1 item 3)")
         self.device = resolve_device(device)
         self.model = model
         self.params = params
@@ -218,6 +222,8 @@ class ServeEngine:
             ctx = ctx.with_plan(plan)
         self.ctx = ctx
         self.plan = ctx.plan
+        if validate:
+            self._validate_plan()
 
         # each cache leaf's batch axis, probed once from two batch sizes
         # on the meta device (shapes only, nothing allocated)
@@ -227,11 +233,21 @@ class ServeEngine:
         self._paged: set[str] = set()
         self._pages_active = False
         if self.page_size is None:
+            if self._cache_kw.get("quantize_kv"):
+                raise ValueError(
+                    "ServeEngine: the int8 KV cache (quantize_kv) is not "
+                    "served: the reference engine cannot install it (its "
+                    "prefill returns a cache without k_scale/v_scale "
+                    "leaves, so its first admission fails in _install, "
+                    "src/repro/serve/engine.py:659); decode it with "
+                    "init_cache(quantize_kv=True) and Model.decode")
             self.cache = model.init_cache(self.num_slots, self.max_len,
                                           cache_dtype, device=self.device,
                                           **self._cache_kw)
         else:
             self._init_paging(num_pages)
+            if validate:
+                self._validate_pages()
         self.cache["pos"] = torch.zeros((self.num_slots,), dtype=torch.int32,
                                         device=self.device)
         # chunked admissions in flight: slot -> parked state
@@ -298,6 +314,44 @@ class ServeEngine:
                            cache_dtype=cache_dtype,
                            cache_kwargs=self._cache_kw, params=self.params)
 
+    def _validate_plan(self) -> None:
+        """Load-time plan verification (``validate=True``): the static
+        analyzer (:func:`repro_torch.analyze.lint_plan`) over the active
+        plan; a plan with a slot-reuse hazard, an int8-in-int8 entry or
+        an over-budget tile is rejected before the first request is
+        admitted; warnings are surfaced but do not block."""
+        from repro_torch.analyze import lint_plan
+        report = lint_plan(self.plan)
+        if report.errors:
+            raise ValueError(
+                "ServeEngine(validate=True): the plan failed static "
+                "analysis:\n" + "\n".join(d.format() for d in report.errors))
+        if report.warnings:
+            warnings.warn(
+                "ServeEngine: plan analysis warnings:\n"
+                + "\n".join(d.format() for d in report.warnings),
+                RuntimeWarning, stacklevel=3)
+
+    def _validate_pages(self) -> None:
+        """Load-time page-geometry verification (``validate=True``):
+        :func:`repro_torch.analyze.lint_page_geometry` rejects a page
+        size that does not tile the plan's attention KV blocks
+        (ZS-L008), a table too short for ``max_len`` (ZS-S008) or a paged
+        attention block over the shared-memory budget (ZS-S004)."""
+        from repro_torch.analyze import lint_page_geometry
+        cfg = self.model.cfg
+        report = lint_page_geometry(
+            self._geom.page_size, self._geom.table_len,
+            max_len=self.max_len, plan=self.plan,
+            head_dim=cfg.resolved_head_dim,
+            rep=cfg.n_heads // max(1, cfg.n_kv_heads),
+            dtype_bytes=torch.empty((), dtype=self.cache_dtype)
+            .element_size())
+        if report.errors:
+            raise ValueError(
+                "ServeEngine(validate=True): page geometry failed static "
+                "analysis:\n" + "\n".join(d.format() for d in report.errors))
+
     def _shapes(self, batch: int, max_len: int) -> dict[str, tuple]:
         """The shape of every cache leaf but ``pos`` at ``batch`` and
         ``max_len`` (``init_cache`` on the meta device)."""
@@ -321,6 +375,9 @@ class ServeEngine:
             raise ValueError(
                 f"page_size {ps} must be >= 1 and divide max_len "
                 f"{self.max_len}")
+        if self._cache_kw.get("quantize_kv"):
+            raise ValueError("paged serving does not support quantize_kv "
+                             "(int8 page pools are not implemented)")
         if self.model.cfg.family == "encdec" and "enc_len" not in \
                 self._cache_kw:
             raise ValueError(

@@ -16,10 +16,18 @@ kernels take:
   (:func:`~repro_torch.kernels.zero_stall_matmul.select_design` at
   aligned bases) takes the tiles: its own checks, shared memory against
   ``SMEM_LIMIT`` included (the TPU space's VMEM budget);
-* a ``bm`` at or above the rows the problem fills is one launch whatever
-  its value, so the space keeps only the largest such ``bm`` (the
-  default's 128); a ``bk`` longer than K rounded up to a 128-byte box
-  would stream only padding and is left out.
+* on the sm90 design a ``bm`` at or above the rows the problem fills is
+  one launch whatever its value, so the space keeps only the largest
+  such ``bm`` (the default's 128); the ring design runs bm rows, so a
+  ``bm`` past M rounded up to its granule (8 rows in fp32, 32 on the
+  tensor cores) is left out; a ``bk`` longer than K rounded up to a
+  128-byte box,
+  or a ``bn`` wider than N rounded up to 64 (a wgmma's weight rows),
+  would stream only padding and is left out;
+* a decode step's product (M at most 16 rows) runs the revolving buffer
+  (``slots >= 2``) where the space offers it: the decode path is
+  bandwidth-bound, and the static analyzer holds plans to it
+  (``ZS-L006``).
 
 Flash-attention tiles ``(bq, bkv)`` are legal by the kernel's own rules:
 :func:`~repro_torch.kernels.flash_attention.fit_tiles`, the tensor-core
@@ -45,6 +53,7 @@ __all__ = ["Candidate", "Problem", "KernelSpace", "DEFAULT_SPACE",
            "SMALL_SPACE"]
 
 _DTYPES = {1: torch.int8, 2: torch.bfloat16, 4: torch.float32}
+_DECODE_ROWS = 16            # the bucketed M of a few-token decode step
 
 
 @dataclasses.dataclass(frozen=True, order=True)
@@ -138,15 +147,24 @@ class KernelSpace:
                 or c.bk not in self.k_tiles(problem.dtype_bytes)):
             return False
         eb = problem.dtype_bytes
-        if c.bm != self.rows[-1] and c.bm >= zs.sm90_rows(problem.M,
-                                                          self.rows[-1]):
+        sm90 = self.model.design(eb, problem.K, problem.N) == "sm90"
+        if sm90 and c.bm != self.rows[-1] and \
+                c.bm >= zs.sm90_rows(problem.M, self.rows[-1]):
             return False            # the same launch as the largest bm
+        gran = 8 if eb == 4 else 32
+        if not sm90 and c.bm > max(gran, -(-problem.M // gran) * gran):
+            return False            # the ring runs bm rows: padding only
         box = 128 // eb
         if c.bk > max(box, -(-problem.K // box) * box):
             return False            # a stage of padding only
+        if c.bn > max(self.bn_options[0], -(-problem.N // 64) * 64):
+            return False            # weight rows of padding only
+        if (problem.M <= _DECODE_ROWS and c.slots < 2
+                and max(self.slot_options) >= 2):
+            return False            # the decode path runs the ring
         dtype = _DTYPES[eb]
         try:
-            if self.model.design(eb, problem.K, problem.N) == "sm90":
+            if sm90:
                 zs._check_sm90_config(problem.M, c.bm, c.bn, c.bk, c.slots,
                                       dtype)
             else:

@@ -249,7 +249,8 @@ def test_paged_encdec_requires_enc_len():
     with pytest.raises(ValueError, match="explicit enc_len"):
         ServeEngine(m, tp, CTX, device="cpu", num_slots=2, max_len=32,
                     page_size=4)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    # as in the JAX package, the encdec cache takes no quantize_kv
+    with pytest.raises(TypeError, match="quantize_kv"):
         ServeEngine(m, tp, CTX, device="cpu", num_slots=2, max_len=32,
                     cache_kwargs={"quantize_kv": True})
 

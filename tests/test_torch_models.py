@@ -169,8 +169,10 @@ def test_bf16_model_runs_in_compute_dtype():
 @pytest.mark.parametrize("family", ["encdec", "vlm"])
 def test_other_families_name_their_roadmap_item(family):
     """The encdec and vlm families are ported: build_model serves them.
-    What they could ask for and the port still lacks, the int8 KV cache,
-    names its ROADMAP.md item when a ServeEngine is asked for it."""
+    Asked for the int8 KV cache, a ServeEngine refuses as the JAX
+    package does: the encdec init_cache takes no ``quantize_kv``
+    (TypeError), and the vlm contiguous engine names the reference
+    engine's fault (its prefill returns no scale leaves)."""
     from repro_torch.serve import ServeEngine
     cfg = ModelConfig(name="x", family=family, n_layers=2, d_model=8,
                       n_heads=2, n_kv_heads=2, d_ff=16, vocab_size=32,
@@ -180,7 +182,9 @@ def test_other_families_name_their_roadmap_item(family):
     m = build_model(cfg)
     params = m.init(seed=0, device="cpu")
     assert ("decoder" in params) == (family == "encdec")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
+    err, match = ((TypeError, "quantize_kv") if family == "encdec"
+                  else (ValueError, "k_scale/v_scale"))
+    with pytest.raises(err, match=match):
         ServeEngine(m, params, Ctx(plan="auto", dtype=torch.float32),
                     device="cpu", num_slots=1, max_len=8,
                     cache_kwargs={"quantize_kv": True})

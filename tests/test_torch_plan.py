@@ -276,11 +276,20 @@ def test_trace_model_opkeys_match_jax(arch):
 
 
 def test_trace_model_refuses_train_and_needs_max_len():
-    m = build_model(get_config("gemma-7b", reduced=True))
+    """``"train"`` traces the forward of ``model.loss`` (targets default
+    to the tokens, no max_len needed) and resolves the same OpKeys as
+    the JAX package's train trace; prefill and decode need max_len."""
+    jcfg, cfg = j_get_config("gemma-7b", reduced=True), \
+        get_config("gemma-7b", reduced=True)
+    m = build_model(cfg)
     ctx = Ctx(plan="auto", dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        trace_model(m, [{"tokens": (1, 8)}], ctx, max_len=16,
-                    modes=("train",))
+    plan = trace_model(m, [{"tokens": (1, 8)}], ctx, modes=("train",))
+    jplan = j_trace_model(
+        j_build_model(jcfg), [{"tokens": (1, 8)}],
+        JCtx(plan=JPlan(backend="interpret"), dtype=jnp.float32),
+        modes=("train",))
+    assert {k.to_str() for k in plan.entries} == \
+        {k.to_str() for k in jplan.entries}
     with pytest.raises(ValueError, match="max_len"):
         trace_model(m, [{"tokens": (1, 8)}], ctx)
     # the trace leaves the caller's plan untouched

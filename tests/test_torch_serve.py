@@ -229,14 +229,14 @@ def test_request_validation_and_stats():
 
 
 def test_engine_rejects_what_slice_two_brings(gemma):
-    """Paging and chunked prefill came with slice 2 of the port and plans
-    with slice 10; plan validation did not, and its refusal names its
-    ROADMAP item.  A plan argument outside the vocabulary raises."""
+    """Paging and chunked prefill came with slice 2 of the port, plans
+    with slice 10 and plan validation with slice 11: ``validate=True``
+    now lints the active plan and builds the engine.  A plan argument
+    outside the vocabulary raises."""
     _, _, m, tp = gemma
     with pytest.raises(ValueError, match="execution plan"):
         _engine(m, tp, plan=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 8:"):
-        _engine(m, tp, validate=True)
+    assert _engine(m, tp, validate=True).plan is not None
     _engine(m, tp, page_size=8, prefill_chunk=4)
     engine = _engine(m, tp)
     with pytest.raises(ValueError, match="exceeds max_len"):

@@ -243,9 +243,10 @@ def test_space_is_what_the_wrappers_take(M, N, K, eb, groups):
     default = Candidate(d.bm, d.bn, d.resolved_bk(dtype), 2, "ijk")
     assert DEFAULT_SPACE.default(p) == default
     # the default comes first wherever it is legal (a k tile longer than
-    # K rounded up to a box streams only padding, as at K = 30)
+    # K rounded up to a box streams only padding, as at K = 30, and so
+    # does a bn wider than N rounded up to 64, as at N = 40)
     assert (cands[0] == default) == DEFAULT_SPACE.feasible(default, p)
-    assert (cands[0] == default) == (K != 30)
+    assert (cands[0] == default) == (K != 30 and N > 64)
     assert len(cands) == len(set(cands)) == DEFAULT_SPACE.size(p)
     design = zs.select_design(dtype, K, N, False)
     for c in cands:
@@ -258,8 +259,14 @@ def test_space_is_what_the_wrappers_take(M, N, K, eb, groups):
         assert c.bk * eb in (128, 256, 384, 512)
         if groups > 1:
             assert c.grid_order == "ijk"
-    # a bm at or above the rows M fills is one launch: only 128 stays
-    assert all(c.bm == 128 or c.bm < zs.sm90_rows(M, 128) for c in cands)
+    # sm90: a bm at or above the rows M fills is one launch, only 128
+    # stays; the ring runs bm rows, so none past M's granule stays
+    if design == "sm90":
+        assert all(c.bm == 128 or c.bm < zs.sm90_rows(M, 128)
+                   for c in cands)
+    else:
+        gran = 8 if eb == 4 else 32
+        assert all(c.bm <= max(gran, -(-M // gran) * gran) for c in cands)
     assert SMALL_SPACE.size(p) < len(cands)
 
 
