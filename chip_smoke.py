@@ -173,6 +173,27 @@ Phases, each printed as it runs:
    the launch geometry the six wrappers record at real launches (phase
    6's shapes, and a prefill and a decode pass under 5m's measured plan):
    no ZS-K error;
+5o. training on the card, in fp32 with TF32 off, on the plain path
+   (``Ctx(plan="torch")``, as JAX trains on its ``jnp`` path): (a) one
+   ``make_train_step`` of reduced gemma-7b and mamba2-130m from the same
+   state on the card and on the CPU: loss and grad norm within 1e-5
+   relative, updated parameters within 2 lr (the bound the CPU tests
+   against JAX derive); (b) mamba2-130m at its published size (24
+   layers, d 768, vocab 50280) through ``train_loop``: 30 steps of 8 x
+   1024 tokens at lr 3e-3 with a checkpoint every 10 steps and two
+   injected ``TransientError``s: the last five steps' mean loss more than
+   0.05 under the first five's, ``retries_total == 2``; its last two
+   checkpoints removed, a second ``train_loop`` resumes from step 10 and
+   gives the unbroken run's losses for steps 11-29 within 1e-4
+   relative; ``microbatches=2`` gives its first loss within 1e-5
+   relative; ``grad_compression="int8"`` runs; then a warm-up and 3 steps
+   through ``make_train_step``; (c) gemma-7b at full width, 4 of 28
+   layers, remat "full": a warm-up and 4 steps of 4 x 512 tokens through
+   ``make_train_step``; each of (b) and (c): the median step time,
+   tokens/s, the peak memory (in (c) beside its reckoning), the model
+   FLOP/s as a share of the fp32 peak and one step's device-busy share
+   under ``torch.profiler``; (d) no launch of any of the six kernel wrappers
+   over (a)-(c);
 6. each kernel's time at the main-path shapes with CUDA events over a
    CUDA graph of many calls (device time, with the host's launch work
    taken out; operands cycled past the 50 MB L2), beside its plain
@@ -214,6 +235,7 @@ it is not run from a checkout that holds ``src/repro_torch``.
 from __future__ import annotations
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -366,6 +388,7 @@ def main() -> int:
         by_path.update(phase(torch, kern))
     serve_under_plans(torch, kern)
     serve_int8_kv_and_analyze(torch, kern)
+    train_on_the_card(torch, kern)
     timings = time_kernels(torch, kern)
     timings.update(time_new_kernels(torch, kern))
     slice8 = time_slice8(torch, kern)
@@ -1656,8 +1679,6 @@ def busy_share(torch, eng, times: dict) -> None:
     unprofiled step time of :func:`block_step_ms`.  The launch counters
     are left as the served run left them."""
     import numpy as np
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import launches
     from repro_torch.serve.engine import _host
@@ -1671,29 +1692,13 @@ def busy_share(torch, eng, times: dict) -> None:
     for how, fn in fns.items():
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            wall_us = 1e6 * (time.perf_counter() - t0)
-        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if not dev:
+        busy, wall_us, top, events = device_busy(torch, fn)
+        if not events:
             print(f"    {how} dispatch: the profiler recorded no device "
                   f"event: device-busy share not measured")
             continue
-        busy, end = 0.0, float("-inf")
-        for a, b in sorted((e.time_range.start, e.time_range.end)
-                           for e in dev):
-            if b > end:
-                busy += b - max(a, end)
-                end = b
-        by_name: dict[str, float] = {}
-        for e in dev:
-            by_name[e.name] = by_name.get(e.name, 0.0) + \
-                e.time_range.elapsed_us()
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
         step_us = 1e3 * K * sum(times[how]) / len(times[how])
-        print(f"    {how} dispatch (K={K}) under torch.profiler: {len(dev)} "
+        print(f"    {how} dispatch (K={K}) under torch.profiler: {events} "
               f"device events, device busy {busy:.0f} us of {wall_us:.0f} "
               f"us of host time ({busy / wall_us:.1%}); against the "
               f"unprofiled dispatch ({step_us:.0f} us): "
@@ -3439,6 +3444,261 @@ def serve_int8_kv_and_analyze(torch, kern) -> None:
     print(f"    5n took {time.perf_counter() - t0:.1f} s: weights "
           f"{ta - t0:.1f}, (a) {tb - ta:.1f}, (b) {tc - tb:.1f}, (c) "
           f"{td - tc:.1f}, (d) {time.perf_counter() - td:.1f}", flush=True)
+
+
+# ----------------------------------------------------------------------
+# 5o. training on the card
+# ----------------------------------------------------------------------
+TRAIN_DIR = ROOT / "build" / "chip_smoke_5o"
+# 5o (b): the published mamba2-130m, the arch JAX's tests/test_e2e_train.py
+# trains
+TRAIN_B = dict(seq_len=1024, global_batch=8, lr=3e-3, warmup_steps=3,
+               total_steps=30, ckpt_every=10, dtype="float32")
+# 5o (c): gemma-7b at full width; 4 layers keep parameters, gradients and
+# both moments in fp32 (16 bytes a parameter) and the loss's one-hot
+# contraction over 256000 columns inside 80 GB
+TRAIN_C = dict(layers=4, seq_len=512, global_batch=4, steps=4)
+
+
+def train_step_device_vs_host(torch) -> None:
+    """5o (a): one train step of the reduced configs on the card and on
+    the CPU from the same state."""
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import Ctx, build_model
+    from repro_torch.optim import init_opt_state
+    from repro_torch.tree import leaves, tree_map
+
+    run = RunConfig(seq_len=64, global_batch=4, lr=3e-3, warmup_steps=2,
+                    total_steps=10, dtype="float32")
+    ctx = Ctx(plan="torch", dtype=torch.float32)
+    for arch in ("gemma-7b", "mamba2-130m"):
+        cfg = get_config(arch, reduced=True)
+        model = build_model(cfg)
+        host = model.init(seed=0, dtype=torch.float32, device="cpu")
+        pipe = make_pipeline(cfg.vocab_size, run.seq_len, run.global_batch)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            params = tree_map(lambda t: t.to(dev, copy=True), host)
+            p, _, _, m = make_train_step(model, ctx, run)(
+                params, init_opt_state(params), {},
+                pipe.torch_batch(0, dev))
+            out[dev] = (float(m["loss"]), float(m["grad_norm"]),
+                        float(m["lr"]), [t.cpu() for t in leaves(p)])
+        (lc, gc, lr, pc), (lg, gg, _, pg) = out["cpu"], out["cuda"]
+        dp = max(float((a - b).abs().max()) for a, b in zip(pc, pg))
+        print(f"    (a) {arch} reduced: loss card {lg:.7f} host {lc:.7f} "
+              f"(rel {abs(lg - lc) / lc:.3g}), grad norm card {gg:.7f} host "
+              f"{gc:.7f} (rel {abs(gg - gc) / gc:.3g}); updated params "
+              f"within {dp:.3g} = {dp / lr:.3g} lr", flush=True)
+        require(abs(lg - lc) <= 1e-5 * abs(lc), f"5o (a) {arch}: loss")
+        require(abs(gg - gc) <= 1e-5 * abs(gc), f"5o (a) {arch}: grad norm")
+        require(dp <= 2 * lr + 1e-6, f"5o (a) {arch}: updated params")
+
+
+def train_mamba2_full(torch) -> None:
+    """5o (b): mamba2-130m at its published size through ``train_loop``."""
+    import shutil
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.launch.train import train_loop
+    from repro_torch.runtime.fault_tolerance import TransientError
+
+    def run_cfg(name, **kw):
+        return RunConfig(**{**TRAIN_B, "ckpt_dir": str(TRAIN_DIR / name),
+                            **kw})
+
+    fail_at, starts = {7, 13}, []
+
+    def hook(step):
+        starts.append((step, time.perf_counter()))
+        if step in fail_at:
+            fail_at.discard(step)
+            raise TransientError("injected preemption")
+
+    t0 = time.perf_counter()
+    out = train_loop("mamba2-130m", run_cfg("unbroken"), reduced=False,
+                     failure_hook=hook, log_every=10, device="cuda")
+    t1 = time.perf_counter()
+    losses = out["losses"]
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    # a step's time: from one step's start to the next's (the hook runs
+    # first in each attempt), the first step (a warm-up) left out
+    times = [b[1] - a[1] for a, b in zip(starts, starts[1:])
+             if b[0] == a[0] + 1][1:]
+    med = sorted(times)[len(times) // 2]
+    tokens = TRAIN_B["seq_len"] * TRAIN_B["global_batch"]
+    print(f"    (b) mamba2-130m full size, {TRAIN_B['total_steps']} steps of "
+          f"{TRAIN_B['global_batch']} x {TRAIN_B['seq_len']}: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, first five {first:.4f}, "
+          f"last five {last:.4f}; retries {out['executor'].retries_total}, "
+          f"restarts {out['executor'].restarts_total}; {t1 - t0:.1f} s, a "
+          f"step {1e3 * med:.1f} ms (median), {tokens / med:.0f} tokens/s",
+          flush=True)
+    require(last < first - 0.05, f"5o (b): the loss fell from {first:.4f} "
+            f"to {last:.4f}, not by more than 0.05")
+    require(out["executor"].retries_total == 2, "5o (b): retries != 2")
+    del out
+    steps = sorted(int(p.name.split("_")[1])
+                   for p in (TRAIN_DIR / "unbroken").glob("step_*"))
+    require(steps == [10, 20, 29], f"5o (b): checkpoints {steps}")
+    for s in (20, 29):
+        shutil.rmtree(TRAIN_DIR / "unbroken" / f"step_{s:010d}")
+    resumed = train_loop("mamba2-130m", run_cfg("unbroken"), reduced=False,
+                         log_every=100, device="cuda")["losses"]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(resumed, losses[11:]))
+    print(f"    (b) resumed from step 10: {len(resumed)} steps, losses "
+          f"within {worst:.3g} relative of the unbroken run's", flush=True)
+    require(len(resumed) == 19 and worst <= 1e-4,
+            f"5o (b): the resumed run is not the unbroken one ({worst:.3g})")
+    mb2 = train_loop("mamba2-130m", run_cfg("mb2", total_steps=1,
+                                             microbatches=2),
+                     reduced=False, device="cuda")["losses"][0]
+    int8 = train_loop("mamba2-130m", run_cfg("int8", total_steps=2,
+                                              grad_compression="int8"),
+                      reduced=False, device="cuda")["losses"]
+    print(f"    (b) microbatches=2: first loss {mb2:.7f} against "
+          f"{losses[0]:.7f} (rel {abs(mb2 - losses[0]) / losses[0]:.3g}); "
+          f"int8 compression: losses {int8}", flush=True)
+    require(abs(mb2 - losses[0]) <= 1e-5 * losses[0],
+            "5o (b): microbatches=2 changed the first loss")
+    require(all(math.isfinite(x) for x in int8), "5o (b): int8 diverged")
+    shutil.rmtree(TRAIN_DIR)
+    time_train_steps(torch, "b", get_config("mamba2-130m"),
+                     TRAIN_B["seq_len"], TRAIN_B["global_batch"], 3)
+
+
+def device_busy(torch, fn) -> tuple[float, float, list, int]:
+    """One call of ``fn`` under ``torch.profiler``: (device-busy us, the
+    call's host us, the five names with the most device time, the number
+    of device events), busy being the union of the call's device events
+    (kernels and copies)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in dev):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name: dict[str, float] = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return (busy, wall_us, sorted(by_name.items(), key=lambda kv: -kv[1])[:5],
+            len(dev))
+
+
+def time_train_steps(torch, label: str, cfg, S: int, B: int,
+                     steps: int) -> tuple[float, int]:
+    """``steps`` timed train steps of ``cfg`` at B x S tokens after a
+    warm-up step, fp32 on the card, through ``make_train_step``, then one
+    more under the profiler: prints the losses, the step times, tokens/s,
+    the peak memory, the model FLOP/s (6 N tokens, x 4/3 under full
+    remat) against the fp32 peak and the device-busy share; returns (the
+    median step's seconds, the peak bytes)."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import Ctx, build_model
+    from repro_torch.optim import init_opt_state
+
+    run = RunConfig(seq_len=S, global_batch=B, lr=3e-4, warmup_steps=1,
+                    total_steps=steps + 2, dtype="float32")
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(seed=0, dtype=torch.float32, device="cuda")
+    opt = init_opt_state(params)
+    step = make_train_step(model, Ctx(plan="torch", dtype=torch.float32),
+                           run)
+    pipe = make_pipeline(cfg.vocab_size, S, B)
+    times, losses = [], []
+    for i in range(steps + 1):
+        batch = pipe.torch_batch(i, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, _, m = step(params, opt, {}, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    med = sorted(times[1:])[len(times[1:]) // 2]
+    n, tokens = cfg.param_count(), S * B
+    flops = 6 * n * tokens * (4 / 3 if cfg.remat == "full" else 1)
+    print(f"    ({label}) {steps} steps of {B} x {S} after a warm-up: losses "
+          f"{[round(x, 4) for x in losses]}; step times "
+          f"{[round(1e3 * t, 1) for t in times]} ms; median "
+          f"{1e3 * med:.1f} ms, {tokens / med:.0f} tokens/s; peak memory "
+          f"{peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated); model "
+          f"FLOP/s {flops / med / 1e12:.2f} T (6 N tokens"
+          f"{' x 4/3, full remat' if cfg.remat == 'full' else ''}), "
+          f"{100 * flops / med / PEAK_FLOPS['float32']:.1f}% of the "
+          f"{PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s fp32 peak", flush=True)
+    require(all(math.isfinite(x) for x in losses),
+            f"5o ({label}): loss not finite")
+    batch = pipe.torch_batch(steps + 1, "cuda")
+    busy, wall, top, events = device_busy(
+        torch, lambda: step(params, opt, {}, batch))
+    print(f"    ({label}) one step under torch.profiler: {events} device "
+          f"events, busy {busy / 1e3:.1f} ms of {wall / 1e3:.1f} ms "
+          f"({busy / wall:.1%}), "
+          f"{busy / 1e3 / (1e3 * med):.1%} of the unprofiled median; most "
+          f"device time: " + "; ".join(f"{name[:50]} {us / 1e3:.1f} ms"
+                                       for name, us in top), flush=True)
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return med, peak
+
+
+def train_gemma_full_width(torch) -> None:
+    """5o (c): gemma-7b at full width, a cut depth, remat "full"."""
+    import dataclasses
+    from repro_torch.configs import get_config
+
+    L, S, B = TRAIN_C["layers"], TRAIN_C["seq_len"], TRAIN_C["global_batch"]
+    cfg = dataclasses.replace(get_config("gemma-7b"), n_layers=L)
+    require(cfg.remat == "full", "5o (c): gemma-7b's remat is not full")
+    n = cfg.param_count()
+    emb = cfg.vocab_size * cfg.d_model
+    # fp32 params, gradients, mu and nu; the loss's logits, one-hot and
+    # their gradients are (tokens, vocab) fp32 tensors
+    reckon = 16 * n
+    print(f"    (c) gemma-7b full width, {L} of 28 layers: {n / 1e9:.4f} B "
+          f"parameters ({emb / 1e6:.1f} M embedding, "
+          f"{(n - emb - cfg.d_model) / L / 1e6:.1f} M a layer); reckoned "
+          f"{reckon / 1e9:.1f} GB of fp32 state (16 bytes a parameter) + "
+          f"{4 * S * B * cfg.vocab_size / 1e9:.2f} GB a (tokens, vocab) fp32 "
+          f"tensor of the loss", flush=True)
+    time_train_steps(torch, "c", cfg, S, B, TRAIN_C["steps"])
+
+
+def train_on_the_card(torch, kern) -> None:
+    """5o: training on the card (see the module docstring)."""
+    from repro_torch.kernels import launches
+    t0 = time.perf_counter()
+    print("[5o] training in fp32 on the plain path: (a) the card against the "
+          "host; (b) mamba2-130m full size through train_loop; (c) gemma-7b "
+          "full width; (d) no kernel launch", flush=True)
+    torch.cuda.empty_cache()
+    before = launches.snapshot()
+    train_step_device_vs_host(torch)
+    ta = time.perf_counter()
+    train_mamba2_full(torch)
+    tb = time.perf_counter()
+    train_gemma_full_width(torch)
+    tc = time.perf_counter()
+    made = launches.since(before)
+    print(f"    (d) kernel launches over (a)-(c): {made or 'none'} (each of "
+          f"{', '.join(kern)})")
+    require(not made, f"5o: the train path launched kernels: {made}")
+    print(f"    5o took {tc - t0:.1f} s: (a) {ta - t0:.1f}, (b) {tb - ta:.1f}, "
+          f"(c) {tc - tb:.1f}", flush=True)
 
 
 # ----------------------------------------------------------------------

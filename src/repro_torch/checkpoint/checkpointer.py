@@ -1,0 +1,149 @@
+"""Checkpointing: async and atomic (the port of
+``repro.checkpoint.checkpointer``, with its protocol).
+
+  * **atomic**: writes go to ``step_<N>.tmp/`` and are renamed to
+    ``step_<N>/`` only after every leaf and the fsync'd manifest are
+    written, so a half-written checkpoint is never visible to restore.
+  * **async**: :meth:`Checkpointer.save` copies the tensors to host
+    memory synchronously and writes them on a background thread, one
+    save outstanding at a time; the train loop is blocked only for the
+    device-to-host copy (which is a copy on the CPU too: the loop
+    updates its tensors in place afterwards).
+  * **keep-k** garbage collection of old steps.
+
+Storage is one ``leaf_%05d.npy`` a leaf in :func:`repro_torch.tree.flatten`
+order (a dict by sorted key, a list or tuple in order, an ``OptState``
+as mu, nu, step).  numpy has no bfloat16, so a bf16 leaf is stored as
+its 16-bit words; the manifest lists every leaf's dtype.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.tree import flatten, unflatten
+
+__all__ = ["Checkpointer"]
+
+
+def _to_host(x: torch.Tensor) -> np.ndarray:
+    t = x.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.numpy()
+
+
+def _from_host(a: np.ndarray, dtype: str, device) -> torch.Tensor:
+    t = torch.from_numpy(a)
+    if dtype == "bfloat16":
+        t = t.view(torch.bfloat16)
+    return t.to(device)
+
+
+class Checkpointer:
+    def __init__(self, directory: str, *, keep: int = 3):
+        self.dir = directory
+        self.keep = keep
+        os.makedirs(directory, exist_ok=True)
+        self._thread: threading.Thread | None = None
+        self._error: Exception | None = None
+
+    # ------------------------------------------------------------------
+    def save(self, step: int, tree: Any, *, blocking: bool = False) -> None:
+        """Snapshot now, write in the background."""
+        self.wait()  # one outstanding save at a time
+        leaves, treedef = flatten(tree)
+        host_leaves = [_to_host(x) for x in leaves]  # device->host copy
+        spec = {"treedef": str(treedef), "n_leaves": len(leaves),
+                "step": step,
+                "dtypes": [str(x.dtype).removeprefix("torch.")
+                           for x in leaves]}
+
+        def write():
+            try:
+                tmp = os.path.join(self.dir, f"step_{step:010d}.tmp")
+                final = os.path.join(self.dir, f"step_{step:010d}")
+                if os.path.exists(tmp):
+                    shutil.rmtree(tmp)
+                os.makedirs(tmp)
+                for i, arr in enumerate(host_leaves):
+                    np.save(os.path.join(tmp, f"leaf_{i:05d}.npy"), arr)
+                with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                    json.dump(spec, f)
+                    f.flush()
+                    os.fsync(f.fileno())
+                if os.path.exists(final):
+                    shutil.rmtree(final)
+                os.rename(tmp, final)   # atomic publish
+                self._gc()
+            except Exception as e:       # surfaced on next wait()
+                self._error = e
+
+        if blocking:
+            write()
+            self.raise_if_failed()
+        else:
+            self._thread = threading.Thread(target=write, daemon=True)
+            self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        self.raise_if_failed()
+
+    def raise_if_failed(self) -> None:
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError(f"async checkpoint write failed: {err}")
+
+    # ------------------------------------------------------------------
+    def steps(self) -> list[int]:
+        out = []
+        for name in os.listdir(self.dir):
+            if name.startswith("step_") and not name.endswith(".tmp"):
+                if os.path.exists(os.path.join(self.dir, name,
+                                               "manifest.json")):
+                    out.append(int(name.split("_")[1]))
+        return sorted(out)
+
+    def latest_step(self) -> int | None:
+        s = self.steps()
+        return s[-1] if s else None
+
+    def restore(self, template: Any, *, step: int | None = None,
+                device=None) -> tuple[Any, int]:
+        """Restore onto ``template``'s structure: (tree, step), every leaf
+        a tensor of its stored dtype on ``device`` (None: the card)."""
+        self.wait()
+        device = resolve_device(device)
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.dir}")
+        path = os.path.join(self.dir, f"step_{step:010d}")
+        with open(os.path.join(path, "manifest.json")) as f:
+            dtypes = json.load(f)["dtypes"]
+        leaves, treedef = flatten(template)
+        loaded = [np.load(os.path.join(path, f"leaf_{i:05d}.npy"))
+                  for i in range(len(leaves))]
+        for tpl, arr in zip(leaves, loaded):
+            if tuple(tpl.shape) != tuple(arr.shape):
+                raise ValueError(
+                    f"checkpoint/model shape mismatch: {arr.shape} vs "
+                    f"{tuple(tpl.shape)} — wrong arch for this checkpoint?")
+        placed = [_from_host(a, d, device) for a, d in zip(loaded, dtypes)]
+        return unflatten(treedef, placed), step
+
+    def _gc(self) -> None:
+        steps = self.steps()
+        for s in steps[:-self.keep] if self.keep else []:
+            shutil.rmtree(os.path.join(self.dir, f"step_{s:010d}"),
+                          ignore_errors=True)

@@ -1,4 +1,6 @@
-from repro_torch.configs.base import (ModelConfig, get_config, list_configs,
-                                     register)
+from repro_torch.configs.base import (SHAPES, ModelConfig, RunConfig,
+                                     ShapeSpec, get_config, list_configs,
+                                     register, token_count)
 
-__all__ = ["ModelConfig", "get_config", "list_configs", "register"]
+__all__ = ["ModelConfig", "RunConfig", "ShapeSpec", "SHAPES", "get_config",
+           "list_configs", "register", "token_count"]

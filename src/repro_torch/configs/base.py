@@ -1,8 +1,10 @@
-"""Model configuration dataclass and the architecture registry.
+"""Config system: model and run dataclasses, the shape registry, the
+architecture registry.
 
-The port's own copy of ``repro.configs.base``, limited to the model
-fields serving reads (the JAX module imports jax for its input specs,
-and its training fields, ``remat`` among them, are not ported).
+The port's own copy of ``repro.configs.base`` (which imports jax for its
+input specs): ``ModelConfig`` with every field, ``remat`` included,
+``RunConfig``, ``ShapeSpec`` / ``SHAPES`` and ``token_count``.
+``input_specs`` (JAX shape structs for the dry run) is not ported.
 """
 
 from __future__ import annotations
@@ -11,7 +13,8 @@ import dataclasses
 import importlib
 from typing import Callable
 
-__all__ = ["ModelConfig", "register", "get_config", "list_configs"]
+__all__ = ["ModelConfig", "RunConfig", "ShapeSpec", "SHAPES", "register",
+           "get_config", "list_configs", "token_count"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +51,7 @@ class ModelConfig:
     rope_theta: float = 1e4
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
+    remat: str = "dots"           # none | dots | full
     notes: str = ""
 
     @property
@@ -108,6 +112,50 @@ class ModelConfig:
         conv = (di + 2 * g * n) * self.conv_kernel
         out = di * d + di  # out_proj + gated norm
         return in_proj + conv + out + 3 * h  # A_log, D, dt_bias
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """Training/serving hyperparameters."""
+    seq_len: int = 1024
+    global_batch: int = 8
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.95
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    seed: int = 0
+    microbatches: int = 1          # >1 enables grad accumulation
+    grad_compression: str = "none"  # none | int8 | topk
+    ckpt_dir: str = "/tmp/repro_ckpt"
+    ckpt_every: int = 100
+    keep_ckpts: int = 3
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
+def token_count(shape: ShapeSpec) -> int:
+    if shape.kind == "decode":
+        return shape.global_batch  # one new token per sequence
+    return shape.global_batch * shape.seq_len
 
 
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}

@@ -9,6 +9,7 @@ def full() -> ModelConfig:
         n_layers=62, d_model=7168, n_heads=56, n_kv_heads=8,
         d_ff=19200, vocab_size=32256,
         mlp_type="swiglu", rope_theta=1e5,
+        remat="full",
         notes="56H -> GSPMD pad on 16-way TP",
     )
 

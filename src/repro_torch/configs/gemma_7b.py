@@ -9,6 +9,7 @@ def full() -> ModelConfig:
         n_layers=28, d_model=3072, n_heads=16, n_kv_heads=16,
         head_dim=256, d_ff=24576, vocab_size=256000,
         mlp_type="geglu", tie_embeddings=True,
+        remat="full",
         notes="GeGLU; big tied vocab; MQA variant is the 2b config",
     )
 

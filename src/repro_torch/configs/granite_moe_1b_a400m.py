@@ -13,6 +13,7 @@ def full() -> ModelConfig:
         d_ff=512, vocab_size=49155,
         n_experts=32, experts_per_token=8,
         mlp_type="swiglu", tie_embeddings=True,
+        remat="full",
         notes="EP: 32 experts / 16-way model axis = 2 per device",
     )
 

@@ -15,6 +15,7 @@ def full() -> ModelConfig:
         d_ff=20480, vocab_size=64000,
         mlp_type="swiglu", frontend="patch", frontend_tokens=2880,
         rope_theta=5e6,
+        remat="full",
         notes="anyres patch embeds stubbed; 56H pads on 16-way TP (GSPMD)",
     )
 

@@ -13,6 +13,7 @@ def full() -> ModelConfig:
         d_ff=0, vocab_size=50280,
         ssm_state=128, ssm_head_dim=64, ssm_expand=2,
         tie_embeddings=True,
+        remat="full",
         notes="attention-free; long_500k runs (O(1) state decode)",
     )
 

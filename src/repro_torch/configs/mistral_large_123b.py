@@ -12,6 +12,7 @@ def full() -> ModelConfig:
         n_layers=88, d_model=12288, n_heads=96, n_kv_heads=8,
         d_ff=28672, vocab_size=32768,
         mlp_type="swiglu", rope_theta=1e6,
+        remat="full",
         notes="largest assigned arch; needs FSDP(data)+TP(model) 2D sharding",
     )
 

@@ -10,6 +10,7 @@ def full() -> ModelConfig:
         d_ff=1024, vocab_size=50304,
         n_experts=64, experts_per_token=8,
         mlp_type="swiglu",
+        remat="full",
         notes="EP: 64 experts / 16-way model axis = 4 per device",
     )
 

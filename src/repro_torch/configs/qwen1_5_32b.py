@@ -9,6 +9,7 @@ def full() -> ModelConfig:
         n_layers=64, d_model=5120, n_heads=40, n_kv_heads=40,
         d_ff=27392, vocab_size=152064,
         mlp_type="swiglu", qkv_bias=True, rope_theta=1e6,
+        remat="full",
         notes="40H non-divisible by 16-way TP -> GSPMD pad",
     )
 

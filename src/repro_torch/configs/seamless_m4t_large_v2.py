@@ -15,6 +15,7 @@ def full() -> ModelConfig:
         d_model=1024, n_heads=16, n_kv_heads=16,
         d_ff=8192, vocab_size=256206,
         mlp_type="mlp", frontend="audio",
+        remat="full",
         notes="enc-dec; decode = decoder step with self+cross KV caches",
     )
 

@@ -13,6 +13,7 @@ def full() -> ModelConfig:
         d_ff=10240, vocab_size=32000,
         ssm_state=64, ssm_head_dim=64, ssm_expand=2,
         attn_every=6, mlp_type="geglu", tie_embeddings=True,
+        remat="full",
         notes="54 mamba2 layers; one shared attn+MLP block invoked every 6",
     )
 

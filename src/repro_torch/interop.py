@@ -1,4 +1,5 @@
-"""Convert the JAX package's parameters, given as numpy arrays, to the port's.
+"""Convert the JAX package's parameters, given as numpy arrays, to the
+port's, and back (:func:`params_to_numpy`).
 
 The caller turns the JAX pytree into numpy first
 (``jax.tree.map(np.asarray, params)``), so this module needs neither
@@ -22,7 +23,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.quant.tensor import QTensor, k_major
 
-__all__ = ["params_from_numpy", "tensor_from_numpy"]
+__all__ = ["params_from_numpy", "params_to_numpy", "tensor_from_numpy"]
 
 
 def tensor_from_numpy(a: Any, device=None) -> torch.Tensor:
@@ -118,4 +119,48 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, *, device=None) -> dict:
         out["layers"] = stack("layers", cfg.n_layers, "n_layers")
     if "shared" in tree:
         out["shared"] = _tree(tree["shared"], device)
+    return out
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        # a bfloat16 numpy dtype exists once ml_dtypes is loaded (JAX
+        # loads it); the words are copied as they are
+        return t.view(torch.int16).numpy().view(np.dtype("bfloat16"))
+    return t.numpy().copy()
+
+
+def params_to_numpy(params: dict, cfg: ModelConfig) -> dict:
+    """The port's params -> JAX's layout with numpy leaves: the inverse
+    of :func:`params_from_numpy` for plain (unquantized) trees.  The
+    per-layer lists are stacked back along JAX's leading axes
+    (``(n_layers, ...)``, the hybrid's ``(n_layers / attn_every,
+    attn_every, ...)``, the encdec's encoder and decoder stacks), and an
+    untied LM head comes back in its logical (d, V) shape, so a tree of
+    the port (gradients, moments, updated parameters) compares leaf by
+    leaf with JAX's."""
+    def tree(x: Any) -> Any:
+        if isinstance(x, dict):
+            return {k: tree(v) for k, v in x.items()}
+        return _to_numpy(x)
+
+    def stack(items: list) -> Any:
+        if isinstance(items[0], dict):
+            return {k: stack([it[k] for it in items]) for k in items[0]}
+        if isinstance(items[0], list):
+            return stack([stack(it) for it in items])
+        return np.stack([it if isinstance(it, np.ndarray) else _to_numpy(it)
+                         for it in items])
+
+    out = {"embed": tree(params["embed"]),
+           "final_norm": tree(params["final_norm"])}
+    if cfg.family == "encdec":
+        out["encoder"] = stack(params["encoder"])
+        out["decoder"] = stack(params["decoder"])
+        out["enc_norm"] = tree(params["enc_norm"])
+    else:
+        out["layers"] = stack(params["layers"])
+    if "shared" in params:
+        out["shared"] = tree(params["shared"])
     return out

@@ -1,0 +1,188 @@
+"""End-to-end training launcher (the port of ``repro.launch.train``).
+
+Wires every substrate together: config -> model -> data pipeline ->
+train step (autograd through ``Model.loss``, optional gradient
+accumulation and gradient compression, AdamW in place) -> async
+checkpointing -> resilient executor (retry / heartbeat / straggler
+detection).  As in the JAX package, training runs the plain path
+(``Ctx(plan="torch")``: the kernels of the port have no backward, and
+JAX trains on its ``jnp`` path), on one device.  Example:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-7b \\
+      --device cpu --reduced --steps 100 --seq-len 128 --global-batch 8
+
+``--device`` defaults to the card (it raises without one); ``--layers
+N`` trains the first N layers of a layer-list family at the config's
+widths, for a model whose full depth does not fit the card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.checkpoint import Checkpointer
+from repro_torch.configs import RunConfig, get_config
+from repro_torch.data import make_pipeline
+from repro_torch.models import Ctx, build_model
+from repro_torch.optim import adamw_update_, init_opt_state
+from repro_torch.optim.compression import apply_error_feedback, init_residuals
+from repro_torch.runtime.fault_tolerance import (Heartbeat, ResilientExecutor,
+                                                 StragglerDetector)
+from repro_torch.tree import flatten, unflatten
+
+__all__ = ["train_loop", "make_train_step"]
+
+
+def make_train_step(model, ctx: Ctx, run: RunConfig):
+    """``train_step(params, opt, residuals, batch) -> (params, opt,
+    residuals, metrics)``, JAX's step: the loss and its gradients (with
+    ``run.microbatches > 1`` accumulated over equal slices of the batch,
+    ``loss + loss_mb / mb`` and ``g + g_mb / mb`` as JAX's scan), error
+    feedback, then AdamW.  ``params`` and ``opt`` are updated in place
+    (JAX donates them) and returned; ``metrics`` holds the loss, the
+    gradient norm and the learning rate as device scalars."""
+    def value_and_grad(params, batch):
+        ps, treedef = flatten(params)
+        xs = [p.detach().requires_grad_() for p in ps]
+        with torch.enable_grad():
+            loss = model.loss(unflatten(treedef, xs), batch, ctx)
+            grads = torch.autograd.grad(loss, xs)
+        return loss.detach(), list(grads)
+
+    def train_step(params, opt, residuals, batch):
+        if run.microbatches > 1:
+            mb = run.microbatches
+            ps = flatten(params)[0]
+            loss = torch.zeros((), dtype=torch.float32, device=ps[0].device)
+            grads = [torch.zeros_like(p) for p in ps]
+            for i in range(mb):
+                one = {k: v.reshape(mb, v.shape[0] // mb, *v.shape[1:])[i]
+                       for k, v in batch.items()}
+                loss_mb, g = value_and_grad(params, one)
+                loss = loss + loss_mb / mb
+                torch._foreach_div_(g, mb)
+                torch._foreach_add_(grads, g)
+                del g
+        else:
+            loss, grads = value_and_grad(params, batch)
+        grads = unflatten(flatten(params)[1], grads)
+        # error-feedback compression of what would cross the slow links
+        grads, residuals = apply_error_feedback(
+            grads, residuals, scheme=run.grad_compression)
+        metrics = adamw_update_(params, grads, opt, run)
+        return params, opt, residuals, {"loss": loss, **metrics}
+
+    return train_step
+
+
+def train_loop(arch: str, run: RunConfig, *, reduced: bool = True,
+               resume: bool = True, failure_hook=None, log_every: int = 10,
+               device=None, n_layers: int | None = None) -> dict:
+    """Train ``arch`` for ``run.total_steps`` steps (resuming from the
+    latest checkpoint in ``run.ckpt_dir`` when ``resume``), as JAX's
+    ``train_loop``: parameters made from ``run.seed`` in fp32 on
+    ``device`` (None: the card; it raises when there is none), the
+    compute dtype ``run.dtype``, a checkpoint every ``run.ckpt_every``
+    steps and a blocking one at the last step.  ``n_layers`` keeps the
+    first ``n_layers`` blocks of a dense, vlm, MoE or SSM model.
+    Returns ``{"losses", "state", "executor", "final_loss"}``."""
+    device = resolve_device(device)
+    cfg = get_config(arch, reduced=reduced)
+    if n_layers is not None:
+        if cfg.family in ("encdec", "hybrid"):
+            raise ValueError(f"n_layers cuts the depth of the dense, vlm, "
+                             f"MoE and SSM families, not {cfg.family!r}")
+        cfg = dataclasses.replace(cfg, n_layers=int(n_layers))
+    model = build_model(cfg)
+    ctx = Ctx(plan="torch",
+              dtype=torch.float32 if run.dtype == "float32"
+              else torch.bfloat16)
+
+    params = model.init(seed=run.seed, dtype=torch.float32, device=device)
+    opt = init_opt_state(params)
+    residuals = (init_residuals(params)
+                 if run.grad_compression != "none" else {})
+    state = {"params": params, "opt": opt, "residuals": residuals}
+
+    pipe = make_pipeline(cfg.vocab_size, run.seq_len, run.global_batch,
+                         seed=run.seed)
+    ckpt = Checkpointer(run.ckpt_dir, keep=run.keep_ckpts)
+    start_step = 0
+    if resume and ckpt.latest_step() is not None:
+        state, start_step = ckpt.restore(state, device=device)
+        start_step += 1
+
+    step_fn = make_train_step(model, ctx, run)
+    detector = StragglerDetector()
+    hb = Heartbeat(run.ckpt_dir)
+
+    def restore_fn():
+        st, _ = ckpt.restore(state, device=device)
+        return st
+
+    def run_one(st, batch):
+        p, o, r, m = step_fn(st["params"], st["opt"], st["residuals"], batch)
+        return {"params": p, "opt": o, "residuals": r}, m
+
+    executor = ResilientExecutor(run_one, restore_fn=restore_fn,
+                                 heartbeat=hb, detector=detector,
+                                 failure_hook=failure_hook)
+
+    losses = []
+    t0 = time.time()
+    for step in range(start_step, run.total_steps):
+        batch = pipe.torch_batch(step, device)
+        state, metrics = executor.run_step(step, state, batch)
+        losses.append(float(metrics["loss"]))
+        if step % log_every == 0 or step == run.total_steps - 1:
+            print(f"step {step:5d} loss {losses[-1]:.4f} "
+                  f"lr {float(metrics['lr']):.2e} "
+                  f"gnorm {float(metrics['grad_norm']):.3f} "
+                  f"({(time.time()-t0):.1f}s)", flush=True)
+        if run.ckpt_every and step and step % run.ckpt_every == 0:
+            ckpt.save(step, state)
+    ckpt.save(run.total_steps - 1, state, blocking=True)
+    return {"losses": losses, "state": state, "executor": executor,
+            "final_loss": losses[-1] if losses else float("nan")}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="gemma-7b")
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--compression", default="none",
+                    choices=["none", "int8", "topk"])
+    ap.add_argument("--ckpt-dir", default="/tmp/repro_ckpt")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="train only the first N layers (a depth cut for "
+                    "a model that does not fit the card)")
+    args = ap.parse_args(argv)
+    run = RunConfig(seq_len=args.seq_len, global_batch=args.global_batch,
+                    lr=args.lr, total_steps=args.steps,
+                    warmup_steps=max(1, args.steps // 10),
+                    microbatches=args.microbatches,
+                    grad_compression=args.compression,
+                    ckpt_dir=args.ckpt_dir, ckpt_every=args.steps // 2,
+                    dtype="float32")
+    out = train_loop(args.arch, run, reduced=args.reduced,
+                     device=args.device, n_layers=args.layers)
+    print(f"final loss: {out['final_loss']:.4f} "
+          f"(retries={out['executor'].retries_total}, "
+          f"restarts={out['executor'].restarts_total})")
+
+
+if __name__ == "__main__":
+    main()

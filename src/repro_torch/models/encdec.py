@@ -14,7 +14,9 @@ step (one query row a slot).
 Parameters are a dict with lists of per-layer dicts under ``"encoder"``
 and ``"decoder"``; the caches keep the JAX layout, stacked
 ``(decoder_layers, B, ...)`` tensors, updated in place by
-:func:`decode_step`.
+:func:`decode_step`.  Encoder and decoder layer bodies run under
+:func:`~repro_torch.models.transformer.remat` when autograd records them,
+as JAX checkpoints them.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import Ctx, Params
 from repro_torch.models.transformer import (init_attention, init_embed,
-                                            init_mlp)
+                                            init_mlp, remat)
 
 __all__ = ["init_params", "encode", "forward", "loss_fn", "init_cache",
            "prefill", "decode_step"]
@@ -91,12 +93,17 @@ def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig,
     x = torch.as_tensor(frames).to(ctx.dtype)
     B, S, _ = x.shape
     positions = _positions(B, S, x.device)
-    for lp in params["encoder"]:
+
+    def layer(x, lp):
         h = L.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
         x = x + L.attention(lp["attn"], h, cfg, ctx, positions=positions,
                             causal=False)
         h = L.rms_norm(lp["mlp_norm"], x, cfg.norm_eps)
-        x = x + L.mlp(lp["mlp"], h, cfg, ctx)
+        return x + L.mlp(lp["mlp"], h, cfg, ctx)
+
+    body = remat(layer, cfg, params["encoder"])
+    for lp in params["encoder"]:
+        x = body(x, lp)
     return L.rms_norm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -110,7 +117,8 @@ def forward(params: Params, tokens: torch.Tensor, frames: torch.Tensor,
     x = L.embed(params["embed"], tokens, ctx)
     B, S, _ = x.shape
     positions = _positions(B, S, x.device)
-    for lp in params["decoder"]:
+
+    def layer(x, lp, enc_out):
         h = L.rms_norm(lp["self_norm"], x, cfg.norm_eps)
         x = x + L.attention(lp["self_attn"], h, cfg, ctx,
                             positions=positions, causal=True)
@@ -118,7 +126,11 @@ def forward(params: Params, tokens: torch.Tensor, frames: torch.Tensor,
         ek, ev = _enc_kv(lp["cross_attn"], enc_out, cfg, ctx)
         x = x + _cross_attention(lp["cross_attn"], h, ek, ev, cfg, ctx)
         h = L.rms_norm(lp["mlp_norm"], x, cfg.norm_eps)
-        x = x + L.mlp(lp["mlp"], h, cfg, ctx)
+        return x + L.mlp(lp["mlp"], h, cfg, ctx)
+
+    body = remat(layer, cfg, params["decoder"])
+    for lp in params["decoder"]:
+        x = body(x, lp, enc_out)
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
@@ -127,8 +139,8 @@ def forward(params: Params, tokens: torch.Tensor, frames: torch.Tensor,
 
 def loss_fn(params: Params, batch: dict, cfg: ModelConfig,
             ctx: Ctx) -> torch.Tensor:
-    """The forward training objective: the cross entropy of the logits
-    against ``batch["targets"]``, as the reference."""
+    """The training objective: the cross entropy of the logits against
+    ``batch["targets"]``, as the reference."""
     logits = forward(params, batch["tokens"], batch["frontend_embeds"],
                      cfg, ctx)
     return L.cross_entropy(logits, batch["targets"])

@@ -16,7 +16,9 @@ flash-attention kernel and paged decode attention the paged-attention
 kernel.  The decode cache is the conv and ssm state, stacked ``(n_groups,
 attn_every, B, ...)`` in fp32, and the shared block's K/V, stacked
 ``(n_groups, B, max_len, KV, D)`` (a page pool under a ``page_table``);
-all of it is updated in place.
+all of it is updated in place.  A mamba layer's body runs under
+:func:`~repro_torch.models.transformer.remat` when autograd records it
+(the shared block does not, as in JAX).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm
 from repro_torch.models.layers import Ctx, Params
 from repro_torch.models.transformer import (_layer_params, init_embed,
-                                            init_linear)
+                                            init_linear, remat)
 
 __all__ = ["init_params", "forward", "loss_fn", "init_cache", "decode_step",
            "prefill"]
@@ -84,11 +86,16 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     B, S = tokens.shape
     positions = torch.arange(S, device=x0.device)[None, :].expand(B, S)
     sp = params["shared"]
+
+    def mamba_layer(x, lp):
+        h = L.rms_norm(lp["norm"], x, cfg.norm_eps)
+        return x + ssm.mamba_forward(lp["mamba"], h, cfg, ctx)
+
+    body = remat(mamba_layer, cfg, params["layers"])
     x = x0
     for group in params["layers"]:
         for lp in group:
-            h = L.rms_norm(lp["norm"], x, cfg.norm_eps)
-            x = x + ssm.mamba_forward(lp["mamba"], h, cfg, ctx)
+            x = body(x, lp)
         h, hn = _pre(sp, x, x0, cfg, ctx)
         h = h + L.attention(sp["attn"], hn, cfg, ctx, positions=positions)
         x = _post(sp, x, h, cfg, ctx)
@@ -100,8 +107,8 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
 
 def loss_fn(params: Params, batch: dict, cfg: ModelConfig,
             ctx: Ctx) -> torch.Tensor:
-    """The forward training objective: the cross entropy of the logits
-    against ``batch["targets"]``, as the reference."""
+    """The training objective: the cross entropy of the logits against
+    ``batch["targets"]``, as the reference."""
     logits = forward(params, batch["tokens"], cfg, ctx)
     return L.cross_entropy(logits, batch["targets"])
 

@@ -14,7 +14,7 @@
 ((B,) ragged valid prefixes) and optional ``frontend_embeds`` (the vlm
 prefix (B, P, d), or the encdec source frames (B, S_enc, d), which that
 family requires); ``loss`` also reads ``targets`` (B, S).  ``loss`` is
-the forward objective only (the port runs no backward pass).  The
+differentiable: ``repro_torch.launch.train`` takes its gradients.  The
 dense, vlm and MoE ``init_cache`` take ``quantize_kv`` (the int8 cache);
 the encdec, SSM and hybrid ones do not, as in the JAX package.  Every
 family of the JAX package is ported: dense, vlm, MoE, SSM (mamba2),

@@ -16,7 +16,9 @@ As in :mod:`repro_torch.models.transformer`, a Python loop over a list
 of per-layer dicts replaces ``lax.scan`` and the decode state is updated
 in place.  JAX's ``_head_constraint`` (a sharding hint of the SSD head
 axis over a device mesh) and ``shard_act`` have no counterpart on one
-card, and there is no remat (serving runs no backward pass).
+card.  A layer body runs under
+:func:`~repro_torch.models.transformer.remat` when autograd records it,
+as JAX checkpoints it by ``remat_policy``.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from repro_torch import make_generator, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import Ctx, Params
-from repro_torch.models.transformer import init_embed, init_linear
+from repro_torch.models.transformer import init_embed, init_linear, remat
 
 __all__ = ["ssd_chunked", "init_mamba", "mamba_forward", "mamba_decode",
            "mamba_prefill", "init_ssm_state", "init_params", "forward",
@@ -303,9 +305,14 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             ctx: Ctx, *, last_only: bool = False) -> torch.Tensor:
     """tokens: (B, S) -> logits (B, S, V), or (B, 1, V) with last_only."""
     x = L.embed(params["embed"], tokens, ctx)
-    for lp in params["layers"]:
+
+    def layer(x, lp):
         h = L.rms_norm(lp["norm"], x, cfg.norm_eps)
-        x = x + mamba_forward(lp["mamba"], h, cfg, ctx)
+        return x + mamba_forward(lp["mamba"], h, cfg, ctx)
+
+    body = remat(layer, cfg, params["layers"])
+    for lp in params["layers"]:
+        x = body(x, lp)
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
@@ -314,8 +321,8 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
 
 def loss_fn(params: Params, batch: dict, cfg: ModelConfig,
             ctx: Ctx) -> torch.Tensor:
-    """The forward training objective: the cross entropy of the logits
-    against ``batch["targets"]``, as the reference."""
+    """The training objective: the cross entropy of the logits against
+    ``batch["targets"]``, as the reference."""
     logits = forward(params, batch["tokens"], cfg, ctx)
     return L.cross_entropy(logits, batch["targets"])
 

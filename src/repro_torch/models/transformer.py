@@ -4,8 +4,10 @@ Shared by the dense, vlm and MoE families (vlm prepends a request's
 ``frontend_embeds``; MoE swaps the MLP through the
 ``init_mlp_fn`` / ``mlp_fn`` hooks; ``mlp_fn`` has the JAX protocol
 ``(params, x) -> (y, aux_loss)``).  A Python loop over layers replaces
-``lax.scan``; there is no remat (the port runs no backward pass:
-:func:`loss_fn` is the forward objective).  Parameters are a dict with
+``lax.scan``; a layer body runs under :func:`remat` (``cfg.remat``, JAX's
+``jax.checkpoint`` by ``remat_policy``) when autograd records it, so
+training differentiates :func:`loss_fn` and serving runs the plain body.
+Parameters are a dict with
 a list of per-layer dicts under ``"layers"``; the KV cache keeps the JAX
 layout, stacked ``(n_layers, B, max_len, KV, D)`` tensors (int8 codes
 and scales with ``init_cache(quantize_kv=True)``), and is updated in
@@ -14,9 +16,12 @@ place by :func:`decode_step`.
 
 from __future__ import annotations
 
-import torch
-
+import functools
 from typing import Callable
+
+import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import make_generator, resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -26,7 +31,59 @@ from repro_torch.quant.tensor import k_major
 
 __all__ = ["init_linear", "init_embed", "init_attention", "init_mlp",
            "init_params", "forward", "loss_fn",
-           "init_cache", "prefill", "prefill_chunk", "decode_step"]
+           "init_cache", "prefill", "prefill_chunk", "decode_step",
+           "remat_policy", "remat"]
+
+
+# ----------------------------------------------------------------------
+# remat
+# ----------------------------------------------------------------------
+# products without batch dimensions: what JAX's
+# ``dots_with_no_batch_dims_saveable`` keeps (a bmm has a batch dim)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_policy(cfg: ModelConfig) -> dict | None:
+    """The checkpoint options of ``cfg.remat``, as JAX's policy: None for
+    ``"none"`` (the plain body), the full checkpoint for ``"full"``
+    (``nothing_saveable``), and for ``"dots"`` a selective checkpoint
+    that saves the outputs of ``mm`` / ``addmm`` and recomputes the rest
+    (``dots_with_no_batch_dims_saveable``)."""
+    if cfg.remat == "none":
+        return None
+    if cfg.remat == "full":
+        return {}
+    if cfg.remat == "dots":
+        return {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)}
+    raise ValueError(f"unknown remat {cfg.remat!r}")
+
+
+def _records(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_records(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_records(v) for v in tree)
+    return isinstance(tree, torch.Tensor) and tree.requires_grad
+
+
+def remat(body: Callable, cfg: ModelConfig, params) -> Callable:
+    """``body`` under ``remat_policy(cfg)`` when autograd records it
+    (grad mode on and some leaf of ``params`` requiring grad), else
+    ``body`` itself: serving, the decode graph's capture and the
+    meta-device trace of :mod:`repro_torch.plan` run the plain body.  The
+    bodies draw no random numbers, so no RNG state is kept for the
+    recompute."""
+    policy = remat_policy(cfg)
+    if policy is None or not torch.is_grad_enabled() or not _records(params):
+        return body
+    return functools.partial(checkpoint, body, use_reentrant=False,
+                             preserve_rng_state=False, **policy)
 
 
 # ----------------------------------------------------------------------
@@ -159,15 +216,20 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     fn = _mlp_fn(cfg, ctx, mlp_fn)
-    auxes = []
-    for lp in params["layers"]:
+
+    def layer(x, lp):
         h = L.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
         x = x + L.attention(lp["attn"], h, cfg, ctx, positions=positions)
         h = L.rms_norm(lp["mlp_norm"], x, cfg.norm_eps)
         y, aux = fn(lp["mlp"], h)
-        x = x + y
-        auxes.append(torch.as_tensor(aux, dtype=torch.float32,
-                                     device=x.device))
+        return x + y, torch.as_tensor(aux, dtype=torch.float32,
+                                      device=x.device)
+
+    body = remat(layer, cfg, params["layers"])
+    auxes = []
+    for lp in params["layers"]:
+        x, aux = body(x, lp)
+        auxes.append(aux)
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     x = x[:, n_front:]
     if last_only:
@@ -181,7 +243,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
 def loss_fn(params: Params, batch: dict, cfg: ModelConfig, ctx: Ctx, *,
             mlp_fn: Callable | None = None,
             aux_coef: float = 0.01) -> torch.Tensor:
-    """The training objective, forward only: the next-token cross
+    """The training objective: the next-token cross
     entropy of ``batch["tokens"]`` against ``batch["targets"]`` plus
     ``aux_coef`` x the layers' mean auxiliary loss (MoE), as the
     reference."""

@@ -1,0 +1,12 @@
+"""Runtime (the port of ``repro.runtime``): fault tolerance for the train
+loop (:class:`ResilientExecutor`: retry, checkpoint-restart, re-queue,
+heartbeats, straggler detection).  Sharding, pipeline parallelism and
+``elastic_restore`` exist only across devices and are not ported yet."""
+
+from repro_torch.runtime.fault_tolerance import (Heartbeat, ResilientExecutor,
+                                                 RetryPolicy,
+                                                 StragglerDetector,
+                                                 TransientError)
+
+__all__ = ["ResilientExecutor", "RetryPolicy", "StragglerDetector",
+           "Heartbeat", "TransientError"]

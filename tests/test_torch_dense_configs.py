@@ -1,9 +1,8 @@
 """The port's registry, and the last two dense configs (qwen1.5-32b with QKV bias, mistral-large-123b), against the JAX package.
 
 Every registered config, full and reduced, equals the JAX package's
-field by field (all but ``remat``, a training field the port does not
-read) with the same ``param_count()``, and the port registers what JAX
-registers.  On the reduced qwen1.5-32b (biased wq/wk/wv) and
+field by field (``remat`` included) with the same ``param_count()``,
+and the port registers what JAX registers.  On the reduced qwen1.5-32b (biased wq/wk/wv) and
 mistral-large-123b (8 heads over 2 kv heads) configs, prefill and decode
 logits are held within 1e-4 of JAX (fp32) on both of the port's
 backends, and the ``ServeEngine`` gives the JAX ``ServeEngine``'s tokens
@@ -79,7 +78,7 @@ def test_config_fields_and_param_count_equal_jax(arch, reduced):
     mine = get_config(arch, reduced=reduced)
     theirs = j_get_config(arch, reduced=reduced)
     fields = {f.name for f in dataclasses.fields(mine)}
-    assert fields == {f.name for f in dataclasses.fields(theirs)} - {"remat"}
+    assert fields == {f.name for f in dataclasses.fields(theirs)}
     for f in sorted(fields):
         assert getattr(mine, f) == getattr(theirs, f), f
     assert mine.resolved_head_dim == theirs.resolved_head_dim
