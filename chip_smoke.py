@@ -194,6 +194,25 @@ Phases, each printed as it runs:
    FLOP/s as a share of the fp32 peak and one step's device-busy share
    under ``torch.profiler``; (d) no launch of any of the six kernel wrappers
    over (a)-(c);
+5p. cluster serving on phase 5's gemma-7b bf16 weights and traffic (run
+   inside phase 5, after 5f): (a) a ``Router`` over two contiguous
+   replicas: every token phase 5's, the ``on_token`` stream with no
+   duplicate and no gap, work on both replicas, one greedy CUDA graph a
+   replica, launch counts against the fleet's merged stats
+   (``EngineStats.merge``); (b) two paged replicas (16-token pages) with
+   ``router.kill(1)`` after router step 2: the tokens of one paged engine
+   on the same weights, one death, a re-queue for each request in flight
+   on replica 1 at the kill, each finishing on replica 0, the seconds
+   from the kill to each replayed result, and the memory allocated
+   before, with the fleet and after it is dropped; (c) ``ShardedEngine``
+   on ``make_mesh_compat((1, 1), ("data", "model"))``: phase 5's tokens
+   and its specs, ``page_size`` refused; (d) ``serve_batch(replicas=2,
+   kill_replica=1, kill_at_step=2, mesh="1x1")`` on weights drawn anew
+   from the seed (phase 5's tokens), then ``python -m
+   repro_torch.launch.serve ... --replicas 2 --kill-replica 1 --metrics``
+   in a subprocess: its cluster line and a utilization table naming the
+   matmul and flash-attention kernels; each: the fleet's prefill and
+   decode tokens/s and each replica's captures with their pool bytes;
 6. each kernel's time at the main-path shapes with CUDA events over a
    CUDA graph of many calls (device time, with the host's launch work
    taken out; operands cycled past the 50 MB L2), beside its plain
@@ -215,10 +234,15 @@ Phases, each printed as it runs:
    beside cuBLAS; and for the encdec, vlm and last dense paths flash
    attention at (4, 16, 1, 128, 64) and (1, 56, 3008, 128) beside SDPA,
    paged attention at rep 7 and rep 12, and the bf16 matmul's decode step
-   of seamless, llava, qwen and mistral beside cuBLAS;
+   of seamless, llava, qwen and mistral beside cuBLAS; and the paper's ZONL
+   comparison: one (512, 3072, 3072) bf16 product as
+   ``ops.host_tiled_matmul`` (the host's loop of one cuBLAS call a
+   128-tile) over a CUDA graph and issued eagerly, beside kernel 1 and
+   cuBLAS (printed, not gated);
 7. the script's wall time, a ``{"kernels": [...]}`` line (with each
-   kernel's launches on the paths of 5g-5l, and the zamba2 shapes' and
-   the slice-9 shapes' timings of kernels 1-3), the card line, and the
+   kernel's launches on the paths of 5p and 5g-5l, the zamba2 shapes' and
+   the slice-9 shapes' timings of kernels 1-3 and kernel 1's ZONL
+   comparison), the card line, and the
    final
    ``{"ok": true, ...}`` line.
 
@@ -234,6 +258,8 @@ it is not run from a checkout that holds ``src/repro_torch``.
 
 from __future__ import annotations
 
+import collections
+import gc
 import json
 import math
 import re
@@ -381,7 +407,8 @@ def main() -> int:
     # kernel 4 runs on two paths (5d, 5e); the line reads 5e's, where it
     # carries every projection, so that each count is that of one run
     counts["quantized_zero_stall_matmul"] = serve_gemma_w8a8(torch, kern)
-    by_path = serve_zamba2_full_width(torch, kern)
+    by_path = {"5p": PHASE5["5p"]}
+    by_path.update(serve_zamba2_full_width(torch, kern))
     by_path.update(serve_mamba2_full_width(torch, kern))
     for phase in (serve_seamless_full_width, serve_llava_full_width,
                   serve_qwen_full_width, serve_mistral_full_width):
@@ -393,6 +420,7 @@ def main() -> int:
     timings.update(time_new_kernels(torch, kern))
     slice8 = time_slice8(torch, kern)
     slice9 = time_slice9(torch, kern)
+    zonl = time_host_tiled(torch, kern)
 
     kernels = [
         {"name": "zero_stall_matmul", "route": "cuda",
@@ -460,6 +488,9 @@ def main() -> int:
     for entry, key in ((kernels[0], "matmul"), (kernels[1], "attention"),
                        (kernels[2], "paged")):
         entry.update(slice9[key])
+    # the paper's ZONL comparison at (512, 3072, 3072): the host's tile
+    # loop (ops.host_tiled_matmul) beside kernel 1 (printed, not gated)
+    kernels[0]["host_tiled"] = zonl
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "repro.")))
     require(not leaked, f"JAX or the JAX package got imported: {leaked}")
@@ -1607,8 +1638,11 @@ def serve_full_width(torch, kern):
     greedy = serve_block_full_width(torch, kern, model, params, gen)
     PHASE5["tokens"] = greedy
     serve_sampled_full_width(torch, kern, model, params, greedy)
+    PHASE5["5p"] = serve_cluster_full_width(torch, kern, model, params,
+                                            greedy)
     del params
     torch.cuda.empty_cache()
+    add_counts(PHASE5["5p"], serve_cluster_launcher(torch, kern, greedy))
     return counts
 
 
@@ -1809,6 +1843,300 @@ def serve_sampled_full_width(torch, kern, model, params, greedy: dict
     require(toks["graph", 4] == toks["graph", 1],
             "5f: sampled tokens at K=4 differ from K=1's")
     require(differ > 0, "5f: every sampled token is the greedy one")
+
+
+# ----------------------------------------------------------------------
+# 5p. cluster serving: the router, fault-tolerant re-queue, the sharded
+# engine and the launcher's cluster flags
+# ----------------------------------------------------------------------
+# 5p (b) and (d): the router step after which replica 1 is killed
+KILL_AT = 2
+
+
+def add_counts(total: dict, got: dict) -> None:
+    for name, n in got.items():
+        total[name] = total.get(name, 0) + n
+
+
+def fleet_want(kern, adm: int, steps: int, *, paged: bool
+               ) -> tuple[dict, str]:
+    """The launches that ``adm`` admissions and ``steps`` decode steps
+    (the merged stats of a contiguous or paged gemma-7b fleet) imply, and
+    how."""
+    L = GEMMA["layers"]
+    want = {n: 0 for n in kern}
+    want.update(zero_stall_matmul=(7 * L + 1) * (adm + steps),
+                flash_attention=L * adm,
+                paged_attention=L * steps if paged else 0)
+    return want, (f"(7*{L}+1) matmuls a pass over {adm} admissions + "
+                  f"{steps} decode steps of every replica, {L} flash calls a "
+                  f"prefill" + (f", {L} paged calls a step" if paged else ""))
+
+
+def route(router, reqs, *, kill: int | None = None) -> tuple[dict, dict,
+                                                             dict]:
+    """Drive ``router`` over ``reqs``, streaming every event, and with
+    ``kill`` fail that replica after router step ``KILL_AT``.  Returns the
+    results, the streamed tokens a request and, with ``kill``, the rids
+    in flight on the replica at the kill and the host seconds from the
+    kill to each of their results."""
+    for r in reqs:
+        router.submit(r)
+    streamed, info, steps = {}, {}, 0
+    while not router.idle:
+        for rid, tok in router.step():
+            streamed.setdefault(rid, []).append(tok)
+        steps += 1
+        if kill is not None and steps == KILL_AT:
+            info["requeued"] = sorted(router.replicas[kill].inflight)
+            info["t_kill"] = time.perf_counter()
+            info["done_s"] = {}
+            router.kill(kill)
+        elif "requeued" in info:
+            done = router.results
+            for rid in info["requeued"]:
+                if rid in done and rid not in info["done_s"]:
+                    info["done_s"][rid] = time.perf_counter() - info["t_kill"]
+    return router.results, streamed, info
+
+
+def check_fleet(torch, label: str, kern, router, res, streamed, *,
+                paged: bool, want_tokens: dict) -> dict:
+    """The checks of one routed run: tokens, a clean stream, one greedy
+    CUDA graph a replica, launch counts against the fleet's merged stats
+    and, with no replica dead, work on both replicas; prints the fleet's
+    tokens/s and each replica's captures.  Returns the launches."""
+    torch.cuda.synchronize()
+    got = {n: k.launches for n, k in kern.items()}
+    s = router.stats()
+    tokens = {i: r.tokens for i, r in res.items()}
+    placed = collections.Counter(r.replica for r in res.values())
+    print(f"    {label}: fleet (EngineStats.merge of {len(router.replicas)} "
+          f"replicas) prefill {s.prefill_tok_s:.1f} tok/s over "
+          f"{s.prefill_s:.3f} s, decode {s.decode_tok_s:.1f} tok/s over "
+          f"{s.decode_s:.3f} s; admitted {s.admitted}, retired {s.retired}; "
+          f"dispatches a replica "
+          f"{[r.engine.stats.dispatches for r in router.replicas]}; results "
+          f"a replica {dict(placed)}; router {router.snapshot()['router']}")
+    for rep in router.replicas:
+        print_captures(f"  replica {rep.rid}", rep.engine.captures)
+        require(variants(rep.engine) == ["greedy"],
+                f"{label}: replica {rep.rid} did not decode through one "
+                f"greedy CUDA graph")
+    want, how = fleet_want(kern, s.admitted, s.decode_steps, paged=paged)
+    check_counts(label, got, want, how)
+    check_designs(label, kern)
+    require(tokens == want_tokens, f"{label}: tokens differ from the "
+            f"single engine's")
+    require(streamed == tokens, f"{label}: the stream has a duplicate or a "
+            f"gap")
+    require(router.deaths or {r.replica for r in res.values()} == {0, 1},
+            f"{label}: the work did not land on both replicas")
+    require(s.retired == SERVE_KW["batch"], f"{label}: {s.retired} retired")
+    return got
+
+
+def serve_cluster_full_width(torch, kern, model, params, greedy: dict
+                             ) -> dict:
+    """5p (a)-(c) on phase 5's weights and traffic: two contiguous
+    replicas behind a ``Router``; two paged replicas with replica 1
+    killed after router step 2; ``ShardedEngine`` on a one-device mesh.
+    Returns the launches of the three runs."""
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import Ctx
+    from repro_torch.serve import Router, ShardedEngine
+    kw, V = SERVE_KW, GEMMA["V"]
+    ctx = Ctx(plan="auto", dtype=torch.bfloat16)
+
+    def reqs():
+        return make_requests(model.cfg, kw["seed"], kw["batch"],
+                             kw["prompt_len"], kw["gen_len"], kw["mixed"])
+
+    total: dict = {}
+    print(f"[5p] gemma-7b full width, 28 layers, bf16, phase 5's weights and "
+          f"traffic ({kw['batch']} requests of {kw['prompt_len']}, "
+          f"{kw['prompt_len'] // 2}, {kw['prompt_len'] // 4} and "
+          f"{3 * kw['prompt_len'] // 4} prompt tokens, {kw['gen_len']} new "
+          f"tokens), {kw['num_slots']} slots a replica, K="
+          f"{kw['steps_per_dispatch']}; card {card_line()}", flush=True)
+    mem0 = torch.cuda.memory_allocated()
+
+    # (a) two contiguous replicas
+    reset_counts(kern)
+    t0 = time.perf_counter()
+    router = Router([engine_for(torch, model, params, ctx,
+                                K=kw["steps_per_dispatch"])
+                     for _ in range(2)])
+    res, streamed, _ = route(router, reqs())
+    torch.cuda.synchronize()
+    print(f"    (a) Router over 2 contiguous replicas: {len(res)} requests "
+          f"in {time.perf_counter() - t0:.3f} s of wall time")
+    add_counts(total, check_fleet(torch, "5p (a)", kern, router, res,
+                                  streamed, paged=False, want_tokens=greedy))
+    # a replica's executor holds a closure over the router: a cycle, so
+    # the fleet's memory goes back only after a collection
+    del router, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) two paged replicas, replica 1 killed after step KILL_AT; the
+    # reference is one paged engine on the same weights (paged decode
+    # runs kernel 3, so its tokens are held to phase 5's only as printed)
+    paged = {"page_size": 16}
+    single = engine_for(torch, model, params, ctx,
+                        K=kw["steps_per_dispatch"], **paged)
+    want_b = {i: r.tokens for i, r in single.run(reqs()).items()}
+    del single
+    torch.cuda.empty_cache()
+    differ = sum(a != b for i in greedy for a, b in zip(want_b[i],
+                                                        greedy[i]))
+    print(f"    (b) one paged engine (16-token pages): {differ} of "
+          f"{kw['batch'] * kw['gen_len']} tokens differ from phase 5's "
+          f"contiguous greedy tokens")
+    reset_counts(kern)
+    t0 = time.perf_counter()
+    router = Router([engine_for(torch, model, params, ctx,
+                                K=kw["steps_per_dispatch"], **paged)
+                     for _ in range(2)])
+    res, streamed, info = route(router, reqs(), kill=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mem_alive = torch.cuda.memory_allocated()
+    print(f"    (b) Router over 2 paged replicas, router.kill(1) after step "
+          f"{KILL_AT}: {len(res)} requests in {wall:.3f} s of wall time; "
+          f"in flight on replica 1 at the kill {info['requeued']}; seconds "
+          f"from the kill to each replayed request's result "
+          f"{ {r: round(t, 4) for r, t in info['done_s'].items()} } (the "
+          f"last {max(info['done_s'].values()):.3f} s)")
+    add_counts(total, check_fleet(torch, "5p (b)", kern, router, res,
+                                  streamed, paged=True, want_tokens=want_b))
+    require(router.deaths == 1 and not router.replicas[1].alive,
+            "5p (b): replica 1 is not the one dead replica")
+    require(router.requeues == len(info["requeued"]) > 0,
+            f"5p (b): {router.requeues} re-queues for "
+            f"{len(info['requeued'])} requests in flight at the kill")
+    require(all(res[r].replica == 0 for r in info["requeued"]),
+            "5p (b): a re-queued request did not finish on replica 0")
+    require(router.stats().admitted == kw["batch"] + router.requeues,
+            "5p (b): admissions are not the requests plus their replays")
+    del router, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem_after = torch.cuda.memory_allocated()
+    print(f"    memory allocated: {mem0 / 2 ** 30:.3f} GiB before 5p, "
+          f"{mem_alive / 2 ** 30:.3f} GiB with (b)'s router (its dead "
+          f"replica's cache and graph included), {mem_after / 2 ** 30:.3f} "
+          f"GiB after it is dropped")
+    # one replica's page pool alone is 41 pages of 16 rows (300 MiB)
+    require(mem_after <= mem0 + 2 ** 26, "5p (b): the dropped fleet left "
+            "memory allocated")
+
+    # (c) ShardedEngine on a one-device mesh
+    mesh = make_mesh_compat((1, 1), ("data", "model"))
+    try:
+        ShardedEngine(model, params, ctx, mesh=mesh, max_len=160,
+                      page_size=16)
+        require(False, "5p (c): ShardedEngine accepted page_size")
+    except ValueError as e:
+        require("page_size" in str(e), f"5p (c): {e}")
+    reset_counts(kern)
+    eng = ShardedEngine(model, params, ctx, mesh=mesh,
+                        num_slots=kw["num_slots"],
+                        max_len=kw["prompt_len"] + kw["gen_len"],
+                        cache_dtype=torch.bfloat16,
+                        steps_per_dispatch=kw["steps_per_dispatch"],
+                        seed=kw["seed"])
+    res = eng.run(reqs())
+    torch.cuda.synchronize()
+    got = {n: k.launches for n, k in kern.items()}
+    want, how = fleet_want(kern, eng.stats.admitted,
+                           eng.stats.decode_steps, paged=False)
+    wq = eng.param_specs["layers"][0]["attn"]["wq"]["w"]
+    print(f"    (c) ShardedEngine on {mesh!r}: wq's spec {wq.spec}, the "
+          f"cache's k spec {eng.cache_specs['k'].spec}; decode "
+          f"{eng.stats.decode_tok_s:.1f} tok/s")
+    check_counts("5p (c)", got, want, how)
+    print_captures("ShardedEngine", eng.captures)
+    require({i: r.tokens for i, r in res.items()} == greedy,
+            "5p (c): ShardedEngine's tokens differ from phase 5's")
+    add_counts(total, got)
+    del eng, res
+    torch.cuda.empty_cache()
+    return total
+
+
+def serve_cluster_launcher(torch, kern, greedy: dict) -> dict:
+    """5p (d): ``serve_batch`` with two replicas, replica 1 killed after
+    router step 2, each engine a ``ShardedEngine`` on a 1x1 mesh (weights
+    drawn anew from phase 5's seed), then the launcher's CLI with
+    ``--replicas 2 --kill-replica 1 --metrics`` in a subprocess.  Returns
+    the in-process run's launches."""
+    import os
+
+    from repro_torch.launch.serve import serve_batch
+    kw = SERVE_KW
+    reset_counts(kern)
+    t0 = time.perf_counter()
+    out = serve_batch("gemma-7b", reduced=False, dtype=torch.bfloat16,
+                      device="cuda", replicas=2, kill_replica=1,
+                      kill_at_step=KILL_AT, mesh="1x1", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {n: k.launches for n, k in kern.items()}
+    c, s = out["cluster"], out["stats"]
+    print(f"    (d) serve_batch(replicas=2, kill_replica=1, kill_at_step="
+          f"{KILL_AT}, mesh='1x1') in {wall:.3f} s (weights drawn anew "
+          f"included): cluster {c}; fleet prefill "
+          f"{out['prefill_tok_s']:.1f} tok/s, decode "
+          f"{out['decode_tok_s']:.1f} tok/s")
+    print("    (d) captures: " + "; ".join(
+        f"replica {cap['replica']} {cap['variant']}, pool "
+        f"{cap['pool_bytes'] / 2 ** 20:.1f} MiB" for cap in out["captures"]))
+    want, how = fleet_want(kern, s["admitted"], s["decode_steps"],
+                           paged=False)
+    check_counts("5p (d)", got, want, how)
+    require(c["deaths"] == 1 and c["alive"] == 1 and c["requeues"] > 0,
+            f"5p (d): cluster {c}")
+    gen = out["generated"]
+    require({i: list(gen[i]) for i in greedy} == greedy,
+            "5p (d): serve_batch's routed tokens differ from phase 5's")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "gemma-7b", "--no-reduced", "--dtype", "bfloat16", "--batch",
+           str(kw["batch"]), "--prompt-len", str(kw["prompt_len"]),
+           "--gen-len", str(kw["gen_len"]), "--mixed", "--num-slots",
+           str(kw["num_slots"]), "--steps-per-dispatch",
+           str(kw["steps_per_dispatch"]), "--replicas", "2",
+           "--kill-replica", "1", "--metrics"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               REPRO_TORCH_TUNE_CACHE=str(TUNE_CACHE))
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    lines = run.stdout.splitlines()
+    print(f"    (d) python -m repro_torch.launch.serve ... --replicas 2 "
+          f"--kill-replica 1 --metrics: exit {run.returncode} after "
+          f"{time.perf_counter() - t0:.1f} s")
+    require(run.returncode == 0, f"5p (d): the launcher failed: "
+            f"{run.stderr[-2000:]}")
+    head = lines.index("op,M,N,K,dtype,backend,config,count,predicted_util")
+    for ln in lines[:head + 1]:
+        print(f"      {ln}")
+    rows = [ln.split(",") for ln in lines[head + 1:] if ln.count(",") == 8]
+    ops_seen = {(r[0], r[5]) for r in rows}
+    print(f"      ... {len(rows)} utilization rows in all, (op, backend) "
+          f"{sorted(ops_seen)}")
+    cluster = [ln for ln in lines if ln.startswith("cluster:")]
+    require(cluster and "deaths: 1" in cluster[0], "5p (d): no cluster line "
+            "with one death")
+    require({("matmul", "auto"), ("attention", "auto")} <= ops_seen,
+            "5p (d): the utilization table does not name the matmul and "
+            "flash-attention kernels")
+    return got
 
 
 # ----------------------------------------------------------------------
@@ -3933,6 +4261,47 @@ def time_kernels(torch, kern) -> dict:
              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
              "library_ms": None}
     return {"matmul": matmul, "attention": attention, "paged": paged}
+
+
+def time_host_tiled(torch, kern) -> dict:
+    """The paper's ZONL comparison on the card: one (512, 3072, 3072) bf16
+    product as ``ops.host_tiled_matmul`` (the host walks 4 x 24 x 24
+    tiles of 128, one cuBLAS mm and one add a tile) against kernel 1,
+    both over a CUDA graph (device time) and the tile loop also issued
+    eagerly, as the host paces it.  Printed, not gated."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import matmul_ref
+    zero_stall_matmul = kern["zero_stall_matmul"]
+    M, K, N = 512, 3072, 3072
+    g = torch.Generator(device="cuda").manual_seed(11)
+    a = torch.randn((M, K), generator=g, device="cuda").bfloat16()
+    b = (torch.randn((K, N), generator=g, device="cuda") * 0.02).bfloat16()
+    got = ops.host_tiled_matmul(a, b)
+    want = matmul_ref(a, b)
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    require(err <= BF16_TOL * scale, f"host_tiled_matmul disagrees: {err}")
+    times = {
+        "ms": time_ms(torch, [lambda: zero_stall_matmul(a, b)]),
+        "host_tiled_ms": time_ms(torch, [lambda: ops.host_tiled_matmul(
+            a, b)], iters=2),
+        "host_tiled_eager_ms": time_ms(torch, [lambda: ops.host_tiled_matmul(
+            a, b)], iters=2, graph=False),
+        "library_ms": time_ms(torch, [lambda: torch.mm(a, b)]),
+    }
+    bound_ms, bound_by = bound(2 * (M * K + K * N + M * N), 2 * M * N * K,
+                               "bfloat16")
+    times.update(bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                 tiles=(M // 128) * (N // 128) * (K // 128))
+    print(f"[6] ZONL at ({M}, {K}, {N}) bf16 on {card_line()}: kernel 1 "
+          f"{times['ms']:.4f} ms; host_tiled_matmul ({times['tiles']} tile "
+          f"mms) {times['host_tiled_ms']:.4f} ms over a CUDA graph, "
+          f"{times['host_tiled_eager_ms']:.4f} ms issued eagerly "
+          f"({times['host_tiled_eager_ms'] / times['ms']:.1f}x kernel 1); "
+          f"cuBLAS {times['library_ms']:.4f} ms; bound {bound_ms:.4f} ms "
+          f"({bound_by}); max|tiled - plain| {err:.4g} of {scale:.4g}",
+          flush=True)
+    return times
 
 
 def paged_at(case, splits: int, per: int):

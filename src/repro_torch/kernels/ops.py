@@ -72,8 +72,8 @@ from repro_torch.quant.tensor import QTensor, quantize_rows
 
 __all__ = ["matmul", "grouped_matmul", "quantized_matmul",
            "quantized_grouped_matmul", "attention", "paged_attention",
-           "fallback_counts", "reset_fallback_warnings", "strict_fallbacks",
-           "FallbackError"]
+           "host_tiled_matmul", "fallback_counts", "reset_fallback_warnings",
+           "strict_fallbacks", "FallbackError"]
 
 
 def _record(op: str, *, M, N, K, dtype, backend, config=None, groups=1,
@@ -427,3 +427,43 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         return torch.empty_like(q)
     return _paged(q, k_pool, v_pool, page_table, kv_lens=kv_lens,
                   scale=scale)
+
+
+def _mm_fp32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One tile product accumulated in fp32 (``preferred_element_type``
+    in JAX): cuBLAS reads the bf16 tiles as they are on the card; the
+    host's mm has no fp32 output for them, so it widens the tiles
+    first (exact)."""
+    if a.dtype == torch.float32:
+        return torch.mm(a, b)
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+def host_tiled_matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
+                      bn: int = 128, bk: int = 128) -> torch.Tensor:
+    """Pre-ZONL baseline: a software-managed tile loop.
+
+    The host walks the (i, j, k) tile nest itself, one ``torch.mm`` on
+    tile slices a tile, accumulating in fp32, instead of a kernel's
+    grid sequencing it: the analogue of Snitch's bookkeeping
+    instructions an outer iteration, which zero-overhead loop nests
+    remove.  Benchmarks use it to measure that win; the math is
+    :func:`matmul`'s.  Deliberately outside the plan and config API, as
+    in the JAX package: this is the old world the plan replaces, and no
+    kernel of the port runs it.
+    """
+    (M, K), (_, N) = a.shape, b.shape
+    if M % bm or N % bn or K % bk:
+        raise ValueError(f"host_tiled_matmul: shape {(M, K, N)} not tiled "
+                         f"by (bm, bn, bk)={(bm, bn, bk)}")
+    c = torch.zeros((M, N), dtype=torch.float32, device=a.device)
+    for i in range(M // bm):
+        rows = slice(i * bm, (i + 1) * bm)
+        for j in range(N // bn):
+            cols = slice(j * bn, (j + 1) * bn)
+            for k in range(K // bk):
+                ks = slice(k * bk, (k + 1) * bk)
+                c[rows, cols] += _mm_fp32(a[rows, ks], b[ks, cols])
+    return c.to(a.dtype)

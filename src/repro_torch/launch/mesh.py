@@ -1,0 +1,105 @@
+"""Device meshes (the port of ``repro.launch.mesh``).
+
+Single pod: (16, 16), axes ('data', 'model').  Multi-pod: (2, 16, 16),
+axes ('pod', 'data', 'model').  On one H100 the only mesh that builds
+is (1, 1) (or (1,) and the like); a larger shape raises ``ValueError``,
+as ``jax.make_mesh`` does when the devices are too few.
+
+:class:`Mesh` is the port's own small record: ``axis_names`` and
+``devices``, an object array of ``torch.device`` in the mesh's shape.
+It is not ``torch.distributed.DeviceMesh``: ``init_device_mesh`` needs
+an initialised process group, and the kernels, bound through ctypes,
+take plain tensors and not ``DTensor``s.  DTensor, and with it a mesh
+of more than one device, comes with the multi-device slice of the port
+(pipeline parallelism and the sharded engine across cards).  The
+sharding rules (:mod:`repro_torch.runtime.sharding`) read only
+``axis_names`` and ``devices.shape``, so they run over any mesh shape,
+the production ones included, whatever devices are present.
+
+Functions, not module constants: importing this module touches no
+device.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+
+__all__ = ["Mesh", "make_mesh_compat", "make_production_mesh",
+           "make_host_mesh", "local_devices"]
+
+
+class Mesh:
+    """Named axes over an array of devices (``devices.shape`` is the
+    mesh's shape, ``axis_names`` one name an axis)."""
+
+    def __init__(self, devices, axis_names):
+        self.devices = np.asarray(devices, dtype=object)
+        self.axis_names = tuple(axis_names)
+        if self.devices.ndim != len(self.axis_names):
+            raise ValueError(f"mesh of shape {self.devices.shape} needs "
+                             f"{self.devices.ndim} axis names, got "
+                             f"{self.axis_names}")
+        if len(set(self.axis_names)) != len(self.axis_names):
+            raise ValueError(f"duplicate mesh axis names {self.axis_names}")
+
+    @property
+    def shape(self) -> dict[str, int]:
+        """Axis name -> size, in axis order (``jax.sharding.Mesh.shape``)."""
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    def __repr__(self) -> str:
+        axes = ", ".join(f"{n}={s}" for n, s in self.shape.items())
+        return f"Mesh({axes}; {sorted({str(d) for d in self.devices.flat})})"
+
+
+def local_devices(device=None) -> list[torch.device]:
+    """The devices a mesh may span: every visible CUDA device (``device``
+    None or a CUDA device; None raises without a card), or the one CPU
+    device when the caller asks for the CPU."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [torch.device(dev.type)]
+
+
+def make_mesh_compat(shape: tuple[int, ...], axes: tuple[str, ...], *,
+                     device=None) -> Mesh:
+    """A mesh of ``shape`` over the first ``prod(shape)`` devices of
+    :func:`local_devices` (``device``: None for the card, ``"cpu"`` for the
+    host), named ``axes``; too few devices raise ``ValueError``."""
+    shape = tuple(int(s) for s in shape)
+    devices = local_devices(device)
+    n = math.prod(shape)
+    if n > len(devices):
+        raise ValueError(f"Number of devices {len(devices)} must be >= the "
+                         f"product of mesh_shape {shape}")
+    arr = np.empty(n, dtype=object)
+    arr[:] = devices[:n]
+    return Mesh(arr.reshape(shape), axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh_compat(shape, axes, device=device)
+
+
+def make_host_mesh(*, data: int | None = None, model: int = 1,
+                   device=None) -> Mesh:
+    """A small ('data', 'model') mesh over whatever devices exist (tests,
+    examples)."""
+    n = len(local_devices(device))
+    data = data if data is not None else n // model
+    if data * model > n:
+        raise ValueError(f"mesh {data}x{model} > {n} devices")
+    return make_mesh_compat((data, model), ("data", "model"), device=device)

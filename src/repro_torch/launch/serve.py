@@ -30,6 +30,21 @@ too), and ``--plan-out PATH`` saves the engine's active plan.
 paged, the page geometry) when the engine is built
 (``ServeEngine(validate=True)``) and refuses a plan with an error
 diagnostic.
+
+Cluster serving (:mod:`repro_torch.serve.cluster`): ``--replicas N``
+fronts N engine replicas, sharing one set of params, with a ``Router``
+(load-aware placement, fault-tolerant re-queue); ``--kill-replica R``
+fails replica R at router step ``--kill-at-step`` (fault injection: its
+in-flight requests finish on the survivors); ``--mesh DxM`` builds each
+engine as a ``ShardedEngine`` over a ('data', 'model') mesh (1x1 on one
+card).  ``--metrics`` prints the TTFT, queue-wait and per-token latency
+percentiles, the mean dispatch occupancy and the per-op utilization
+table (:func:`repro_torch.obs.utilization_table`):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-7b \\
+      --no-reduced --dtype bfloat16 --batch 8 --prompt-len 128 \\
+      --gen-len 32 --mixed --steps-per-dispatch 4 --replicas 2 \\
+      --kill-replica 1 --metrics
 """
 
 from __future__ import annotations
@@ -45,9 +60,20 @@ from repro_torch.configs import get_config
 from repro_torch.models import Ctx, build_model
 from repro_torch.plan import Plan
 from repro_torch.plan.config import dtype_from_name
-from repro_torch.serve import Request, ServeEngine
+from repro_torch.serve import Request, Router, ServeEngine, ShardedEngine
 
 __all__ = ["serve_batch", "make_requests", "frontend_len"]
+
+
+def _parse_mesh(spec: str, device=None):
+    """``"DxM"`` -> a ('data', 'model') mesh over the local devices."""
+    from repro_torch.launch.mesh import make_mesh_compat
+    try:
+        d, m = (int(x) for x in spec.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh must look like 'DxM' (e.g. 1x8), "
+                         f"got {spec!r}") from None
+    return make_mesh_compat((d, m), ("data", "model"), device=device)
 
 
 def frontend_len(cfg, prompt_len: int) -> int:
@@ -104,7 +130,9 @@ def serve_batch(arch: str, *, reduced: bool = True, batch: int = 4,
                 prefill_chunk: int | None = None,
                 n_layers: int | None = None, plan=None,
                 plan_out: str | None = None,
-                validate_plan: bool = False) -> dict:
+                validate_plan: bool = False, replicas: int = 1,
+                mesh: str | None = None, kill_replica: int | None = None,
+                kill_at_step: int = 2) -> dict:
     """Run a synthetic request batch through the serving engine.
 
     Parameters are made from ``seed`` directly in ``dtype`` on
@@ -126,6 +154,19 @@ def serve_batch(arch: str, *, reduced: bool = True, batch: int = 4,
     :class:`~repro_torch.plan.Plan`, a path to a saved plan JSON, or
     ``"trace"``); ``plan_out`` saves the engine's active plan there;
     ``validate_plan`` builds the engine with ``validate=True``.
+
+    Cluster knobs (:mod:`repro_torch.serve.cluster`): ``replicas`` fronts
+    that many engines, sharing the params, with a
+    :class:`~repro_torch.serve.Router` (with ``validate_plan``, the
+    router's ``validate=True`` too); ``mesh`` (``"DxM"``) builds each
+    engine as a :class:`~repro_torch.serve.ShardedEngine` over a
+    ('data', 'model') mesh of ``device``'s kind; ``kill_replica`` fails
+    that replica at router step ``kill_at_step`` and raises if the run
+    ends before it fires.  Routed, ``stats`` is the router's snapshot
+    (the fleet's merged stats, ``per_replica`` and ``router``),
+    ``captures`` every replica's (each with its ``replica``), and the
+    output gains a ``cluster`` section: the router's counters and each
+    replica's dispatches.
     """
     device = resolve_device(device)
     cfg = get_config(arch, reduced=reduced)
@@ -141,26 +182,68 @@ def serve_batch(arch: str, *, reduced: bool = True, batch: int = 4,
         plan = Plan.load(plan)
     slots = num_slots or min(batch, 4)
     n_prefix = 0 if cfg.family == "encdec" else frontend_len(cfg, prompt_len)
-    engine = ServeEngine(
-        model, params, ctx, num_slots=slots,
-        max_len=prompt_len + n_prefix + gen_len, cache_dtype=dtype,
-        steps_per_dispatch=steps_per_dispatch, seed=seed, device=device,
-        page_size=page_size, num_pages=num_pages,
-        prefill_chunk=prefill_chunk,
-        cache_kwargs=({"enc_len": prompt_len} if cfg.family == "encdec"
-                      else None), plan=plan, validate=validate_plan)
+    device_mesh = (_parse_mesh(mesh, device) if mesh is not None else None)
+
+    def make_engine():
+        kw = dict(num_slots=slots, max_len=prompt_len + n_prefix + gen_len,
+                  cache_dtype=dtype, steps_per_dispatch=steps_per_dispatch,
+                  seed=seed, page_size=page_size, num_pages=num_pages,
+                  prefill_chunk=prefill_chunk,
+                  cache_kwargs=({"enc_len": prompt_len}
+                                if cfg.family == "encdec" else None),
+                  plan=plan, validate=validate_plan)
+        if device_mesh is not None:
+            return ShardedEngine(model, params, ctx, mesh=device_mesh, **kw)
+        return ServeEngine(model, params, ctx, device=device, **kw)
+
     reqs = make_requests(cfg, seed, batch, prompt_len, gen_len, mixed,
                          temperature=temperature, top_k=top_k, top_p=top_p,
                          device=device, dtype=dtype)
-    results = engine.run(reqs, step_timeout_s=step_timeout_s)
+    cluster = None
+    if replicas > 1:
+        engines = [make_engine() for _ in range(replicas)]
+        router = Router(engines, validate=validate_plan,
+                        step_timeout_s=step_timeout_s)
+        for r in reqs:
+            router.submit(r)
+        step = 0
+        while not router.idle:
+            if kill_replica is not None and step == kill_at_step:
+                router.kill(kill_replica)
+            router.step()
+            step += 1
+        if kill_replica is not None and router.deaths == 0:
+            raise RuntimeError(
+                f"kill_replica={kill_replica} never fired: the run "
+                f"finished in {step} steps (<= kill_at_step="
+                f"{kill_at_step}) — the fault-injection smoke was "
+                f"vacuous; raise --gen-len or lower --kill-at-step")
+        results = router.results
+        fleet = router.stats()
+        stats = router.snapshot()
+        cluster = dict(stats["router"], per_replica_dispatches=[
+            r["dispatches"] for r in stats["per_replica"]])
+        engine = engines[0]
+        captures = [dict(c, replica=i) for i, e in enumerate(engines)
+                    for c in e.captures]
+        tp = {"prefill_tok_s": fleet.prefill_tok_s,
+              "decode_tok_s": fleet.decode_tok_s,
+              "prefill_s": fleet.prefill_s, "decode_s": fleet.decode_s}
+    else:
+        engine = make_engine()
+        results = engine.run(reqs, step_timeout_s=step_timeout_s)
+        stats, captures = engine.stats.snapshot(), engine.captures
+        tp = engine.throughput()
     if plan_out:
         engine.plan.save(plan_out)
-    tp = engine.throughput()
     gen = np.full((batch, gen_len), -1, np.int64)
     for rid, res in results.items():
         gen[rid, :len(res.tokens)] = res.tokens
-    return {"generated": gen, **tp, "stats": engine.stats.snapshot(),
-            "captures": engine.captures, "plan": engine.plan}
+    out = {"generated": gen, **tp, "stats": stats, "captures": captures,
+           "plan": engine.plan}
+    if cluster is not None:
+        out["cluster"] = cluster
+    return out
 
 
 def main(argv=None) -> None:
@@ -207,12 +290,32 @@ def main(argv=None) -> None:
                     help="run the static analyzer over the active plan "
                     "(and page geometry) at engine construction; a plan "
                     "with an error diagnostic is refused")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="front N engine replicas with the cluster Router "
+                    "(load-aware placement, fault-tolerant re-queue)")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="build each engine as a ShardedEngine over a "
+                    "('data', 'model') device mesh (1x1 on one card)")
+    ap.add_argument("--kill-replica", type=int, default=None,
+                    help="fail this replica mid-run (fault injection: its "
+                    "in-flight requests re-queue onto the survivors)")
+    ap.add_argument("--kill-at-step", type=int, default=2,
+                    help="router step at which --kill-replica fires")
+    ap.add_argument("--metrics", action="store_true",
+                    help="print per-request latency percentiles (TTFT, "
+                    "queue wait, per-token p50/p99) and the per-op "
+                    "utilization table after the run")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="write a JSONL span/event trace of the run here "
                     "(implies tracing on; one JSON object per line)")
     args = ap.parse_args(argv)
+    # --trace-out / --metrics turn observability on for the run: spans
+    # and events stream to the JSONL sink (if any), kernel dispatches
+    # feed the utilization table
     if args.trace_out:
         obs.enable(trace_path=args.trace_out)
+    elif args.metrics:
+        obs.enable()
     try:
         out = serve_batch(
             args.arch, reduced=args.reduced, batch=args.batch,
@@ -225,27 +328,50 @@ def main(argv=None) -> None:
             device=args.device, page_size=args.page_size,
             num_pages=args.num_pages, prefill_chunk=args.prefill_chunk,
             n_layers=args.layers, plan=args.plan, plan_out=args.plan_out,
-            validate_plan=args.validate_plan)
-    finally:
+            validate_plan=args.validate_plan, replicas=args.replicas,
+            mesh=args.mesh, kill_replica=args.kill_replica,
+            kill_at_step=args.kill_at_step)
+        s = out["stats"]
+        print(f"generated shape: {out['generated'].shape}")
+        print(f"prefill: {out['prefill_s']:.2f}s "
+              f"({out['prefill_tok_s']:.1f} tok/s)  decode: "
+              f"{out['decode_s']:.2f}s ({out['decode_tok_s']:.1f} tok/s)")
+        print(f"steps: {s['decode_steps']}  dispatches: {s['dispatches']}  "
+              f"admitted: {s['admitted']}  retired: {s['retired']}  "
+              f"max concurrent: {s['max_concurrent']}")
+        if args.page_size is not None or args.prefill_chunk is not None:
+            print(f"pages in use (peak): {s['pages_in_use']}  "
+                  f"shared: {s['pages_shared']}  "
+                  f"prefill chunks: {s['prefill_chunks']}")
+        if "cluster" in out:
+            c = out["cluster"]
+            print(f"cluster: replicas: {c['replicas']}  "
+                  f"alive: {c['alive']}  deaths: {c['deaths']}  "
+                  f"requeues: {c['requeues']}  "
+                  f"per-replica dispatches: "
+                  f"{c['per_replica_dispatches']}")
+        print(f"plan: {out['plan']!r} fingerprint "
+              f"{out['plan'].fingerprint()}")
+        if args.metrics:
+            for name in ("ttft", "queue_wait", "token_latency"):
+                m = s[name]
+                print(f"{name}: p50={m['p50']:.4f}s p99={m['p99']:.4f}s "
+                      f"max={m['max']:.4f}s (n={m['n']})")
+            print(f"mean dispatch occupancy: "
+                  f"{s['mean_dispatch_occupancy']:.2f}")
+            print("op,M,N,K,dtype,backend,config,count,predicted_util")
+            for r in obs.utilization_table():
+                print(f"{r['op']},{r['M']},{r['N']},{r['K']},{r['dtype']},"
+                      f"{r['backend']},{r['config']},{r['count']},"
+                      f"{r['predicted_util']:.4f}")
+        if args.plan_out:
+            print(f"plan written to {args.plan_out}")
         if args.trace_out:
+            print(f"trace written to {args.trace_out}")
+    finally:
+        if args.trace_out or args.metrics:
+            obs.reset_records()
             obs.disable()
-    s = out["stats"]
-    print(f"generated shape: {out['generated'].shape}")
-    print(f"prefill: {out['prefill_s']:.2f}s ({out['prefill_tok_s']:.1f} "
-          f"tok/s)  decode: {out['decode_s']:.2f}s "
-          f"({out['decode_tok_s']:.1f} tok/s)")
-    print(f"steps: {s['decode_steps']}  dispatches: {s['dispatches']}  "
-          f"admitted: {s['admitted']}  retired: {s['retired']}  "
-          f"max concurrent: {s['max_concurrent']}")
-    if args.page_size is not None or args.prefill_chunk is not None:
-        print(f"pages in use (peak): {s['pages_in_use']}  "
-              f"shared: {s['pages_shared']}  "
-              f"prefill chunks: {s['prefill_chunks']}")
-    print(f"plan: {out['plan']!r} fingerprint {out['plan'].fingerprint()}")
-    if args.plan_out:
-        print(f"plan written to {args.plan_out}")
-    if args.trace_out:
-        print(f"trace written to {args.trace_out}")
 
 
 if __name__ == "__main__":

@@ -1,7 +1,9 @@
-"""Runtime (the port of ``repro.runtime``): fault tolerance for the train
-loop (:class:`ResilientExecutor`: retry, checkpoint-restart, re-queue,
-heartbeats, straggler detection).  Sharding, pipeline parallelism and
-``elastic_restore`` exist only across devices and are not ported yet."""
+"""Runtime (the port of ``repro.runtime``): fault tolerance
+(:class:`ResilientExecutor`: retry, checkpoint-restart, re-queue,
+heartbeats, straggler detection) and the sharding rules
+(:mod:`repro_torch.runtime.sharding`: partition specs over a mesh).
+Pipeline parallelism and ``elastic_restore`` exist only across devices
+and are not ported yet."""
 
 from repro_torch.runtime.fault_tolerance import (Heartbeat, ResilientExecutor,
                                                  RetryPolicy,

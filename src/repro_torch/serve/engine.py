@@ -582,6 +582,25 @@ class ServeEngine:
         return (not self._pending and not self._chunking
                 and all(s is None for s in self._slots))
 
+    # -- the hooks a router reads (repro_torch.serve.cluster) -------------
+    @property
+    def free_slots(self) -> int:
+        """Slots neither occupied nor parked on a chunked admission."""
+        return sum(1 for i, s in enumerate(self._slots)
+                   if s is None and i not in self._chunking)
+
+    @property
+    def queue_depth(self) -> int:
+        """Requests submitted but not yet placed into a slot."""
+        return len(self._pending)
+
+    def pop_results(self) -> dict[int, GenerationResult]:
+        """Hand over (and clear) the finished results.  A router drains
+        them after every replica step; a rid stays live against duplicate
+        submission only until its result is popped."""
+        out, self._results = self._results, {}
+        return out
+
     def _bucket(self, n: int, limit: int) -> int:
         """Smallest bucket >= n, clamped to ``limit`` (``max_len`` less
         the request's frontend positions: a prefix eats into the bucket,

@@ -54,7 +54,9 @@ class GenerationResult:
 
     ``queue_wait_s``: submit -> admission start.  ``ttft_s``: submit ->
     first token on the host.  Both read the engine clock
-    (``repro_torch.serve.engine._now``).
+    (``repro_torch.serve.engine._now``).  ``replica``: the engine that
+    finished the request behind a :class:`repro_torch.serve.Router`
+    (None for a standalone engine).
     """
     rid: int
     prompt_len: int
@@ -63,6 +65,7 @@ class GenerationResult:
     finished_step: int
     queue_wait_s: float = 0.0
     ttft_s: float = 0.0
+    replica: int | None = None
 
 
 @dataclasses.dataclass

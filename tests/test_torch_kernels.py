@@ -103,6 +103,25 @@ def test_matmul_bf16_out_dtype_matches_jax(rng, backend, out):
     assert forced.dtype == torch.bfloat16
 
 
+def test_host_tiled_matmul_matches_jax(rng):
+    """The pre-ZONL baseline: one fp32-accumulated mm a tile, equal to
+    JAX's ``fori_loop`` of tile dots within 1e-4, and JAX's refusal of
+    shapes the tiles do not divide."""
+    a = rng.standard_normal((32, 32)).astype(np.float32)
+    b = rng.standard_normal((32, 32)).astype(np.float32)
+    want = _np(jops.host_tiled_matmul(jnp.asarray(a), jnp.asarray(b),
+                                      bm=8, bn=8, bk=8))
+    got = ops.host_tiled_matmul(_t(a), _t(b), bm=8, bn=8, bk=8)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
+    with pytest.raises(ValueError) as err:
+        ops.host_tiled_matmul(_t(a[:, :24]), _t(b[:24]), bm=8, bn=8, bk=16)
+    with pytest.raises(ValueError) as jerr:
+        jops.host_tiled_matmul(jnp.asarray(a[:, :24]), jnp.asarray(b[:24]),
+                               bm=8, bn=8, bk=16)
+    assert str(err.value) == str(jerr.value)
+
+
 def test_matmul_transposed_b_is_the_tied_head(rng):
     a = rng.standard_normal((3, 16)).astype(np.float32)
     table = rng.standard_normal((50, 16)).astype(np.float32)

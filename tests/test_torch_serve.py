@@ -228,6 +228,54 @@ def test_request_validation_and_stats():
     assert snap["num_slots"] == 2 and snap["ttft"]["n"] == 0
 
 
+def _stats_pair(cls, i):
+    s = cls(num_slots=2 + i)
+    for k, v in dict(prefill_s=0.5 + i, decode_s=1.25, prefill_tokens=10,
+                     decode_tokens=7 + i, decode_steps=4, dispatches=2,
+                     admitted=3, retired=3 - i, max_concurrent=2,
+                     pages_in_use=5 * i, pages_shared=i,
+                     prefill_chunks=2).items():
+        setattr(s, k, v)
+    s.ttft_s.extend([0.1 * (i + 1), 0.3])
+    s.queue_wait_s.append(0.05 * i)
+    s.token_latency_s.extend([0.01, 0.02 + i])
+    s.dispatch_occupancy.extend([1.0, 0.5 * i])
+    s.replica_id = i
+    return s
+
+
+def test_engine_stats_merge_and_dict_shim_match_jax():
+    """``EngineStats.merge`` and the deprecated dict access against JAX's
+    on the same counters: equal snapshots (the merged ``replica_id``
+    None), the same warnings, keys and KeyErrors."""
+    from repro.serve.stats import EngineStats as JStats
+    parts = [_stats_pair(EngineStats, i) for i in range(3)]
+    jparts = [_stats_pair(JStats, i) for i in range(3)]
+    assert [p.snapshot() for p in parts] == [p.snapshot() for p in jparts]
+    merged, jmerged = EngineStats.merge(parts), JStats.merge(jparts)
+    assert merged.snapshot() == jmerged.snapshot()
+    assert merged.replica_id is None and merged.num_slots == 9
+    assert merged.max_concurrent == 6 and merged.ttft_s == jmerged.ttft_s
+    for stats in (merged, jmerged):
+        with pytest.warns(DeprecationWarning, match="deprecated"):
+            assert stats["decode_tokens"] == 24
+        with pytest.warns(DeprecationWarning):
+            stats["admitted"] = 11
+        assert stats.admitted == 11
+        assert "retired" in stats and "pages_in_use" not in stats
+        with pytest.warns(DeprecationWarning), pytest.raises(KeyError):
+            stats["pages_in_use"]
+        with pytest.warns(DeprecationWarning), pytest.raises(KeyError):
+            stats["ttft_s"] = []
+    with pytest.warns(DeprecationWarning):
+        legacy = dict(merged)
+    with pytest.warns(DeprecationWarning):
+        assert legacy == dict(jmerged)
+    assert list(legacy) == ["prefill_s", "decode_s", "prefill_tokens",
+                            "decode_tokens", "decode_steps", "dispatches",
+                            "admitted", "retired", "max_concurrent"]
+
+
 def test_engine_rejects_what_slice_two_brings(gemma):
     """Paging and chunked prefill came with slice 2 of the port, plans
     with slice 10 and plan validation with slice 11: ``validate=True``

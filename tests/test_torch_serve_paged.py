@@ -233,6 +233,45 @@ def test_paged_engine_matches_jax_lockstep(arch, backend, K, mode):
     assert bool((engine.cache["page_table"] == TRASH_PAGE).all())
 
 
+def test_router_hooks_match_jax_at_every_step():
+    """``free_slots`` (a slot parked on a chunked admission is not free),
+    ``queue_depth``, ``pages_in_use_now`` and ``pop_results`` against the
+    JAX engine's after each step of a paged run with chunked prefill:
+    five requests on two slots, so some queue while others chunk."""
+    from repro.serve import Request as JRequest
+    from repro.serve import ServeEngine as JServeEngine
+    jm, jp, m, tp = _pair("gemma-7b")
+    prompts = _prompts(256, (5, 11, 3, 8, 9))
+    kw = dict(num_slots=2, max_len=32, steps_per_dispatch=2, page_size=4,
+              prefill_chunk=4)
+    eng = ServeEngine(m, tp, Ctx(plan="auto", dtype=torch.float32),
+                      device="cpu", **kw)
+    jeng = JServeEngine(jm, jp, J_CTX, **kw)
+    for e, cls in ((eng, Request), (jeng, JRequest)):
+        for i, p in enumerate(prompts):
+            e.submit(cls(rid=i, prompt=p, max_new_tokens=4 + i % 3))
+
+    def hooks(e):
+        return (e.free_slots, e.queue_depth, e.pages_in_use_now,
+                sorted(e._chunking))
+    assert hooks(eng) == hooks(jeng) == (2, 5, 0, [])
+    got, want, parked = {}, {}, 0
+    while not (eng.idle and jeng.idle):
+        eng.step()
+        jeng.step()
+        assert hooks(eng) == hooks(jeng)
+        parked += bool(eng._chunking)
+        popped, jpopped = eng.pop_results(), jeng.pop_results()
+        assert sorted(popped) == sorted(jpopped)
+        got.update({i: r.tokens for i, r in popped.items()})
+        want.update({i: r.tokens for i, r in jpopped.items()})
+        assert eng.pop_results() == {}
+    assert parked > 0 and got == want and sorted(got) == list(range(5))
+    # a popped rid is no longer live: it may be submitted again
+    eng.submit(Request(rid=0, prompt=prompts[0], max_new_tokens=2))
+    assert eng.queue_depth == 1
+
+
 def test_chunked_prefill_whose_last_chunk_overruns_max_len():
     """A 26-token prompt in chunks of 12 at max_len 32: the last chunk
     starts at 24 and its padding would run to 36.  Only the rows that
