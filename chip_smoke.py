@@ -213,6 +213,23 @@ Phases, each printed as it runs:
    in a subprocess: its cluster line and a utilization table naming the
    matmul and flash-attention kernels; each: the fleet's prefill and
    decode tokens/s and each replica's captures with their pool bytes;
+5q. the dry run and the roofline on the card's numbers: (a) ``python
+   -m repro_torch.launch.dryrun`` for mamba2-130m ``decode_32k`` on the
+   multi-pod mesh (JAX's own smoke cell, 512 fake ranks) and gemma-7b
+   ``train_4k`` on the single pod, two subprocesses at once with
+   timeouts, each ``[OK]``, each row's terms, bottleneck, per-device
+   bytes and collective counts printed; (b) ``roofline.HW`` against the
+   card: ``hbm_bytes`` equal to ``total_memory``, ``HopperParams.sms`` to
+   ``multi_processor_count``; (c) inside phase 5 on its weights: the
+   trace costs (``core.trace_costs`` on the meta device, unsharded, one
+   chip) of phase 5's decode step (4 slots, a 160-position cache) and of
+   one 128-token prefill pass, their compute and memory terms on the
+   H100's numbers and the bound (the larger) beside the measured device
+   time of the same work (phase 5's graphed step; a prefill pass with
+   CUDA events), each share printed: the compute term's share at most
+   1.05 (the products the kernels run are the ones counted), the memory
+   term's printed only (the plain path's op-by-op bytes count what flash
+   and the fused kernels never move);
 6. each kernel's time at the main-path shapes with CUDA events over a
    CUDA graph of many calls (device time, with the host's launch work
    taken out; operands cycled past the 50 MB L2), beside its plain
@@ -414,6 +431,7 @@ def main() -> int:
                   serve_qwen_full_width, serve_mistral_full_width):
         by_path.update(phase(torch, kern))
     serve_under_plans(torch, kern)
+    dryrun_cells(torch)
     serve_int8_kv_and_analyze(torch, kern)
     train_on_the_card(torch, kern)
     timings = time_kernels(torch, kern)
@@ -1640,10 +1658,150 @@ def serve_full_width(torch, kern):
     serve_sampled_full_width(torch, kern, model, params, greedy)
     PHASE5["5p"] = serve_cluster_full_width(torch, kern, model, params,
                                             greedy)
+    roofline_of_the_card(torch, model, params)
     del params
     torch.cuda.empty_cache()
     add_counts(PHASE5["5p"], serve_cluster_launcher(torch, kern, greedy))
     return counts
+
+
+# ----------------------------------------------------------------------
+# 5q. the dry run and the roofline on the card's numbers
+# ----------------------------------------------------------------------
+DRYRUN_CELLS = (("mamba2-130m", "decode_32k", "multi"),
+                ("gemma-7b", "train_4k", "single"))
+# the compute term against the measured time: the traced products are the
+# ones the kernels run, so a share above 1 is a miscount
+COMPUTE_SHARE_MAX = 1.05
+
+
+def dryrun_cells(torch) -> None:
+    """5q (a) two dry-run cells through the CLI, in two subprocesses at
+    once, and (b) the roofline's constants against the card."""
+    import os
+
+    from repro_torch.core.cyclemodel import HopperParams
+    from repro_torch.core.roofline import HW
+    print(f"[5q] the dry run on the CPU beside the card ({card_line()})",
+          flush=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               REPRO_TORCH_TUNE_CACHE=str(TUNE_CACHE))
+    runs = []
+    t0 = time.perf_counter()
+    for arch, shape, mesh in DRYRUN_CELLS:
+        out = ROOT / "build" / f"chip_smoke_5q_{arch}_{shape}.jsonl"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.unlink(missing_ok=True)
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", mesh, "--out", str(out)]
+        runs.append((arch, out, subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    for arch, out, proc in runs:
+        try:
+            stdout, stderr = proc.communicate(timeout=240)
+        except subprocess.TimeoutExpired:
+            for _, _, p in runs:
+                p.kill()
+                p.communicate()
+            require(False, f"5q (a): the {arch} dry run ran past 240 s")
+        require(proc.returncode == 0 and "[OK]" in stdout,
+                f"5q (a): the {arch} dry run failed: {stdout[-1000:]} "
+                f"{stderr[-2000:]}")
+        row = json.loads(out.read_text().splitlines()[0])
+        out.unlink()
+        print(f"    (a) {row['cell']}: [OK] after "
+              f"{time.perf_counter() - t0:.1f} s; {row['chips']} chips, "
+              f"{row['hlo_gflops']:.1f} GFLOP, {row['hlo_gbytes']:.1f} GB, "
+              f"{row['coll_gbytes']:.1f} GB of collectives; terms on the "
+              f"H100's numbers: compute {row['t_compute_s']:.4g} s, memory "
+              f"{row['t_memory_s']:.4g} s, collective "
+              f"{row['t_collective_s']:.4g} s, bottleneck "
+              f"{row['bottleneck']} (op-by-op bytes); per device "
+              f"{row['dev_bytes_total']} "
+              f"bytes (arguments {row['arg_bytes_dev']}, temp "
+              f"{row['temp_bytes_dev']}), fits {row['fits_hbm']}; "
+              f"collectives {row['collectives']}; replicated for an op "
+              f"{row['redistribute_for_op']}")
+        require(row["hlo_gflops"] > 0 and row["dev_bytes_total"] > 0,
+                f"5q (a): {row['cell']} counted nothing")
+    props = torch.cuda.get_device_properties(0)
+    print(f"    (b) HW.hbm_bytes {HW().hbm_bytes}, total_memory "
+          f"{props.total_memory}; HopperParams.sms {HopperParams().sms}, "
+          f"multi_processor_count {props.multi_processor_count}")
+    require(HW().hbm_bytes == props.total_memory,
+            "5q (b): roofline.HW.hbm_bytes is not the card's memory")
+    require(HopperParams().sms == props.multi_processor_count,
+            "5q (b): HopperParams.sms is not the card's SM count")
+
+
+def roofline_of_the_card(torch, model, params) -> None:
+    """5q (c): the trace costs of phase 5's decode step and of one
+    128-token prefill pass (the plain path on the meta device, unsharded)
+    on the H100's numbers, beside the same work's measured device time."""
+    from repro_torch.core.roofline import analyze_trace
+    from repro_torch.core.trace_costs import trace_costs
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import Ctx
+    kw = SERVE_KW
+    slots, max_len = kw["num_slots"], kw["prompt_len"] + kw["gen_len"]
+    print(f"[5q] (c) gemma-7b full width, the trace costs against the card "
+          f"({card_line()})", flush=True)
+    plain = Ctx(plan="torch", dtype=torch.bfloat16)
+    meta = model.init(seed=0, dtype=torch.bfloat16, device="meta")
+    cache = model.init_cache(slots, max_len, torch.bfloat16, device="meta")
+    cache["pos"] = torch.zeros((slots,), dtype=torch.int32, device="meta")
+    with torch.no_grad():
+        _, decode = trace_costs(
+            model.decode, meta, cache,
+            torch.zeros((slots, 1), dtype=torch.long, device="meta"), plain)
+        batch = {"tokens": torch.zeros((1, kw["prompt_len"]),
+                                       dtype=torch.long, device="meta"),
+                 "lengths": torch.full((1,), kw["prompt_len"],
+                                       dtype=torch.int32, device="meta")}
+        _, prefill = trace_costs(model.prefill, meta, batch, plain, max_len)
+
+    # the prefill pass on the card: phase 5's first (128-token) request
+    req = make_requests(model.cfg, kw["seed"], kw["batch"], kw["prompt_len"],
+                        kw["gen_len"], kw["mixed"])[0]
+    require(len(req.prompt) == kw["prompt_len"],
+            "5q (c): phase 5's first request is not 128 tokens")
+    real = {"tokens": torch.tensor([req.prompt], device="cuda"),
+            "lengths": torch.tensor([len(req.prompt)], dtype=torch.int32,
+                                    device="cuda")}
+    ctx = Ctx(plan="auto", dtype=torch.bfloat16)
+    with torch.no_grad():
+        for _ in range(2):
+            model.prefill(params, real, ctx, max_len)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        n = 5
+        start.record()
+        for _ in range(n):
+            model.prefill(params, real, ctx, max_len)
+        end.record()
+        torch.cuda.synchronize()
+    measured = {"decode step": sum(PHASE5["step_ms"])
+                / len(PHASE5["step_ms"]),
+                "prefill pass": start.elapsed_time(end) / n}
+    for what, costs in (("decode step", decode), ("prefill pass", prefill)):
+        rep = analyze_trace(f"gemma-7b {what}", costs, 1)
+        bound_ms = 1e3 * max(rep.t_compute, rep.t_memory)
+        ms = measured[what]
+        share_c, share_m = 1e3 * rep.t_compute / ms, 1e3 * rep.t_memory / ms
+        print(f"    {what}: {costs.flops / 1e9:.2f} GFLOP, "
+              f"{costs.bytes / 1e9:.3f} GB op by op; t_compute "
+              f"{1e3 * rep.t_compute:.4f} ms, t_memory "
+              f"{1e3 * rep.t_memory:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({'compute' if rep.t_compute >= rep.t_memory else 'memory'})"
+              f"; measured {ms:.4f} ms; shares: compute {share_c:.3f} "
+              f"(gate <= {COMPUTE_SHARE_MAX}), memory {share_m:.3f} (not "
+              f"gated: the plain path's op-by-op bytes count what flash "
+              f"and the fused kernels never move)")
+        require(share_c <= COMPUTE_SHARE_MAX,
+                f"5q (c): the {what}'s compute term is {share_c:.3f} of "
+                f"its measured time")
 
 
 def engine_for(torch, model, params, ctx, *, K: int, eager: bool = False,
@@ -1776,6 +1934,7 @@ def serve_block_full_width(torch, kern, model, params, gen) -> dict:
             "weights")
     times = block_step_ms(torch, eng)
     print_step_ms("5", times)
+    PHASE5["step_ms"] = times["graph"]
     busy_share(torch, eng, times)
     del eng, res
     torch.cuda.empty_cache()

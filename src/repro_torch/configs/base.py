@@ -3,8 +3,9 @@ architecture registry.
 
 The port's own copy of ``repro.configs.base`` (which imports jax for its
 input specs): ``ModelConfig`` with every field, ``remat`` included,
-``RunConfig``, ``ShapeSpec`` / ``SHAPES`` and ``token_count``.
-``input_specs`` (JAX shape structs for the dry run) is not ported.
+``RunConfig``, ``ShapeSpec`` / ``SHAPES``, ``token_count`` and
+``input_specs``, whose ``meta`` tensors stand in for JAX's
+``ShapeDtypeStruct`` inputs of the dry run.
 """
 
 from __future__ import annotations
@@ -13,8 +14,10 @@ import dataclasses
 import importlib
 from typing import Callable
 
+import torch
+
 __all__ = ["ModelConfig", "RunConfig", "ShapeSpec", "SHAPES", "register",
-           "get_config", "list_configs", "token_count"]
+           "get_config", "list_configs", "token_count", "input_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +75,11 @@ class ModelConfig:
     def attention_free(self) -> bool:
         return self.family == "ssm"
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch run 500k-token contexts? (SSM and hybrid only)"""
+        return self.family in ("ssm", "hybrid")
+
     def param_count(self) -> int:
         """Total parameters (analytic, the JAX package's formulas)."""
         d, hd = self.d_model, self.resolved_head_dim
@@ -112,6 +120,15 @@ class ModelConfig:
         conv = (di + 2 * g * n) * self.conv_kernel
         out = di * d + di  # out_proj + gated norm
         return in_proj + conv + out + 3 * h  # A_log, D, dt_bias
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: the top-k experts only)."""
+        if self.family != "moe":
+            return self.param_count()
+        gates = 3 if self.mlp_type in ("swiglu", "geglu") else 2
+        inactive = (self.n_experts - self.experts_per_token) * gates \
+            * self.d_model * self.d_ff * self.n_layers
+        return self.param_count() - inactive
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,6 +173,43 @@ def token_count(shape: ShapeSpec) -> int:
     if shape.kind == "decode":
         return shape.global_batch  # one new token per sequence
     return shape.global_batch * shape.seq_len
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec,
+                dtype: torch.dtype = torch.bfloat16
+                ) -> dict[str, torch.Tensor]:
+    """``meta`` tensors of JAX's input shapes for every model input (no
+    allocation).
+
+    train / prefill: token ids (+ stub frontend embeddings in ``dtype``
+    for vlm and encdec; ``targets`` for train only).  decode: one new
+    token per sequence (the populated caches are built by the launcher
+    from the model).  Token ids are ``torch.int64`` where JAX's are
+    ``int32``: int64 is the index dtype the port's data pipeline feeds
+    its embedding gather.
+    """
+    B, S = shape.global_batch, shape.seq_len
+
+    def meta(shp, dt):
+        return torch.empty(shp, dtype=dt, device="meta")
+
+    ids = torch.int64
+    specs: dict[str, torch.Tensor] = {}
+    if shape.kind in ("train", "prefill"):
+        s_text = S
+        if cfg.family == "encdec":
+            # the encoder consumes stub audio frames, the decoder text
+            specs["frontend_embeds"] = meta((B, S, cfg.d_model), dtype)
+        elif cfg.frontend:
+            s_text = S - cfg.frontend_tokens
+            specs["frontend_embeds"] = meta(
+                (B, cfg.frontend_tokens, cfg.d_model), dtype)
+        specs["tokens"] = meta((B, s_text), ids)
+        if shape.kind == "train":
+            specs["targets"] = meta((B, s_text), ids)
+    else:  # decode
+        specs["tokens"] = meta((B, 1), ids)
+    return specs
 
 
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}

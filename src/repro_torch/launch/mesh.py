@@ -3,18 +3,23 @@
 Single pod: (16, 16), axes ('data', 'model').  Multi-pod: (2, 16, 16),
 axes ('pod', 'data', 'model').  On one H100 the only mesh that builds
 is (1, 1) (or (1,) and the like); a larger shape raises ``ValueError``,
-as ``jax.make_mesh`` does when the devices are too few.
+as ``jax.make_mesh`` does when the devices are too few.  On the ``meta``
+device any shape builds (placeholders, shapes only): the dry run's
+production meshes, the counterpart of JAX's 512 placeholder host
+devices.
 
 :class:`Mesh` is the port's own small record: ``axis_names`` and
 ``devices``, an object array of ``torch.device`` in the mesh's shape.
 It is not ``torch.distributed.DeviceMesh``: ``init_device_mesh`` needs
 an initialised process group, and the kernels, bound through ctypes,
-take plain tensors and not ``DTensor``s.  DTensor, and with it a mesh
-of more than one device, comes with the multi-device slice of the port
-(pipeline parallelism and the sharded engine across cards).  The
-sharding rules (:mod:`repro_torch.runtime.sharding`) read only
-``axis_names`` and ``devices.shape``, so they run over any mesh shape,
-the production ones included, whatever devices are present.
+take plain tensors and not ``DTensor``s.  :func:`fake_device_mesh`
+gives a mesh its ``DeviceMesh`` over a fake process group, for the dry
+run's DTensors of ``meta`` shards; a real mesh of more than one device
+comes with the multi-device slice of the port (pipeline parallelism and
+the sharded engine across cards).  The sharding rules
+(:mod:`repro_torch.runtime.sharding`) read only ``axis_names`` and
+``devices.shape``, so they run over any mesh shape, the production ones
+included, whatever devices are present.
 
 Functions, not module constants: importing this module touches no
 device.
@@ -30,7 +35,7 @@ import torch
 from repro_torch import resolve_device
 
 __all__ = ["Mesh", "make_mesh_compat", "make_production_mesh",
-           "make_host_mesh", "local_devices"]
+           "make_host_mesh", "local_devices", "fake_device_mesh"]
 
 
 class Mesh:
@@ -76,10 +81,13 @@ def make_mesh_compat(shape: tuple[int, ...], axes: tuple[str, ...], *,
                      device=None) -> Mesh:
     """A mesh of ``shape`` over the first ``prod(shape)`` devices of
     :func:`local_devices` (``device``: None for the card, ``"cpu"`` for the
-    host), named ``axes``; too few devices raise ``ValueError``."""
+    host, ``"meta"`` for placeholders of any number), named ``axes``; too
+    few devices raise ``ValueError``."""
     shape = tuple(int(s) for s in shape)
-    devices = local_devices(device)
     n = math.prod(shape)
+    devices = local_devices(device)
+    if devices[0].type == "meta":
+        devices = devices * n
     if n > len(devices):
         raise ValueError(f"Number of devices {len(devices)} must be >= the "
                          f"product of mesh_shape {shape}")
@@ -103,3 +111,31 @@ def make_host_mesh(*, data: int | None = None, model: int = 1,
     if data * model > n:
         raise ValueError(f"mesh {data}x{model} > {n} devices")
     return make_mesh_compat((data, model), ("data", "model"), device=device)
+
+
+def fake_device_mesh(mesh: Mesh):
+    """A ``torch.distributed.DeviceMesh`` of ``mesh``'s shape and axis
+    names over a fake process group of ``mesh.size`` ranks, this process
+    rank 0: collectives are issued and complete at once, moving nothing.
+    The dry run places DTensors of ``meta`` shards on it.
+
+    The fake backend lives in ``torch.testing._internal`` (private to
+    PyTorch), so it is imported here and nowhere else.  The default
+    process group must not exist yet; the caller tears it down
+    (``torch.distributed.destroy_process_group()``)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise RuntimeError(
+            "fake_device_mesh needs PyTorch's fake process group "
+            "(torch.testing._internal.distributed.fake_pg), which this "
+            "PyTorch build lacks") from e
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=mesh.size)
+    # device type "cpu": DTensor prices redistributions by the device
+    # count of its mesh's type, which "meta" has none of; the shards are
+    # meta tensors all the same
+    return init_device_mesh("cpu", tuple(mesh.devices.shape),
+                            mesh_dim_names=mesh.axis_names)

@@ -31,6 +31,7 @@ from repro_torch.data import make_pipeline
 from repro_torch.models import Ctx, build_model
 from repro_torch.optim import adamw_update_, init_opt_state
 from repro_torch.optim.compression import apply_error_feedback, init_residuals
+from repro_torch.runtime import sharding as shr
 from repro_torch.runtime.fault_tolerance import (Heartbeat, ResilientExecutor,
                                                  StragglerDetector)
 from repro_torch.tree import flatten, unflatten
@@ -45,7 +46,9 @@ def make_train_step(model, ctx: Ctx, run: RunConfig):
     ``loss + loss_mb / mb`` and ``g + g_mb / mb`` as JAX's scan), error
     feedback, then AdamW.  ``params`` and ``opt`` are updated in place
     (JAX donates them) and returned; ``metrics`` holds the loss, the
-    gradient norm and the learning rate as device scalars."""
+    gradient norm and the learning rate as device scalars.  Under
+    ``ctx.mesh`` each microbatch is held batch-sharded, as JAX's scan
+    over the reshaped batch keeps it."""
     def value_and_grad(params, batch):
         ps, treedef = flatten(params)
         xs = [p.detach().requires_grad_() for p in ps]
@@ -61,8 +64,11 @@ def make_train_step(model, ctx: Ctx, run: RunConfig):
             loss = torch.zeros((), dtype=torch.float32, device=ps[0].device)
             grads = [torch.zeros_like(p) for p in ps]
             for i in range(mb):
-                one = {k: v.reshape(mb, v.shape[0] // mb, *v.shape[1:])[i]
+                one = {k: shr.microbatch(v, mb, i)
                        for k, v in batch.items()}
+                if ctx.mesh is not None:
+                    one = shr.constrain_tree(
+                        one, shr.batch_shardings(ctx.mesh, one))
                 loss_mb, g = value_and_grad(params, one)
                 loss = loss + loss_mb / mb
                 torch._foreach_div_(g, mb)

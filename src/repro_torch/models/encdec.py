@@ -95,6 +95,7 @@ def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig,
     positions = _positions(B, S, x.device)
 
     def layer(x, lp):
+        x = L.shard_act(x, ctx)
         h = L.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
         x = x + L.attention(lp["attn"], h, cfg, ctx, positions=positions,
                             causal=False)
@@ -119,6 +120,7 @@ def forward(params: Params, tokens: torch.Tensor, frames: torch.Tensor,
     positions = _positions(B, S, x.device)
 
     def layer(x, lp, enc_out):
+        x = L.shard_act(x, ctx)
         h = L.rms_norm(lp["self_norm"], x, cfg.norm_eps)
         x = x + L.attention(lp["self_attn"], h, cfg, ctx,
                             positions=positions, causal=True)

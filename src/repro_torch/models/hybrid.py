@@ -88,6 +88,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     sp = params["shared"]
 
     def mamba_layer(x, lp):
+        x = L.shard_act(x, ctx)
         h = L.rms_norm(lp["norm"], x, cfg.norm_eps)
         return x + ssm.mamba_forward(lp["mamba"], h, cfg, ctx)
 

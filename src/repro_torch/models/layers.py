@@ -7,11 +7,22 @@ the compute path on the card.  Params are plain nested dicts
 of tensors with the JAX package's names and ``(d_in, d_out)`` weight
 layout; the tied embedding table stays ``(vocab, d_model)`` and the LM
 head reads it through the kernel's transposed-B layout.
+
+``Ctx.mesh`` carries JAX's activation sharding constraints
+(:func:`shard_seq`, :func:`shard_act`, :func:`_head_shard`, the
+merged-head attention of :func:`_merged_head_plan`): on DTensors each
+constraint is a redistribution to the placements JAX's ``P(...)`` names
+(:func:`repro_torch.runtime.sharding.constrain`), and a weight sharded
+over ``data`` is gathered at its use (``sharding.gather_fsdp``); on plain
+tensors they return their input.  The merged-head plan reads only the
+mesh's shape, so under a mesh it pads the heads of plain tensors too.
+With ``mesh=None`` nothing changes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
@@ -22,11 +33,15 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.plan.plan import Plan, as_plan
 from repro_torch.quant.tensor import QTensor
+from repro_torch.runtime.sharding import (P, constrain, gather_fsdp,
+                                          gather_inner, is_dtensor,
+                                          label_logits, like, map_heads,
+                                          split_columns, write_row)
 
 __all__ = ["Ctx", "Params", "linear", "rms_norm", "rope", "attention",
            "attention_decode", "attention_decode_paged",
            "attention_decode_quantized", "mlp", "embed", "unembed",
-           "gather_last", "cross_entropy"]
+           "gather_last", "cross_entropy", "shard_seq", "shard_act"]
 
 Params = dict[str, Any]
 
@@ -44,17 +59,116 @@ class Ctx:
     table, e.g. from :func:`repro_torch.plan.trace_model`), a tile
     tuple, or ``None`` (the fixed default ``KernelConfig()``).  It is
     normalized to a ``Plan`` at construction; quantized execution is the
-    plan's ``quant`` field.  ``dtype`` is the compute dtype.
+    plan's ``quant`` field.  ``dtype`` is the compute dtype.  ``mesh``
+    (a :class:`repro_torch.launch.mesh.Mesh`, or anything with its
+    ``axis_names`` and ``devices.shape``), when set, applies the
+    activation sharding constraints (module docstring).
     """
     plan: Any = "auto"
     dtype: torch.dtype = torch.bfloat16
+    mesh: Any = None
 
     def __post_init__(self):
         object.__setattr__(self, "plan", as_plan(self.plan))
 
     def with_plan(self, plan) -> "Ctx":
         """This context with a different execution plan."""
-        return Ctx(plan=plan, dtype=self.dtype)
+        return Ctx(plan=plan, dtype=self.dtype, mesh=self.mesh)
+
+
+def _sizes(mesh) -> dict[str, int]:
+    return dict(zip(mesh.axis_names, mesh.devices.shape))
+
+
+def _dp(mesh) -> tuple[tuple, int]:
+    """The data-parallel axes of ``mesh`` and the product of their sizes."""
+    sizes = _sizes(mesh)
+    dp = tuple(a for a in ("pod", "data") if a in sizes)
+    n = 1
+    for a in dp:
+        n *= sizes[a]
+    return dp, n
+
+
+def shard_seq(x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+    """Sequence-parallel constraint on a (B, S, d) activation: batch over
+    the DP axes, sequence over 'model' (Megatron SP).
+
+    Applied at layer boundaries and on the attention / MLP block
+    outputs: on a block output (a partial sum over 'model' under TP) it
+    is the reduce-scatter of the Megatron form, where replicating would
+    be an all-reduce followed by a slice."""
+    if ctx.mesh is None or x.ndim != 3:
+        return x
+    sizes = _sizes(ctx.mesh)
+    dp, dp_size = _dp(ctx.mesh)
+    b_ax = dp if dp_size > 1 and x.shape[0] >= dp_size else None
+    s_ax = ("model" if "model" in sizes and x.shape[1] >= sizes["model"]
+            else None)
+    if b_ax is None and s_ax is None:
+        return x
+    return constrain(x, P(b_ax, s_ax, None))
+
+
+def shard_act(x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+    """Sequence-parallel constraint at a layer boundary: the residual
+    (B, S, d), the backward pass's dominant live state, is held with its
+    sequence over 'model'.  JAX also pins the carry with an optimization
+    barrier against XLA hoisting the fp32 upcast of the saved-residual
+    stack out of its layer scan; an eager program hoists nothing, so
+    this is :func:`shard_seq`."""
+    return shard_seq(x, ctx)
+
+
+def _head_shard(t: torch.Tensor, ctx: "Ctx | None") -> torch.Tensor:
+    """Constrain a (B, S, H, D) attention tensor to head-TP layout (heads
+    over 'model', batch over the DP axes when it divides), so the score
+    products contract locally instead of over a sharded dim."""
+    if ctx is None or ctx.mesh is None or "model" not in ctx.mesh.axis_names:
+        return t
+    sizes = _sizes(ctx.mesh)
+    if t.shape[2] % sizes["model"] != 0:
+        return t
+    dp, dps = _dp(ctx.mesh)
+    b_ax = dp if t.shape[0] % dps == 0 and dps > 1 else None
+    return constrain(t, P(b_ax, None, "model", None))
+
+
+def _seq_shard4(t: torch.Tensor, ctx: "Ctx | None") -> torch.Tensor:
+    """Pin a (B, S, KV, D) tensor to the SP layout (S over 'model'), batch
+    over the DP axes when it divides.  The reference defines it beside
+    :func:`_head_shard` and calls it nowhere; so does the port."""
+    if ctx is None or ctx.mesh is None or "model" not in ctx.mesh.axis_names:
+        return t
+    sizes = _sizes(ctx.mesh)
+    if t.shape[1] % sizes["model"] != 0:
+        return t
+    dp, dps = _dp(ctx.mesh)
+    b_ax = dp if t.shape[0] % dps == 0 and dps > 1 else None
+    return constrain(t, P(b_ax, "model", None, None))
+
+
+def _merged_head_plan(n_heads: int, kv_heads: int, ctx: Ctx) -> int | None:
+    """Whether attention takes the merged-head TP form, and its head pad.
+
+    The reference uses it only where the grouped form cannot shard and
+    padding is cheap: heads and KV heads both indivisible by the 'model'
+    axis (deepseek's and llava's 56 heads pad to 64 on a 16-way axis,
+    +14% attention FLOPs), the pad at most 25% (qwen's 40 -> 80 keeps the
+    grouped form), and never on a multi-pod mesh.  None: the grouped
+    form; else the number of zero query heads to append."""
+    if (ctx.mesh is None or "model" not in ctx.mesh.axis_names
+            or "pod" in ctx.mesh.axis_names):
+        return None
+    tp = _sizes(ctx.mesh)["model"]
+    if n_heads % tp == 0 or kv_heads % tp == 0:
+        return None          # the grouped form shards already
+    target = n_heads
+    while target % tp or (kv_heads and (target % kv_heads)):
+        target += 1
+    if target > n_heads * 1.25:
+        return None          # the pad would cost too much
+    return target - n_heads
 
 
 def linear(p: Params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
@@ -69,7 +183,8 @@ def linear(p: Params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
     plain weight is a no-op on the serving path (the JAX code casts fp32
     parameters on every call).  A ``b`` leaf (``init_linear(bias=True)``)
     is cast to ``ctx.dtype`` and added after the product, as in JAX."""
-    w = p["w"]
+    x = gather_inner(x)
+    w = split_columns(gather_fsdp(p["w"]), x, -1)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if isinstance(w, QTensor):
@@ -136,19 +251,26 @@ def _lengths_mask(S: int, T: int, lengths: torch.Tensor, causal: bool,
 def _gqa_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool, config: Plan,
               lengths: torch.Tensor | None = None,
-              q_offset: torch.Tensor | None = None) -> torch.Tensor:
+              q_offset: torch.Tensor | None = None,
+              ctx: Ctx | None = None) -> torch.Tensor:
     """q: (B,S,H,D), k/v: (B,T,KV,D) -> (B,S,H,D).
 
     On the ``"auto"`` backend the KV heads are repeated up to H and the
     flash kernel runs in (B, H, S, D) layout with ``lengths`` as both its
     q and kv lengths.  On the ``"torch"`` backend the grouped einsum of
-    the JAX package's plain path runs (no head materialisation).
-    ``lengths``: optional (B,) valid lengths, rows/cols at >= length
-    masked, fully-masked rows zero; ``q_offset``: optional (B,) absolute
-    position of query row 0.
+    the JAX package's plain path runs (no head materialisation), or,
+    given a ``ctx`` with a mesh (callers gate it through
+    :func:`_merged_head_plan`), the merged-head form: KV heads repeated
+    up to H and q, K and V held head-sharded, so the one head dim shards
+    over 'model'.  ``lengths``: optional (B,) valid lengths, rows/cols at
+    >= length masked, fully-masked rows zero; ``q_offset``: optional (B,)
+    absolute position of query row 0.  Neither form has the reference's
+    chunked variant (an S x T above 1024 x 1024 in 1024-row blocks): the
+    port's plain attention holds the whole score matrix.  On DTensors
+    either form runs on each rank's batch and head shards
+    (:func:`repro_torch.runtime.sharding.map_heads`).
     """
-    B, S, H, D = q.shape
-    KV, T = k.shape[2], k.shape[1]
+    H, KV = q.shape[2], k.shape[2]
     rep = H // KV
     if config.backend == "auto":
         if rep > 1:
@@ -160,6 +282,23 @@ def _gqa_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal=causal, q_lens=lengths, kv_lens=lengths,
                           q_offsets=q_offset)
         return o.transpose(1, 2)
+    merged = ctx is not None and ctx.mesh is not None
+    if merged:
+        k = _head_shard(torch.repeat_interleave(k, rep, dim=2), ctx)
+        v = _head_shard(torch.repeat_interleave(v, rep, dim=2), ctx)
+        q = _head_shard(q, ctx)
+    return map_heads(functools.partial(_gqa_full_grouped, causal=causal),
+                     q, k, v, lengths, q_offset)
+
+
+def _gqa_full_grouped(q, k, v, lengths, q_offset, *,
+                      causal: bool) -> torch.Tensor:
+    """The einsums of :func:`_gqa_full`'s ``"torch"`` backend, grouped
+    over the KV heads (no head materialisation; the merged-head form is
+    this with K and V repeated to q's heads)."""
+    B, S, H, D = q.shape
+    KV, T = k.shape[2], k.shape[1]
+    rep = H // KV
     qg = q.reshape(B, S, KV, rep, D)
     logits = torch.einsum("bskrd,btkd->bkrst", qg.to(torch.float32),
                           k.to(torch.float32)) * (D ** -0.5)
@@ -187,7 +326,13 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
     q, k, v = _qkv(p, x, cfg, ctx)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    o = _gqa_full(q, k, v, causal=causal, config=ctx.plan, lengths=lengths)
+    n_pad = _merged_head_plan(cfg.n_heads, k.shape[2], ctx)
+    if n_pad is not None:
+        q = F.pad(q, (0, 0, 0, n_pad))
+    o = _gqa_full(q, k, v, causal=causal, config=ctx.plan, lengths=lengths,
+                  ctx=ctx if n_pad is not None else None)
+    if n_pad:
+        o = o[:, :, :cfg.n_heads]
     return linear(p["wo"], o.reshape(B, S, cfg.n_heads * hd), ctx)
 
 
@@ -203,6 +348,8 @@ def _scatter_at(c: torch.Tensor, new: torch.Tensor,
     """
     S = c.shape[1]
     pos = torch.as_tensor(pos, device=c.device).to(torch.long).clamp(0, S - 1)
+    if pos.dim() == 0 and is_dtensor(c):
+        return write_row(c, new, pos)
     new = new[:, 0].to(c.dtype)
     if pos.dim() == 0:
         c[:, pos] = new
@@ -217,15 +364,25 @@ def attention_decode_masked(q: torch.Tensor, ck: torch.Tensor,
     """The masked einsum of one-token decode over a contiguous (B, S, KV,
     D) view of the cache, shared by :func:`attention_decode` and the
     plain path of :func:`attention_decode_paged`, so that the two are
-    the same operations on the same shapes.  Returns (B, 1, H*D).  (Its
-    name keeps the ``attention_decode`` prefix that the program lint's
-    allowlist sanctions, as the reference's einsums sit in
-    ``attention_decode`` itself.)"""
+    the same operations on the same shapes.  Returns (B, 1, H*D).  On
+    DTensors it runs on each rank's batch and head shards
+    (``sharding.map_heads``).  (Its name, and its body's, keep the
+    ``attention_decode`` prefix that the program lint's allowlist
+    sanctions, as the reference's einsums sit in ``attention_decode``
+    itself.)"""
     B = q.shape[0]
-    hd = cfg.resolved_head_dim
+    o = map_heads(attention_decode_local, q, ck, cv, pos_b)
+    return o.reshape(B, 1, cfg.n_heads * cfg.resolved_head_dim).to(ctx.dtype)
+
+
+def attention_decode_local(q: torch.Tensor, ck: torch.Tensor,
+                           cv: torch.Tensor,
+                           pos_b: torch.Tensor) -> torch.Tensor:
+    """:func:`attention_decode_masked`'s einsums on (B, 1, H, D) queries:
+    (B, 1, H, D) out, in the cache dtype."""
+    B, _, H, hd = q.shape
     KV = ck.shape[2]
-    rep = cfg.n_heads // KV
-    qg = q.reshape(B, 1, KV, rep, hd)
+    qg = q.reshape(B, 1, KV, H // KV, hd)
     # the score product stays in the cache dtype; only the small logits
     # are upcast for the softmax (as in the reference)
     scores = torch.einsum("bskrd,btkd->bkrst", qg.to(ck.dtype), ck)
@@ -235,7 +392,7 @@ def attention_decode_masked(q: torch.Tensor, ck: torch.Tensor,
     logits = torch.where(mask[:, None, None, None, :], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     o = torch.einsum("bkrst,btkd->bskrd", probs.to(cv.dtype), cv)
-    return o.reshape(B, 1, cfg.n_heads * hd).to(ctx.dtype)
+    return o.reshape(B, 1, H, hd)
 
 
 def attention_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
@@ -386,7 +543,7 @@ def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx) -> torch.Tensor:
 
 
 def embed(p: Params, tokens: torch.Tensor, ctx: Ctx) -> torch.Tensor:
-    return p["tokens"].to(ctx.dtype)[tokens]
+    return gather_fsdp(p["tokens"]).to(ctx.dtype)[tokens]
 
 
 def unembed(p: Params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
@@ -398,8 +555,11 @@ def unembed(p: Params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
     ``transformer.init_embed`` and ``params_from_numpy``).  So no copy is
     made per call, and a vocabulary whose (d, V) rows are not 16-byte
     multiples (seamless's 256206) still takes the TMA design."""
+    x = gather_inner(x)
     B, S, d = x.shape
-    w = p["lm_head"].t() if "lm_head" in p else p["tokens"]
+    w = gather_fsdp(p["lm_head"]).t() if "lm_head" in p \
+        else gather_fsdp(p["tokens"])
+    w = split_columns(w, x, 0)
     logits = ops.matmul(x.reshape(B * S, d), w.to(ctx.dtype).contiguous(),
                         config=ctx.plan, out_dtype=torch.float32,
                         trans_b=True)
@@ -417,12 +577,26 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     """Mean token NLL: fp32 log-sum-exp minus the label logit; logits
     (B, S, V), targets (B, S) int, ``mask`` (B, S) optional weights (the
     masked mean over at least one token).  The label logit is a one-hot
-    contraction, as in the reference."""
+    contraction, as in the reference; on a DTensor the label logit is
+    read vocabulary-parallel (``sharding.label_logits``), with no
+    one-hot."""
     logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    onehot = F.one_hot(targets.to(torch.long),
-                       logits.shape[-1]).to(logits.dtype)
-    nll = lse - torch.einsum("bsv,bsv->bs", logits, onehot)
+    if is_dtensor(logits):
+        # the max and the sum reduce over the sharded vocabulary
+        # (logsumexp's strategy would gather it whole), each all-reduced
+        # into the logits' layout (and so their gradients on the way
+        # back); the max is a constant, as in JAX's logsumexp
+        m = like(logits.amax(dim=-1, keepdim=True), logits,
+                 reduced=-1).detach()
+        s = like(torch.exp(logits - m).sum(-1, keepdim=True), logits,
+                 reduced=-1)
+        lse = (m + torch.log(s))[..., 0]
+        nll = lse - label_logits(logits, targets)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        onehot = F.one_hot(targets.to(torch.long),
+                           logits.shape[-1]).to(logits.dtype)
+        nll = lse - torch.einsum("bsv,bsv->bs", logits, onehot)
     if mask is not None:
         mask = mask.to(nll.dtype)
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

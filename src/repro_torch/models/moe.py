@@ -19,8 +19,12 @@ Three departures from the JAX code:
   bf16 it accumulates the k terms in fp32 and rounds once, where a
   scatter-add may round after each add, so bf16 outputs can differ from
   the JAX package's in the last bits;
-* the expert-parallel sharding constraint is left out: it is a no-op
-  without a device mesh, which comes with the cluster.
+* under a mesh the routing, the dispatch and the combine run on
+  tensors replicated over the mesh
+  (:func:`repro_torch.runtime.sharding.replicate_for_op`, counted in
+  ``obs``): DTensor has no sharding strategy for the sort-based
+  dispatch, where GSPMD partitions it as it can.  The expert-parallel
+  constraint on the (E, C, d) buffers is the reference's.
 """
 
 from __future__ import annotations
@@ -32,6 +36,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import Ctx, Params
 from repro_torch.quant.tensor import QTensor
+from repro_torch.runtime.sharding import (P, constrain, from_replicated,
+                                          gather_fsdp, is_dtensor,
+                                          replicate_for_op,
+                                          split_contraction)
 
 __all__ = ["init_moe_mlp", "moe_mlp", "router_assignments"]
 
@@ -48,8 +56,23 @@ def _expert_matmul(x: torch.Tensor, w, ctx: Ctx) -> torch.Tensor:
                                                 out_dtype=ctx.dtype)
         w = w.dequantize(ctx.dtype)
     else:
+        x, w = split_contraction(x, w)
         w = w.to(ctx.dtype)
     return ops.grouped_matmul(x, w, config=ctx.plan, out_dtype=ctx.dtype)
+
+
+def _ep_constraint(t: torch.Tensor, ctx: Ctx, spec: tuple) -> torch.Tensor:
+    """Expert-parallel sharding constraint (no-op without a mesh, or
+    where a named axis does not divide its dim): pins the experts of the
+    (E, C, d) buffers to the 'model' axis."""
+    if ctx.mesh is None or "model" not in ctx.mesh.axis_names:
+        return t
+    sizes = dict(zip(ctx.mesh.axis_names, ctx.mesh.devices.shape))
+    ok = all(a is None or (a in sizes and t.shape[i] % sizes[a] == 0)
+             for i, a in enumerate(spec))
+    if not ok:
+        return t
+    return constrain(t, P(*spec))
 
 
 def init_moe_mlp(g: torch.Generator, cfg: ModelConfig, dtype,
@@ -138,20 +161,30 @@ def moe_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
     xf = x.reshape(T, d)
 
     # the router product is a plain matmul in the JAX package too
-    logits = xf.to(torch.float32) @ p["router"].to(torch.float32)
+    logits = xf.to(torch.float32) @ gather_fsdp(p["router"]).to(
+        torch.float32)
+    valid = None if token_mask is None else token_mask.reshape(T)
+    mesh = xf.device_mesh if is_dtensor(xf) else None
+    if mesh is not None:
+        xf, logits = replicate_for_op("moe.dispatch", xf, logits)
+        if is_dtensor(valid):
+            valid, = replicate_for_op("moe.dispatch", valid)
     slot, gates, keep, tok_ids, aux = router_assignments(
-        logits, k, C, E,
-        token_valid=None if token_mask is None else token_mask.reshape(T))
+        logits, k, C, E, token_valid=valid)
 
     # dispatch: (E*C, d) buffers; dropped assignments go to a dump row
     dump = E * C
     slot_safe = torch.where(keep, slot, dump)
-    buf = torch.zeros((E * C + 1, d), dtype=ctx.dtype, device=x.device)
+    buf = torch.zeros((E * C + 1, d), dtype=ctx.dtype, device=xf.device)
     buf[slot_safe] = xf[tok_ids].to(ctx.dtype)
     buf = buf[:-1].reshape(E, C, d)
+    if mesh is not None:
+        buf = from_replicated(buf, mesh)
+    buf = _ep_constraint(buf, ctx, ("model", None, None))
 
     # expert FFN through the grouped zero-stall engine (quantized-aware)
     h = _expert_matmul(buf, p["wi"], ctx)
+    h = _ep_constraint(h, ctx, ("model", None, None))
     if "wg" in p:
         g = _expert_matmul(buf, p["wg"], ctx)
         # jax.nn.gelu defaults to the tanh approximation
@@ -161,12 +194,17 @@ def moe_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
     else:
         h = F.gelu(h, approximate="tanh")
     y = _expert_matmul(h, p["wo"], ctx)
+    y = _ep_constraint(y, ctx, ("model", None, None))
 
     # combine: out[tok] = sum over its k assignments of gate * y[e, rank]
     y_flat = y.reshape(E * C, d)
+    if mesh is not None:
+        y_flat, = replicate_for_op("moe.combine", y_flat)
     contrib = (y_flat[torch.where(keep, slot, 0)]
                * (gates * keep).to(ctx.dtype)[:, None])
     out = contrib.view(T, k, d).sum(dim=1).reshape(B, S, d)
+    if mesh is not None:
+        out, aux = from_replicated(out, mesh), from_replicated(aux, mesh)
     if return_aux:
         return out, aux
     return out

@@ -23,6 +23,8 @@ as JAX checkpoints it by ``remat_policy``.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -31,6 +33,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import Ctx, Params
 from repro_torch.models.transformer import init_embed, init_linear, remat
+from repro_torch.runtime.sharding import (P, constrain, gather_dims, like,
+                                          map_shards)
 
 __all__ = ["ssd_chunked", "init_mamba", "mamba_forward", "mamba_decode",
            "mamba_prefill", "init_ssm_state", "init_params", "forward",
@@ -122,6 +126,10 @@ def init_mamba(g: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
 
 def _split_zxbcdt(zxbcdt: torch.Tensor, cfg: ModelConfig):
     di, gN, H = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state, cfg.ssm_heads
+    # the split cuts across a 'model'-sharded width: gathered explicitly
+    # (DTensor would gather it for the slices too), so that the gradient
+    # returns to the projection in its shards, not whole on every rank
+    zxbcdt = gather_dims(zxbcdt, [-1])
     z = zxbcdt[..., :di]
     xbc = zxbcdt[..., di:di + di + 2 * gN]
     dt = zxbcdt[..., di + di + 2 * gN:]
@@ -176,6 +184,33 @@ def _gate_out(p: Params, y: torch.Tensor, z: torch.Tensor,
     return L.linear(p["out_proj"], y, ctx)
 
 
+def _head_constraint(t: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+    """Shard the SSD head dim (axis 2 of (B, S, H[, *])) over 'model'
+    (no-op without a mesh, or where the heads do not divide).
+
+    The reference's reasons: the intra-chunk SSD tensors (decay matrices,
+    c.b scores) stop replicating across the model axis, and the sequence
+    dim goes local, so the inter-chunk recurrence walks an unsharded
+    chunk axis instead of rotating sequence shards every step."""
+    if (ctx.mesh is None or t.ndim not in (3, 4)
+            or "model" not in ctx.mesh.axis_names):
+        return t
+    sizes = dict(zip(ctx.mesh.axis_names, ctx.mesh.devices.shape))
+    if t.shape[2] % sizes["model"] != 0:
+        return t
+    spec = (P(None, None, "model") if t.ndim == 3
+            else P(None, None, "model", None))
+    return constrain(t, spec)
+
+
+def _ssd(x, a_log, b, c, chunk: int):
+    """:func:`ssd_chunked` on each rank's batch and head shards
+    (``sharding.map_shards``; the scan is independent across both): y
+    (B, S, H, P) and the final state (B, H, N, P)."""
+    return map_shards(functools.partial(ssd_chunked, chunk=chunk),
+                      (x, a_log, b, c), (2, 2, 2, 2), (2, 1))
+
+
 def mamba_forward(p: Params, u: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
                   *, chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
     """u: (B, S, d) -> (B, S, d)."""
@@ -185,8 +220,11 @@ def mamba_forward(p: Params, u: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
     xbc = _causal_conv(xbc, p["conv_w"].to(ctx.dtype),
                        p["conv_b"].to(ctx.dtype))
     xh, dt, a_log, b_, c_ = _ssm_inputs(p, xbc, dt_raw, cfg)
-    y, _ = ssd_chunked(xh * dt[..., None].to(xh.dtype), a_log, b_, c_,
-                       chunk=chunk)
+    xh = _head_constraint(xh, ctx)
+    b_ = _head_constraint(b_, ctx)
+    c_ = _head_constraint(c_, ctx)
+    a_log = _head_constraint(a_log, ctx)
+    y, _ = _ssd(xh * dt[..., None].to(xh.dtype), a_log, b_, c_, chunk)
     y = y + p["D"].to(y.dtype)[None, None, :, None] * xh
     return _gate_out(p, y.reshape(B, S, cfg.d_inner), z, cfg, ctx)
 
@@ -215,7 +253,7 @@ def mamba_prefill(p: Params, u: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
     a_log = a_log * valid[..., None]
     x_in = (xh * dt[..., None].to(xh.dtype)
             * valid[..., None, None].to(xh.dtype))
-    y, h_final = ssd_chunked(x_in, a_log, b_, c_, chunk=chunk)
+    y, h_final = _ssd(x_in, a_log, b_, c_, chunk)
     y = y + p["D"].to(y.dtype)[None, None, :, None] * xh
     out = _gate_out(p, y.reshape(B, S, cfg.d_inner), z, cfg, ctx)
 
@@ -265,8 +303,16 @@ def mamba_decode(p: Params, u: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
     at = torch.exp(a_log[:, 0])                             # (B, H)
     bt = b_[:, 0].to(torch.float32)                         # (B, H, N)
     ct = c_[:, 0].to(torch.float32)
+    # the recurrence's operands in the state's layout (batch over the DP
+    # axes, heads over 'model'; no-ops on plain tensors), where DTensor
+    # would carry on the conv's and repeat the recurrence on each rank
+    # of 'data'
+    xt, at, bt, ct = (like(t, state["ssm"]) for t in (xt, at, bt, ct))
     h = state["ssm"] * at[:, :, None, None] \
         + torch.einsum("bhd,bhp->bhdp", bt, xt.to(torch.float32))
+    # the new state in the cache's layout (contiguous: a no-op on a plain
+    # tensor)
+    h = like(h, state["ssm"]).contiguous()
     y = torch.einsum("bhd,bhdp->bhp", ct, h).to(ctx.dtype)
     y = y + p["D"].to(y.dtype)[None, :, None] * xh[:, 0]
     B = u.shape[0]
@@ -307,6 +353,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     x = L.embed(params["embed"], tokens, ctx)
 
     def layer(x, lp):
+        x = L.shard_act(x, ctx)
         h = L.rms_norm(lp["norm"], x, cfg.norm_eps)
         return x + mamba_forward(lp["mamba"], h, cfg, ctx)
 

@@ -218,10 +218,17 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
     fn = _mlp_fn(cfg, ctx, mlp_fn)
 
     def layer(x, lp):
+        # the residual sequence-sharded, and the Megatron reduce-scatter
+        # form at the TP block outputs (L.shard_seq); not around MoE
+        # blocks, whose expert dispatch the reference found it fights
+        x = L.shard_act(x, ctx)
         h = L.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
-        x = x + L.attention(lp["attn"], h, cfg, ctx, positions=positions)
+        x = x + L.shard_seq(
+            L.attention(lp["attn"], h, cfg, ctx, positions=positions), ctx)
         h = L.rms_norm(lp["mlp_norm"], x, cfg.norm_eps)
         y, aux = fn(lp["mlp"], h)
+        if mlp_fn is None:
+            y = L.shard_seq(y, ctx)
         return x + y, torch.as_tensor(aux, dtype=torch.float32,
                                       device=x.device)
 

@@ -21,10 +21,20 @@ production meshes are computed (and held against the JAX package's) on
 any host.  :class:`P` and :class:`NamedSharding` are the port's own
 records of ``jax.sharding.PartitionSpec`` and ``NamedSharding``: one
 entry a dimension, None (replicated), an axis name or a tuple of axis
-names (a one-name tuple normalises to the name, as in JAX).  Placing a
-tensor by them across devices waits for DTensor and the multi-device
-slice; :class:`repro_torch.serve.ShardedEngine` computes them on its
-one-device mesh and keeps them.
+names (a one-name tuple normalises to the name, as in JAX).
+:class:`repro_torch.serve.ShardedEngine` computes them on its one-device
+mesh and keeps them.
+
+Placement (DTensor, over a ``torch.distributed.DeviceMesh`` whose
+dimension names are the mesh's axis names): :func:`placements` turns a
+spec into DTensor placements, :func:`shard_shape` gives the shard one
+rank holds, :func:`place` builds DTensors from local shards of those
+shapes (``meta`` shards for the dry run, :mod:`repro_torch.launch.dryrun`;
+real tensors wait for the multi-device slice), :func:`constrain` is
+JAX's ``with_sharding_constraint`` as a redistribution, and
+:func:`gather_fsdp` gathers a weight's FSDP shard at its use.  On a
+plain tensor :func:`constrain` and :func:`gather_fsdp` return their
+input, so with no mesh nothing changes.
 
 The port keeps a model's layers as lists of per-layer dicts where JAX
 stacks them along leading axes.  :func:`param_shardings` therefore
@@ -36,6 +46,7 @@ raises if one would be).
 
 from __future__ import annotations
 
+import math
 import re
 from typing import Any
 
@@ -46,7 +57,11 @@ from repro_torch.tree import tree_map
 
 __all__ = ["P", "NamedSharding", "param_shardings", "batch_shardings",
            "cache_shardings", "batch_axes", "spec_for_param", "path_str",
-           "replicated"]
+           "replicated", "shard_shape", "placements", "place", "constrain",
+           "gather_fsdp", "is_dtensor", "replicate_for_op", "from_replicated",
+           "gather_inner", "gather_dims", "split_columns", "split_contraction",
+           "like", "constrain_tree", "map_heads", "map_shards", "write_row",
+           "microbatch", "label_logits"]
 
 
 class P(tuple):
@@ -262,3 +277,396 @@ def cache_shardings(mesh, cache: Any, *, seq_axis_threshold: int = 65536
         return one(path_str(path), x)
 
     return walk(cache, ())
+
+
+# ----------------------------------------------------------------------
+# placement (DTensor)
+# ----------------------------------------------------------------------
+def _entry_names(entry) -> tuple:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def shard_shape(sharding: NamedSharding, shape) -> tuple[int, ...]:
+    """The shape of the shard rank 0 holds (``NamedSharding.shard_shape``):
+    each dim divided by the product of its axes' sizes, rounded up (the
+    first shard of an uneven dim, DTensor's ``chunk`` layout; the rules
+    shard only dims that divide)."""
+    sizes = _sizes(sharding.mesh)
+    spec = tuple(sharding.spec) + (None,) * (len(shape) - len(sharding.spec))
+    return tuple(-(-int(d) // math.prod(sizes[a] for a in _entry_names(e)))
+                 for d, e in zip(shape, spec))
+
+
+def placements(spec, mesh_dim_names) -> list:
+    """DTensor placements of ``spec`` over a device mesh with dimension
+    names ``mesh_dim_names``: ``Shard(i)`` on each mesh dim that tensor
+    dim i names (a dim sharded over several axes takes them in mesh
+    order, JAX's major-to-minor), ``Replicate()`` on the others."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for name in mesh_dim_names:
+        dims = [i for i, e in enumerate(spec) if name in _entry_names(e)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return out
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def place(tree: Any, shardings: Any, device_mesh) -> Any:
+    """DTensors over ``device_mesh`` for each leaf of ``tree`` (global
+    shapes) by the :class:`NamedSharding` at the same place in
+    ``shardings``, each built with ``DTensor.from_local`` from the shard
+    of :func:`shard_shape` this rank holds.
+
+    Only ``meta`` leaves are placed (the dry run: shapes, no data);
+    placing real tensors across ranks is the multi-device slice's."""
+    from torch.distributed.tensor import DTensor
+    names = device_mesh.mesh_dim_names
+
+    def one(x, sh):
+        if x.device.type != "meta":
+            raise NotImplementedError(
+                "place() builds meta shards only; placing real tensors "
+                "across ranks waits for the multi-device slice "
+                "(ROADMAP item 11b)")
+        local = torch.empty(shard_shape(sh, x.shape), dtype=x.dtype,
+                            device="meta")
+        return DTensor.from_local(local, device_mesh,
+                                  placements(sh.spec, names),
+                                  run_check=False, shape=x.shape,
+                                  stride=x.stride())
+
+    def walk(x, sh):
+        if isinstance(x, dict):
+            return {k: walk(v, sh[k]) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            kids = [walk(v, s) for v, s in zip(x, sh)]
+            return (kids if isinstance(x, list) else
+                    type(x)(*kids) if hasattr(x, "_fields") else tuple(kids))
+        return one(x, sh)
+
+    return walk(tree, shardings)
+
+
+def constrain(x: torch.Tensor, spec) -> torch.Tensor:
+    """JAX's ``with_sharding_constraint(x, NamedSharding(mesh, spec))``:
+    a DTensor is redistributed to ``spec``'s placements over its own
+    device mesh (axes the spec leaves out replicate, as in JAX); a plain
+    tensor is returned as it is."""
+    if type(x) is torch.Tensor or not is_dtensor(x):
+        return x
+    return x.redistribute(x.device_mesh,
+                          placements(P(*spec), x.device_mesh.mesh_dim_names))
+
+
+def gather_fsdp(w: torch.Tensor) -> torch.Tensor:
+    """A weight at its use: a DTensor sharded over ``data`` (JAX's FSDP
+    shard of a weight's ``d_model`` dim) is all-gathered over ``data``,
+    its other placements kept, as ``torch.distributed.fsdp`` gathers a
+    parameter before its use.  GSPMD makes the same choice from the
+    activations' constraints; DTensor, left to itself, would gather the
+    batch-sharded activation instead.  A plain tensor is returned as it
+    is."""
+    if type(w) is torch.Tensor or not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate
+    names = w.device_mesh.mesh_dim_names
+    if "data" not in names:
+        return w
+    i = names.index("data")
+    pl = list(w.placements)
+    if pl[i].is_replicate():
+        return w
+    pl[i] = Replicate()
+    return w.redistribute(w.device_mesh, pl)
+
+
+def split_contraction(x: torch.Tensor, w: torch.Tensor):
+    """The operands of a product ``x (..., K) @ w (..., K, N)`` whose
+    weight is FSDP-sharded over ``data`` on its contraction dim K (an
+    expert bank): where ``x`` is replicated over ``data`` (the MoE
+    dispatch buffer), it is sliced along K to match (a local slice, no
+    communication) and ``w`` stays sharded, so the product is a partial
+    sum over ``data`` that the next constraint reduces, as GSPMD
+    partitions it.  Gathering ``w`` instead would have every rank of
+    ``data`` repeat the same products.  Any other DTensor weight is
+    gathered (:func:`gather_fsdp`); plain tensors are returned as they
+    are."""
+    if type(w) is torch.Tensor or not is_dtensor(w):
+        return x, w
+    names = w.device_mesh.mesh_dim_names
+    if "data" not in names or not is_dtensor(x):
+        return x, gather_fsdp(w)
+    from torch.distributed.tensor import Shard
+    i = names.index("data")
+    pw, px = w.placements[i], x.placements[i]
+    if pw.is_shard() and pw.dim == w.ndim - 2 and px.is_replicate():
+        pl = list(x.placements)
+        pl[i] = Shard(x.ndim - 1)
+        return x.redistribute(x.device_mesh, pl), w
+    return x, gather_fsdp(w)
+
+
+def split_columns(w: torch.Tensor, x: torch.Tensor,
+                  dim: int) -> torch.Tensor:
+    """The weight ``w`` of a product with the input ``x``, ``w``'s dim
+    ``dim`` holding the product's output columns: where ``dim`` is
+    sharded nowhere, it is split over each mesh axis on which both ``w``
+    and ``x`` are replicated (a local slice, uneven where the axis does
+    not divide the columns: the rules leave such a dim unsharded, as
+    mamba2's 3352-wide projection over a 16-way 'model'), so each rank of
+    the axis computes its own columns, as GSPMD partitions the product
+    with padding, rather than all of them as every other rank.  A plain
+    tensor is returned as it is."""
+    if type(w) is torch.Tensor or not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Shard
+    dim %= w.ndim
+    if any(p.is_shard() and p.dim == dim for p in w.placements):
+        return w
+    pl = list(w.placements)
+    for i, p in enumerate(pl):
+        px = x.placements[i] if is_dtensor(x) else p
+        if p.is_replicate() and px.is_replicate() \
+                and w.shape[dim] >= w.device_mesh.size(i):
+            pl[i] = Shard(dim)
+            break       # one axis: no nested shards of one dim
+    if pl == list(w.placements):
+        return w
+    return w.redistribute(w.device_mesh, pl)
+
+
+def replicate_for_op(op: str, *xs: torch.Tensor) -> list[torch.Tensor]:
+    """The local tensors of ``xs`` (DTensors) replicated over their whole
+    device mesh, for an operation DTensor has no sharding strategy for
+    (the MoE layer's sort-based dispatch and combine).  Each
+    redistribution is counted in ``obs`` as
+    ``dryrun.redistribute_for_op.<op>``, so a replication is never
+    silent.  Run the operation on the results and wrap its output with
+    :func:`from_replicated`."""
+    from torch.distributed.tensor import Replicate
+    from repro_torch import obs
+    out = []
+    for x in xs:
+        n = x.device_mesh.ndim
+        if any(not p.is_replicate() for p in x.placements):
+            obs.counter_inc(f"dryrun.redistribute_for_op.{op}")
+        out.append(x.redistribute(x.device_mesh, [Replicate()] * n)
+                   .to_local())
+    return out
+
+
+def from_replicated(local: torch.Tensor, device_mesh) -> torch.Tensor:
+    """A DTensor replicated over ``device_mesh`` from a local tensor every
+    rank holds alike (:func:`replicate_for_op`'s counterpart)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(local, device_mesh,
+                              [Replicate()] * device_mesh.ndim,
+                              run_check=False)
+
+
+def gather_dims(x: torch.Tensor, dims) -> torch.Tensor:
+    """``x`` with every shard of the tensor dims ``dims`` all-gathered (its
+    other placements kept): where GSPMD reshards a dim it cannot slice or
+    split along its shards, DTensor would carry an uneven or strided
+    shard on.  A plain tensor is returned as it is."""
+    if type(x) is torch.Tensor or not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    dims = {d % x.ndim for d in dims}
+    pl = [Replicate() if p.is_shard() and p.dim in dims else p
+          for p in x.placements]
+    if pl == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pl)
+
+
+def gather_inner(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (..., d), the input of a product, with every shard of its
+    inner dims (neither the leading nor the last) all-gathered, so that
+    ``reshape(-1, d)`` folds onto a shard of the leading (batch) dim: the
+    all-gather of the sequence before a tensor-parallel product in
+    Megatron's sequence parallelism, which GSPMD inserts at the same
+    place.  A pending partial sum (a row-parallel product's output that
+    no constraint reduced, as in one-token decode) is all-reduced first,
+    as GSPMD reduces it at its use; DTensor would instead replicate the
+    weight and run the product on every partial, repeating its work on
+    each rank of the axis."""
+    if type(x) is torch.Tensor or not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = x.device_mesh
+    pl = [Replicate() if p.is_partial() else p for p in x.placements]
+    # the batch split over the DP axes it is replicated on (a local
+    # slice), so no two ranks of those axes repeat one product
+    dp = [i for i, a in enumerate(mesh.mesh_dim_names)
+          if a in ("pod", "data") and pl[i].is_replicate()]
+    if dp and x.shape[0] % math.prod(mesh.size(i) for i in dp) == 0:
+        for i in dp:
+            pl[i] = Shard(0)
+    if pl != list(x.placements):
+        x = x.redistribute(mesh, pl)
+    if x.ndim <= 2:
+        return x
+    return gather_dims(x, range(1, x.ndim - 1))
+
+
+def like(x: torch.Tensor, ref: torch.Tensor, *,
+         reduced: int | None = None) -> torch.Tensor:
+    """``x`` redistributed to the placements of the DTensor ``ref`` (a
+    new decode state held in its cache's layout, as JAX's donated cache
+    keeps its sharding), or with ``reduced``, ``x`` being ``ref`` reduced
+    over its last dim ``reduced``, to ``ref``'s placements with that
+    dim's shards replicated.  DTensor, left to itself, shards a
+    replicated dim over any mesh axis a tensor leaves free, and carries
+    that layout on; a plain tensor is returned as it is."""
+    if type(x) is torch.Tensor or not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    pl = list(ref.placements)
+    if reduced is not None:
+        reduced %= ref.ndim
+        pl = [Replicate() if p.is_shard() and p.dim == reduced else p
+              for p in pl]
+    if list(x.placements) == pl:
+        return x
+    return x.redistribute(ref.device_mesh, pl)
+
+
+def constrain_tree(tree: Any, shardings: Any) -> Any:
+    """:func:`constrain` over each leaf of ``tree`` by the
+    :class:`NamedSharding` at the same place in ``shardings``."""
+    return tree_map(lambda x, sh: constrain(x, sh.spec), tree, shardings)
+
+
+def map_shards(fn, xs, heads, out_heads):
+    """``fn(*xs)`` run on each rank's shards of operands independent
+    across their batch (dim 0) and their heads (dim ``heads[i]`` of
+    ``xs[i]``, None for an operand without one; an operand may be None):
+    the batch is sharded over each DP axis ('pod', 'data') that divides
+    it, the heads over 'model' where every operand's head count divides,
+    and every other shard is gathered; ``fn`` runs on the local tensors
+    and each result is wrapped back with its batch at dim 0 and its heads
+    at ``out_heads`` (an int for one result, a tuple for several).  This
+    is what GSPMD makes of head-parallel attention and of the SSD scan:
+    it slices a replicated batch rather than repeat the work on every
+    rank of 'data'.  DTensor's own strategies never slice a replicated
+    operand, and would propagate through each einsum's flattened batch
+    dims, at a cost that grows past minutes on a three-axis mesh.  On
+    plain tensors it is ``fn(*xs)``."""
+    ref = next((x for x in xs if x is not None and is_dtensor(x)), None)
+    if ref is None:
+        return fn(*xs)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = ref.device_mesh
+    axes, nb = [], 1
+    for i, name in enumerate(mesh.mesh_dim_names):
+        n = mesh.size(i)
+        if name in ("pod", "data") and ref.shape[0] % (nb * n) == 0:
+            axes.append("batch")
+            nb *= n
+        elif name == "model" and all(
+                x.shape[h] % n == 0 for x, h in zip(xs, heads)
+                if x is not None and h is not None):
+            axes.append("heads")
+        else:
+            axes.append(None)
+
+    def pl(h):
+        return [Shard(0) if ax == "batch"
+                else Shard(h) if ax == "heads" and h is not None
+                else Replicate() for ax in axes]
+
+    def local(x, h):
+        if x is None:
+            return None
+        if not is_dtensor(x):
+            x = from_replicated(x, mesh)
+        return x.redistribute(mesh, pl(h)).to_local()
+
+    out = fn(*(local(x, h) for x, h in zip(xs, heads)))
+    if isinstance(out_heads, int):
+        return DTensor.from_local(out, mesh, pl(out_heads), run_check=False)
+    return tuple(DTensor.from_local(o, mesh, pl(h), run_check=False)
+                 for o, h in zip(out, out_heads))
+
+
+def map_heads(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              *rows) -> torch.Tensor:
+    """``fn(q, k, v, *rows)`` of attention operands q (B, S, H, D) and
+    k, v (B, T, KV, D), plus per-row operands ``rows`` ((B,) or None),
+    run on each rank's batch and head shards (:func:`map_shards`); its
+    result is (B, S, H, ...).  On plain tensors it is
+    ``fn(q, k, v, *rows)``."""
+    return map_shards(fn, (q, k, v, *rows), (2, 2, 2) + (None,) * len(rows),
+                      2)
+
+
+def write_row(c: torch.Tensor, new: torch.Tensor,
+              pos: torch.Tensor) -> torch.Tensor:
+    """``c[:, pos] = new[:, 0]`` in place for a DTensor cache ``c`` (B, S,
+    ...) and a scalar position: each rank writes into its own shard, the
+    row only where its sequence range holds ``pos`` (DTensor's in-place
+    index ops refuse a sharded cache or mislabel its placements).
+    Returns ``c``."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    mesh, pl = c.device_mesh, list(c.placements)
+    new_pl = [p if p.is_shard() and p.dim != 1 else Replicate() for p in pl]
+    if not is_dtensor(new):
+        new = from_replicated(new, mesh)
+    nl = new.redistribute(mesh, new_pl).to_local().to(c.dtype)
+    _, off = compute_local_shape_and_global_offset(c.shape, mesh, pl)
+    cl = c.to_local()
+    lp = (pos.to_local() if is_dtensor(pos) else pos) - off[1]
+    inside = (lp >= 0) & (lp < cl.shape[1])
+    idx = lp.clamp(0, cl.shape[1] - 1).reshape(1)
+    cl.index_copy_(1, idx, torch.where(inside, nl, cl.index_select(1, idx)))
+    return c
+
+
+def microbatch(x: torch.Tensor, n: int, i: int) -> torch.Tensor:
+    """Slice ``i`` of ``n`` equal slices of ``x``'s leading dim, JAX's
+    ``x.reshape(n, B // n, ...)[i]``.  A DTensor whose batch shards do
+    not divide a slice's rows has its batch gathered first (GSPMD
+    reshards such a dim; DTensor would plan an invalid local view)."""
+    if type(x) is not torch.Tensor and is_dtensor(x):
+        k = math.prod(x.device_mesh.size(j)
+                      for j, p in enumerate(x.placements)
+                      if p.is_shard() and p.dim == 0)
+        if (x.shape[0] // n) % k:
+            x = gather_dims(x, (0,))
+    return x.reshape(n, x.shape[0] // n, *x.shape[1:])[i]
+
+
+def label_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """``logits[b, s, targets[b, s]]`` of a DTensor ``logits`` (B, S, V)
+    whose vocabulary may be sharded, as Megatron's vocabulary-parallel
+    cross entropy reads it: each rank builds the one-hot of its own
+    vocabulary shard from its rows' labels and contracts it with its
+    local logits, and the partial sums are all-reduced.  Nothing of (B,
+    S, V) is gathered (a one-hot broadcast from the labels, left to
+    DTensor, may come out whole on every rank)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    mesh, pl = logits.device_mesh, list(logits.placements)
+    rows = [p if p.is_shard() and p.dim == 0 else Replicate() for p in pl]
+    if not is_dtensor(targets):
+        targets = from_replicated(targets, mesh)
+    t = targets.redistribute(mesh, rows).to_local().to(torch.long)
+    _, off = compute_local_shape_and_global_offset(logits.shape, mesh, pl)
+    v_local = logits.to_local().shape[-1]
+    vocab = torch.arange(off[2], off[2] + v_local, device=t.device)
+    onehot = DTensor.from_local((t[..., None] == vocab).to(logits.dtype),
+                                mesh, pl, run_check=False,
+                                shape=logits.shape, stride=logits.stride())
+    # the one-hot contraction of the plain path and the reference
+    return like(torch.einsum("bsv,bsv->bs", logits, onehot), logits,
+                reduced=-1)
