@@ -230,6 +230,35 @@ Phases, each printed as it runs:
    1.05 (the products the kernels run are the ones counted), the memory
    term's printed only (the plain path's op-by-op bytes count what flash
    and the fused kernels never move);
+5r. execution across ranks (after 5o, the parent holding no model on
+   the card, the kernels built by it before any rank starts): four
+   ranks share the one card over gloo, the all-gathers and
+   point-to-point transfers of CUDA tensors staged through pinned host
+   memory (``runtime.ranks.HostStagedGloo``), in worlds of
+   ``runtime.ranks.spawn_ranks`` with timeouts: (a) gemma-7b
+   at full width, bf16, ``ShardedEngine`` on (1, 4) ('data', 'model')
+   with phase 5's traffic on phase 5's weights drawn in turn
+   (``serve.cluster.place_in_turn``): on every rank kernel 1's launches
+   (7 * 28 + 1) x (admissions + decode steps), kernel 2's 28 x
+   admissions, none of kernels 3-6, param leaves sharded, no decode
+   graph and rank 0's tokens; rank 0's first-prefill logits of request 0
+   within 5% of the largest of phase 5's; printed: tokens equal to phase
+   5's, prefill and decode tokens/s (four ranks time-sharing one card:
+   no four-card price), the staged collectives by kind a pass, each
+   rank's peak memory; (b) reduced gemma-7b in fp32 on (1, 4) and (2, 2),
+   the requests of JAX's ``test_sharded_engine_8_device_parity``: the
+   one-rank engine's tokens; (c) the train step of reduced olmoe-1b-7b
+   and gemma-7b, fp32, TF32 off, on (2, 2), five steps: each loss within
+   1e-5 of one rank's, falling, no kernel launch; (d) ``pp_loss_fn`` of
+   reduced gemma-7b on (2, 2) ('pod', 'data'), B 4, S 16, two
+   microbatches: the loss and every gradient within 1e-5 of
+   ``model.loss``'s on one rank; (e) the reduced gemma-7b params placed
+   on (2, 2) saved at step 10 and restored by ``elastic_restore`` onto
+   (1, 2) in a two-rank world: step 10, every leaf bit-equal, each shard
+   the new mesh's shape; (f) ``python -m torch.distributed.run
+   --nproc-per-node 4 -m repro_torch.launch.serve --arch gemma-7b
+   --reduced --mesh 1x4 ...`` in a subprocess with a timeout: the
+   one-rank launcher's tokens (its digest line);
 6. each kernel's time at the main-path shapes with CUDA events over a
    CUDA graph of many calls (device time, with the host's launch work
    taken out; operands cycled past the 50 MB L2), beside its plain
@@ -257,7 +286,8 @@ Phases, each printed as it runs:
    128-tile) over a CUDA graph and issued eagerly, beside kernel 1 and
    cuBLAS (printed, not gated);
 7. the script's wall time, a ``{"kernels": [...]}`` line (with each
-   kernel's launches on the paths of 5p and 5g-5l, the zamba2 shapes' and
+   kernel's launches on the paths of 5p, 5g-5l and 5r (rank 0), the zamba2
+   shapes' and
    the slice-9 shapes' timings of kernels 1-3 and kernel 1's ZONL
    comparison), the card line, and the
    final
@@ -434,6 +464,7 @@ def main() -> int:
     dryrun_cells(torch)
     serve_int8_kv_and_analyze(torch, kern)
     train_on_the_card(torch, kern)
+    by_path["5r"] = across_ranks(torch, kern)
     timings = time_kernels(torch, kern)
     timings.update(time_new_kernels(torch, kern))
     slice8 = time_slice8(torch, kern)
@@ -490,8 +521,9 @@ def main() -> int:
          "max_abs_err": errs["quantized_grouped_zero_stall_matmul"],
          **timings["quantized_grouped"]},
     ]
-    # the SSM and hybrid paths: each path's launches (its counts set to 0
-    # just before it) and, for kernels 1-3, the zamba2 shapes' timings
+    # the SSM, hybrid and rank paths: each path's launches (its counts set
+    # to 0 just before it; 5r's on rank 0 of four) and, for kernels 1-3,
+    # the zamba2 shapes' timings
     # (kernel 2 and 3 at head dim 80)
     for entry in kernels:
         name = entry["name"]
@@ -1652,6 +1684,7 @@ def serve_full_width(torch, kern):
           f"plain| {err:.4g}, max|plain| {scale:.4g} (tol 0.05 * max|plain| "
           f"= {tol:.4g}: bf16 rounding through 28 layers)")
     require(err <= tol, "full-width prefill logits disagree")
+    PHASE5["first_logits"] = logits["auto"][0, -1].cpu().numpy()
     del logits
     greedy = serve_block_full_width(torch, kern, model, params, gen)
     PHASE5["tokens"] = greedy
@@ -4186,6 +4219,407 @@ def train_on_the_card(torch, kern) -> None:
     require(not made, f"5o: the train path launched kernels: {made}")
     print(f"    5o took {tc - t0:.1f} s: (a) {ta - t0:.1f}, (b) {tb - ta:.1f}, "
           f"(c) {tc - tb:.1f}", flush=True)
+
+
+# ----------------------------------------------------------------------
+# 5r. execution across ranks: four ranks on the one card over gloo
+# ----------------------------------------------------------------------
+# The main path's model across ranks: every rank a process on the one
+# H100 (NCCL refuses two ranks on one card), each holding DTensor shards
+# and launching the kernels on them.  The times price four ranks
+# time-sharing one card, not a four-card deployment.
+R5_WORLD = 4
+R5_DIR = ROOT / "build" / "chip_smoke_5r"
+# the ranks tune through a file of their own (each rank merges its writes)
+R5_TUNE_CACHE = R5_DIR / "tune.json"
+
+
+def r5_tune_cache() -> None:
+    """Point this rank's tuner at :data:`R5_TUNE_CACHE`."""
+    from repro_torch import tune
+    tune.set_cache(tune.TuneCache(R5_TUNE_CACHE))
+# the requests of JAX's test_sharded_engine_8_device_parity
+R5_LENS, R5_NEW = (5, 11, 3, 8), (6, 3, 5, 7)
+
+
+def r5_requests(cfg):
+    import numpy as np
+    from repro_torch.serve import Request
+    prompts = [np.random.default_rng(i).integers(0, cfg.vocab_size, n)
+               for i, n in enumerate(R5_LENS)]
+    return [Request(rid=i, prompt=[int(t) for t in p], max_new_tokens=m)
+            for i, (p, m) in enumerate(zip(prompts, R5_NEW))]
+
+
+def r5_engine_kw():
+    import torch
+    return dict(num_slots=2, max_len=32, steps_per_dispatch=4,
+                cache_dtype=torch.float32)
+
+
+def r5_batch(vocab: int, B: int = 4, S: int = 16, seed: int = 1) -> dict:
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, vocab, (B, S))
+    return {"tokens": torch.from_numpy(t).cuda(),
+            "targets": torch.from_numpy(np.roll(t, -1, 1)).cuda()}
+
+
+def r5_train(arch: str, mesh=None) -> list[float]:
+    """Five fp32 train steps of the reduced ``arch`` (plain path), on
+    ``mesh``'s ranks or on one device."""
+    import torch
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.runtime.ranks import device_mesh
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import Ctx, build_model
+    from repro_torch.optim import init_opt_state
+    from repro_torch.runtime import sharding as shr
+    cfg = get_config(arch, reduced=True)
+    model = build_model(cfg)
+    params = model.init(seed=0, dtype=torch.float32, device="cuda")
+    batch = r5_batch(cfg.vocab_size)
+    if mesh is not None:
+        dm = device_mesh(mesh)
+        params = shr.place(params, shr.param_shardings(mesh, params), dm)
+        batch = shr.place(batch, shr.batch_shardings(mesh, batch), dm)
+    opt = init_opt_state(params)
+    step = make_train_step(model, Ctx(plan="torch", dtype=torch.float32,
+                                      mesh=mesh),
+                           RunConfig(seq_len=16, global_batch=4, lr=1e-3))
+    losses = []
+    with shr.across_ranks(mesh is not None):
+        for _ in range(5):
+            params, opt, _, m = step(params, opt, {}, batch)
+            losses.append(float(shr.unplace(m["loss"])))
+    return losses
+
+
+def r5_pp_grads(mesh=None) -> tuple[float, list]:
+    """The reduced gemma-7b loss of ``r5_batch`` and its gradients (numpy,
+    None for the layers of another stage): ``pp_loss_fn`` over ``mesh``'s
+    ('pod', 'data') ranks with two microbatches, or ``model.loss``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Ctx, build_model
+    from repro_torch.runtime import pp_loss_fn
+    from repro_torch.tree import flatten, unflatten
+    cfg = get_config("gemma-7b", reduced=True)
+    model = build_model(cfg)
+    ps, treedef = flatten(model.init(seed=0, dtype=torch.float32,
+                                     device="cuda"))
+    xs = [p.detach().requires_grad_() for p in ps]
+    params, batch = unflatten(treedef, xs), r5_batch(cfg.vocab_size)
+    ctx = Ctx(plan="torch", dtype=torch.float32)
+    loss = (model.loss(params, batch, ctx) if mesh is None else
+            pp_loss_fn(params, batch, cfg, ctx, mesh, n_microbatches=2))
+    loss.backward()
+    return float(loss), [None if x.grad is None else x.grad.cpu().numpy()
+                         for x in xs]
+
+
+def r5_world(rank: int, n: int, want_first_of: int) -> dict:
+    """One rank of 5r's four-rank world: sub-phases (a)-(d) and the save of
+    (e).  Returns what the parent gates and prints."""
+    import torch
+    r5_tune_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch import obs
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launches
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.runtime.ranks import device_mesh
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import Ctx, build_model
+    from repro_torch.runtime import sharding as shr
+    from repro_torch.serve import ShardedEngine
+    from repro_torch.serve.cluster import place_in_turn
+    from repro_torch.tree import leaves
+    out: dict = {}
+
+    # (a) gemma-7b at full width, bf16, the kernel path, on (1, 4)
+    t0 = time.perf_counter()
+    cfg = get_config("gemma-7b")
+    model = build_model(cfg)
+    mesh = make_mesh_compat((1, R5_WORLD), ("data", "model"))
+    torch.cuda.reset_peak_memory_stats()
+    params = place_in_turn(lambda: model.init(seed=0, dtype=torch.bfloat16,
+                                              device="cuda"), mesh)
+    out["a_draw_s"] = time.perf_counter() - t0
+    kw = SERVE_KW
+    eng = ShardedEngine(model, params, Ctx(plan="auto", dtype=torch.bfloat16),
+                        mesh=mesh, num_slots=kw["num_slots"],
+                        max_len=kw["prompt_len"] + kw["gen_len"],
+                        cache_dtype=torch.bfloat16,
+                        steps_per_dispatch=kw["steps_per_dispatch"],
+                        seed=kw["seed"])
+    out["a_sharded_leaves"] = sum(
+        any(not p.is_replicate() for p in x.placements)
+        for x in leaves(eng.params))
+    out["a_leaves"] = len(leaves(eng.params))
+    first = {}
+    first_token = eng._first_token
+
+    def recording(req, slot, logits):
+        if req.rid == want_first_of and req.rid not in first:
+            first[req.rid] = logits[:, -1].float().cpu().numpy()
+        return first_token(req, slot, logits)
+
+    eng._first_token = recording
+    reqs = make_requests(cfg, kw["seed"], kw["batch"], kw["prompt_len"],
+                         kw["gen_len"], kw["mixed"])
+    torch.cuda.synchronize()
+    obs.reset_counters("dist.")
+    before = launches.snapshot()
+    t1 = time.perf_counter()
+    res = eng.run(reqs)
+    torch.cuda.synchronize()
+    out["a_run_s"] = time.perf_counter() - t1
+    out["a_launches"] = launches.since(before)
+    out["a_staged"] = obs.counters("dist.host_staged.")
+    s = eng.stats
+    out["a_stats"] = {"admitted": s.admitted, "decode_steps": s.decode_steps,
+                      "dispatches": s.dispatches,
+                      "prefill_tok_s": s.prefill_tok_s,
+                      "decode_tok_s": s.decode_tok_s,
+                      "prefill_s": s.prefill_s, "decode_s": s.decode_s}
+    out["a_captures"] = list(eng.captures)
+    out["a_tokens"] = {i: r.tokens for i, r in res.items()}
+    out["a_first_logits"] = first.get(want_first_of)
+    out["a_peak_bytes"] = torch.cuda.max_memory_allocated()
+    del eng, params, res
+    torch.cuda.empty_cache()
+
+    # (b) reduced gemma-7b, fp32, the kernel path, on (1, 4) and (2, 2)
+    small = get_config("gemma-7b", reduced=True)
+    smodel = build_model(small)
+    sparams = smodel.init(seed=0, dtype=torch.float32, device="cuda")
+    for shape in ((1, R5_WORLD), (2, R5_WORLD // 2)):
+        m = make_mesh_compat(shape, ("data", "model"))
+        e = ShardedEngine(smodel, sparams,
+                          Ctx(plan="auto", dtype=torch.float32), mesh=m,
+                          **r5_engine_kw())
+        got = e.run(r5_requests(small))
+        out[f"b_tokens_{shape}"] = {i: r.tokens for i, r in got.items()}
+        out[f"b_sharded_{shape}"] = sum(
+            any(not p.is_replicate() for p in x.placements)
+            for x in leaves(e.params))
+    # (c) the train step, reduced olmoe-1b-7b and gemma-7b on (2, 2)
+    grid = make_mesh_compat((2, R5_WORLD // 2), ("data", "model"))
+    before = launches.snapshot()
+    obs.reset_counters("dryrun.")
+    for arch in ("olmoe-1b-7b", "gemma-7b"):
+        out[f"c_losses_{arch}"] = r5_train(arch, grid)
+    out["c_replicated"] = obs.counters("dryrun.redistribute_for_op.")
+    out["c_launches"] = launches.since(before)
+    # (d) pp_loss_fn on (2, 2) ('pod', 'data')
+    pods = make_mesh_compat((2, R5_WORLD // 2), ("pod", "data"))
+    out["d_loss"], out["d_grads"] = r5_pp_grads(pods)
+    # (e) the save: reduced gemma-7b params placed on (2, 2), step 10
+    Checkpointer(str(R5_DIR / "ckpt"), keep=1).save(
+        10, {"params": shr.place(sparams, shr.param_shardings(grid, sparams),
+                                 device_mesh(grid))}, blocking=True)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def r5_restore(rank: int, n: int) -> dict:
+    """(e) in a two-rank world: the checkpoint of the four-rank world
+    restored onto (1, 2)."""
+    import torch
+    r5_tune_cache()
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import build_model
+    from repro_torch.runtime import elastic_restore
+    from repro_torch.runtime import sharding as shr
+    from repro_torch.tree import leaves
+    model = build_model(get_config("gemma-7b", reduced=True))
+    params = model.init(seed=0, dtype=torch.float32, device="cuda")
+    mesh = make_mesh_compat((1, 2), ("data", "model"))
+    state, step = elastic_restore(Checkpointer(str(R5_DIR / "ckpt"), keep=1),
+                                  {"params": params}, mesh)
+    got = leaves(state["params"])
+    specs = leaves(shr.param_shardings(mesh, params))
+    return {"step": step,
+            "equal": all(bool(torch.equal(g.full_tensor(), p))
+                         for g, p in zip(got, leaves(params))),
+            "shapes": all(tuple(g.to_local().shape)
+                          == shr.shard_shape(sp, p.shape)
+                          for g, sp, p in zip(got, specs, leaves(params))),
+            "leaves": len(got)}
+
+
+def across_ranks(torch, kern) -> dict:
+    """5r (see the module docstring): four ranks on the one card.  Returns
+    rank 0's launches of (a), the main path across ranks."""
+    import os
+    import shutil
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.ranks import spawn_ranks
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import Ctx, build_model
+    from repro_torch.serve import ServeEngine
+    t0 = time.perf_counter()
+    print(f"[5r] execution across ranks: {R5_WORLD} ranks share the one "
+          f"card over gloo (CUDA all-gathers and point-to-point transfers "
+          f"staged through pinned host memory); times price time-sharing, "
+          f"not a four-card deployment",
+          flush=True)
+    torch.cuda.empty_cache()
+    shutil.rmtree(R5_DIR, ignore_errors=True)
+    R5_DIR.mkdir(parents=True)
+    # the one-rank references on the card, made before any rank starts
+    small = get_config("gemma-7b", reduced=True)
+    smodel = build_model(small)
+    sparams = smodel.init(seed=0, dtype=torch.float32, device="cuda")
+    ref_tokens = {i: r.tokens for i, r in ServeEngine(
+        smodel, sparams, Ctx(plan="auto", dtype=torch.float32),
+        device="cuda", **r5_engine_kw()).run(
+            r5_requests(small)).items()}
+    ref_losses = {arch: r5_train(arch) for arch in ("olmoe-1b-7b",
+                                                     "gemma-7b")}
+    ref_loss, ref_grads = r5_pp_grads()
+    del sparams
+    torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    outs = spawn_ranks(r5_world, R5_WORLD, store_dir=str(R5_DIR),
+                       args=(0,), timeout_s=420.0)
+    t2 = time.perf_counter()
+    print(f"    the four-rank world took {t2 - t1:.1f} s (spawn, draw, "
+          f"(a)-(d), the save of (e))", flush=True)
+
+    # (a)
+    L, o0 = GEMMA["layers"], outs[0]
+    s = o0["a_stats"]
+    want = {n: 0 for n in kern}
+    want.update(zero_stall_matmul=(7 * L + 1) * (s["admitted"]
+                                                + s["decode_steps"]),
+                flash_attention=L * s["admitted"])
+    print(f"    (a) gemma-7b full width on (1, 4), bf16, phase 5's traffic: "
+          f"draw in turn {o0['a_draw_s']:.1f} s, serve {o0['a_run_s']:.1f} "
+          f"s; prefill {s['prefill_tok_s']:.1f} tok/s over "
+          f"{s['prefill_s']:.3f} s, decode {s['decode_tok_s']:.1f} tok/s "
+          f"over {s['decode_s']:.3f} s ({s['decode_steps']} steps, "
+          f"{s['dispatches']} dispatches, {s['admitted']} admissions), "
+          f"rank 0; four ranks time-sharing one card")
+    for r, o in enumerate(outs):
+        got = {n: o["a_launches"].get(n, 0) for n in kern}
+        check_counts(f"5r (a) rank {r}", got, want,
+                     f"(7*{L}+1) matmuls per pass over {s['admitted']} + "
+                     f"{s['decode_steps']} passes, {L} flash calls per "
+                     f"prefill, on each rank's shards")
+        require(o["a_sharded_leaves"] > 0,
+                f"5r (a) rank {r}: no param leaf is sharded")
+        require(o["a_tokens"] == o0["a_tokens"],
+                f"5r (a): rank {r}'s tokens differ from rank 0's")
+        require(not o["a_captures"], "5r (a): a decode graph across ranks")
+        print(f"      rank {r}: sharded leaves {o['a_sharded_leaves']} of "
+              f"{o['a_leaves']}; staged collectives {o['a_staged']}; peak "
+              f"memory (a) {o['a_peak_bytes'] / 2**30:.2f} GiB, over "
+              f"(a)-(e) {o['peak_bytes'] / 2**30:.2f} GiB")
+    passes = s["admitted"] + s["decode_steps"]
+    print("      staged collectives a pass (prefill or decode step): " +
+          ", ".join(f"{k[len('dist.host_staged.'):]} {v / passes:.1f}"
+                    for k, v in sorted(o0["a_staged"].items())))
+    want_logits = PHASE5["first_logits"]
+    got_logits = o0["a_first_logits"]
+    require(got_logits is not None and bool(np.isfinite(got_logits).all()),
+            "5r (a): no finite first-prefill logits of request 0")
+    err = float(np.abs(got_logits - want_logits).max())
+    scale = float(np.abs(want_logits).max())
+    print(f"      request 0's first prefill logits: max|ranks - phase 5| "
+          f"{err:.4g}, max|phase 5| {scale:.4g} (tol 0.05 * max: bf16 "
+          f"partial sums reduced in another order)")
+    require(err <= 0.05 * scale, "5r (a): first-prefill logits disagree")
+    same = sum(a == b for i, toks in o0["a_tokens"].items()
+               for a, b in zip(toks, PHASE5["tokens"][i]))
+    total = sum(len(t) for t in PHASE5["tokens"].values())
+    print(f"      tokens equal to phase 5's: {same} of {total} (printed, not "
+          f"gated: a greedy tie may break otherwise)")
+    # (b)
+    for shape in ((1, R5_WORLD), (2, R5_WORLD // 2)):
+        for r, o in enumerate(outs):
+            require(o[f"b_tokens_{shape}"] == ref_tokens,
+                    f"5r (b) {shape} rank {r}: tokens differ from the "
+                    f"one-rank engine's")
+        print(f"    (b) reduced gemma-7b fp32 on {shape}: tokens equal the "
+              f"one-rank engine's on every rank; sharded leaves "
+              f"{o0[f'b_sharded_{shape}']}")
+    # (c)
+    for arch, ref in ref_losses.items():
+        for r, o in enumerate(outs):
+            got = o[f"c_losses_{arch}"]
+            dev = max(abs(a - b) for a, b in zip(got, ref))
+            require(dev <= 1e-5, f"5r (c) {arch} rank {r}: losses {got} vs "
+                    f"one rank {ref}")
+        require(got[-1] < got[0], f"5r (c) {arch}: the loss does not fall")
+        print(f"    (c) {arch} on (2, 2), 5 steps: {['%.6f' % x for x in got]}"
+              f", max|ranks - one rank| {dev:.3g} (tol 1e-5)")
+    print(f"      replicated for DTensor's gaps: {o0['c_replicated']}")
+    require(not any(o["c_launches"] for o in outs),
+            "5r (c): the train path launched kernels")
+    # (d)
+    worst = 0.0
+    for r, o in enumerate(outs):
+        require(abs(o["d_loss"] - ref_loss) <= 1e-5,
+                f"5r (d) rank {r}: pp loss {o['d_loss']} vs {ref_loss}")
+        for g, want_g in zip(o["d_grads"], ref_grads):
+            if g is not None:
+                worst = max(worst, float(np.abs(g - want_g).max()))
+    covered = [any(o["d_grads"][i] is not None for o in outs)
+               for i in range(len(ref_grads))]
+    require(all(covered), "5r (d): a gradient no rank holds")
+    require(worst <= 1e-5, f"5r (d): gradients differ by {worst}")
+    print(f"    (d) pp_loss_fn on (2, 2) ('pod', 'data'), 2 microbatches: "
+          f"loss {outs[0]['d_loss']:.6f} vs model.loss {ref_loss:.6f}; "
+          f"every gradient within {worst:.3g} of one rank's (tol 1e-5)")
+    # (e)
+    t3 = time.perf_counter()
+    got = spawn_ranks(r5_restore, 2, store_dir=str(R5_DIR / "e"),
+                      timeout_s=180.0)
+    for r, o in enumerate(got):
+        require(o["step"] == 10 and o["equal"] and o["shapes"],
+                f"5r (e) rank {r}: {o}")
+    print(f"    (e) elastic_restore of the (2, 2) save onto (1, 2) in a "
+          f"two-rank world: step 10, {got[0]['leaves']} leaves bit-equal, "
+          f"each shard the new mesh's shape ({time.perf_counter() - t3:.1f} "
+          f"s)", flush=True)
+    # (f) the launcher under torch.distributed.run
+    t4 = time.perf_counter()
+    args = ["--arch", "gemma-7b", "--reduced", "--batch", "4",
+            "--prompt-len", "16", "--gen-len", "8", "--mixed"]
+    one = serve_batch("gemma-7b", reduced=True, batch=4, prompt_len=16,
+                      gen_len=8, mixed=True, device="cuda", mesh="1x1")
+    import hashlib
+    digest = hashlib.sha256(one["generated"].tobytes()).hexdigest()[:16]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               REPRO_TORCH_TUNE_CACHE=str(R5_TUNE_CACHE))
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(R5_WORLD), "-m", "repro_torch.launch.serve",
+         *args, "--mesh", f"1x{R5_WORLD}"],
+        capture_output=True, text=True, timeout=240, env=env, cwd=ROOT)
+    require(proc.returncode == 0,
+            f"5r (f): the launcher failed:\n{proc.stdout}\n{proc.stderr}")
+    line = [ln for ln in proc.stdout.splitlines()
+            if ln.startswith("generated digest:")]
+    require(line == [f"generated digest: {digest}"],
+            f"5r (f): the launcher's tokens {line} differ from the one-rank "
+            f"launcher's {digest}")
+    print(f"    (f) python -m torch.distributed.run --nproc-per-node "
+          f"{R5_WORLD} -m repro_torch.launch.serve {' '.join(args)} --mesh "
+          f"1x{R5_WORLD}: the one-rank launcher's tokens (digest {digest}), "
+          f"rank 0 alone printing ({time.perf_counter() - t4:.1f} s)")
+    shutil.rmtree(R5_DIR, ignore_errors=True)
+    print(f"    5r took {time.perf_counter() - t0:.1f} s", flush=True)
+    return {n: o0["a_launches"].get(n, 0) for n in kern}
 
 
 # ----------------------------------------------------------------------

@@ -15,6 +15,15 @@ Storage is one ``leaf_%05d.npy`` a leaf in :func:`repro_torch.tree.flatten`
 order (a dict by sorted key, a list or tuple in order, an ``OptState``
 as mu, nu, step).  numpy has no bfloat16, so a bf16 leaf is stored as
 its 16-bit words; the manifest lists every leaf's dtype.
+
+Across ranks (DTensor leaves, :mod:`repro_torch.runtime.sharding`) a
+checkpoint holds the same global arrays: every rank joins the gather of
+each leaf, rank 0 alone writes, in the foreground, and the others wait
+at a barrier until the checkpoint is published.  So checkpoints written
+by one rank and by many are interchangeable, and
+``restore(shardings=..., device_mesh=...)`` places each leaf on any
+mesh (the elastic re-mesh of
+:func:`repro_torch.runtime.fault_tolerance.elastic_restore`).
 """
 
 from __future__ import annotations
@@ -27,8 +36,10 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
+from repro_torch.runtime import sharding as shard_rules
 from repro_torch.tree import flatten, unflatten
 
 __all__ = ["Checkpointer"]
@@ -61,6 +72,9 @@ class Checkpointer:
         """Snapshot now, write in the background."""
         self.wait()  # one outstanding save at a time
         leaves, treedef = flatten(tree)
+        ranked = any(shard_rules.is_dtensor(x) for x in leaves)
+        leaves = [x.full_tensor() if shard_rules.is_dtensor(x) else x
+                  for x in leaves]
         host_leaves = [_to_host(x) for x in leaves]  # device->host copy
         spec = {"treedef": str(treedef), "n_leaves": len(leaves),
                 "step": step,
@@ -87,7 +101,13 @@ class Checkpointer:
             except Exception as e:       # surfaced on next wait()
                 self._error = e
 
-        if blocking:
+        if ranked:
+            # rank 0 publishes the checkpoint before any rank goes on
+            if dist.get_rank() == 0:
+                write()
+            dist.barrier()
+            self.raise_if_failed()
+        elif blocking:
             write()
             self.raise_if_failed()
         else:
@@ -120,10 +140,17 @@ class Checkpointer:
         return s[-1] if s else None
 
     def restore(self, template: Any, *, step: int | None = None,
-                device=None) -> tuple[Any, int]:
-        """Restore onto ``template``'s structure: (tree, step), every leaf
-        a tensor of its stored dtype on ``device`` (None: the card)."""
+                device=None, shardings: Any = None,
+                device_mesh=None) -> tuple[Any, int]:
+        """Restore onto ``template``'s structure (global shapes): (tree,
+        step), every leaf a tensor of its stored dtype on ``device``
+        (None: the card), or, given ``shardings`` (a matching tree of
+        :class:`~repro_torch.runtime.sharding.NamedSharding`) and the
+        ``device_mesh`` of a mesh over ranks, placed by them on that
+        mesh's device."""
         self.wait()
+        if shardings is not None:
+            device = "cpu"      # placement copies each shard to the mesh
         device = resolve_device(device)
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -140,7 +167,10 @@ class Checkpointer:
                     f"checkpoint/model shape mismatch: {arr.shape} vs "
                     f"{tuple(tpl.shape)} — wrong arch for this checkpoint?")
         placed = [_from_host(a, d, device) for a, d in zip(loaded, dtypes)]
-        return unflatten(treedef, placed), step
+        tree = unflatten(treedef, placed)
+        if shardings is not None:
+            tree = shard_rules.place(tree, shardings, device_mesh)
+        return tree, step
 
     def _gc(self) -> None:
         steps = self.steps()

@@ -32,6 +32,18 @@ paper's loop-nest CSR writes, with the JAX package's vocabulary:
     ``OpKey``; misses follow the plan's default policy and are memoized,
     so a traced plan never consults the tuner at run time.
 
+DTensor operands (a model placed across ranks,
+:mod:`repro_torch.runtime.sharding`): on the ``"auto"`` backend
+:func:`matmul` runs its kernel on each rank's local shards and wraps the
+result back with the placements DTensor's own ``mm`` strategy gives
+(:func:`_matmul_on_shards`); attention reaches its kernel on local
+shards through ``sharding.map_heads``, so :func:`attention` itself takes
+no DTensor; the other entry points raise ``NotImplementedError`` on one
+(W8A8 and MoE across ranks are queued in ROADMAP.md).  No entry point
+falls back to a plain version on a DTensor; on the ``"torch"`` backend
+DTensors run the plain versions through DTensor's own operators (the dry
+run).
+
 Resolution happens on the kernel path whatever the tensors' device (the
 CPU and the meta device included), so a trace on the CPU resolves the
 call sites the card runs; the plain ``"torch"`` backend resolves
@@ -69,6 +81,7 @@ from repro_torch.plan.config import KernelConfig, OpKey, dtype_from_name, \
     dtype_name
 from repro_torch.plan.plan import Plan, config_backend, resolve
 from repro_torch.quant.tensor import QTensor, quantize_rows
+from repro_torch.runtime.sharding import from_replicated, is_dtensor
 
 __all__ = ["matmul", "grouped_matmul", "quantized_matmul",
            "quantized_grouped_matmul", "attention", "paged_attention",
@@ -111,6 +124,67 @@ def _out_dtype(out_dtype, config, key: tuple, default: torch.dtype):
     return default
 
 
+def _dtensors(*xs) -> bool:
+    return any(type(x) is not torch.Tensor and is_dtensor(x) for x in xs)
+
+
+def _refuse_dtensors(op: str, *xs) -> None:
+    """Kernels 3-6 take no DTensor yet: W8A8 and MoE serving across ranks
+    (their kernels on local shards) are queued in ROADMAP.md."""
+    if _dtensors(*xs):
+        raise NotImplementedError(
+            f"ops.{op} on DTensors: this kernel on local shards (W8A8, MoE "
+            f"or paged serving across ranks) is queued in ROADMAP.md")
+
+
+def _matmul_on_shards(a: torch.Tensor, b: torch.Tensor, trans_b: bool,
+                      run) -> torch.Tensor:
+    """``run(local a, local b)`` on each rank's shards of a product whose
+    operands are DTensors (a plain operand counts as replicated), wrapped
+    back as a DTensor with the placements of DTensor's ``mm`` strategy, a
+    mesh dim at a time: rows of ``a`` sharded give rows, columns of ``b``
+    give columns, the contraction sharded on both gives a ``Partial``
+    sum (reduced where the next constraint asks for it), and a partial
+    operand against a replicated one stays partial.  Where one operand
+    is sharded on the contraction and the other replicated, the
+    replicated one is sliced to match (a local slice, as DTensor does).
+    Any other pair has no local form and raises ``ValueError``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = (a if _dtensors(a) else b).device_mesh
+    a = a if _dtensors(a) else from_replicated(a, mesh)
+    b = b if _dtensors(b) else from_replicated(b, mesh)
+    kb, nb = (1, 0) if trans_b else (0, 1)
+    pa, pb, out = list(a.placements), list(b.placements), []
+    for i in range(mesh.ndim):
+        x, y = pa[i], pb[i]
+        if x.is_shard(1) and y.is_replicate():
+            y = pb[i] = Shard(kb)
+        elif y.is_shard(kb) and x.is_replicate():
+            x = pa[i] = Shard(1)
+        if x.is_replicate() and y.is_replicate():
+            out.append(Replicate())
+        elif x.is_shard(0) and y.is_replicate():
+            out.append(Shard(0))
+        elif x.is_replicate() and y.is_shard(nb):
+            out.append(Shard(1))
+        elif (x.is_shard(1) and y.is_shard(kb)) or (
+                x.is_partial() and y.is_replicate()) or (
+                x.is_replicate() and y.is_partial()):
+            out.append(Partial())
+        else:
+            raise ValueError(
+                f"ops.matmul: operands placed {x} and {y} on mesh dim "
+                f"{mesh.mesh_dim_names[i]!r} have no local product")
+    if pa != list(a.placements):
+        a = a.redistribute(mesh, pa)
+    if pb != list(b.placements):
+        b = b.redistribute(mesh, pb)
+    c = run(a.to_local(), b.to_local())
+    M, N = a.shape[0], b.shape[nb]
+    return DTensor.from_local(c, mesh, out, run_check=False, shape=(M, N),
+                              stride=(N, 1))
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor, *, config=None,
            out_dtype: torch.dtype | None = None,
            trans_b: bool = False) -> torch.Tensor:
@@ -120,8 +194,13 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, config=None,
     output dtype follows one priority: the ``out_dtype`` argument, then
     the config's ``out_dtype``, then A's dtype.  ``trans_b`` takes B as
     (N, K) row-major and computes A @ B.T (the tied LM head).
+    DTensor operands run the kernel on each rank's local shards
+    (:func:`_matmul_on_shards`).
     """
     backend = config_backend(config, "matmul")
+    if backend != "torch" and _dtensors(a, b):
+        return _matmul_on_shards(a, b, trans_b, lambda x, y: matmul(
+            x, y, config=config, out_dtype=out_dtype, trans_b=trans_b))
     M, K = a.shape
     N = b.shape[0] if trans_b else b.shape[1]
     out_dtype = _out_dtype(out_dtype, config,
@@ -155,6 +234,8 @@ def grouped_matmul(a: torch.Tensor, b: torch.Tensor, *, config=None,
     out_dtype = _out_dtype(out_dtype, config,
                            ("grouped_matmul", M, N, K, G, dtype_name(a.dtype)),
                            a.dtype)
+    if backend != "torch":
+        _refuse_dtensors("grouped_matmul", a, b)
     if backend == "torch":
         _record("grouped_matmul", M=M, N=N, K=K, dtype=a.dtype,
                 backend=backend, groups=G)
@@ -197,6 +278,8 @@ def quantized_matmul(x: torch.Tensor, qw: QTensor, *, config=None,
         return matmul(x, qw.dequantize(x.dtype), config=config,
                       out_dtype=out_dtype)
     backend = config_backend(config, "matmul")
+    if backend != "torch":
+        _refuse_dtensors("quantized_matmul", x, qw.data)
     M, K = x.shape
     N = qw.shape[1]
     out_dtype = _out_dtype(out_dtype, config, ("matmul", M, N, K, 1, "int8"),
@@ -231,6 +314,8 @@ def quantized_grouped_matmul(x: torch.Tensor, qw: QTensor, *, config=None,
         return grouped_matmul(x, qw.dequantize(x.dtype), config=config,
                               out_dtype=out_dtype)
     backend = config_backend(config, "grouped_matmul")
+    if backend != "torch":
+        _refuse_dtensors("quantized_grouped_matmul", x, qw.data)
     G, M, K = x.shape
     N = qw.shape[2]
     out_dtype = _out_dtype(out_dtype, config,
@@ -339,6 +424,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     and raises on a CUDA one.
     """
     backend = config_backend(config, "attention")
+    if backend != "torch" and _dtensors(q, k, v):
+        raise ValueError(
+            "ops.attention takes local tensors: run it on each rank's "
+            "batch and head shards through sharding.map_heads")
     B, H, Sq, D = q.shape
     Skv = k.shape[2]
     rec = dict(M=Sq, N=D, K=Skv, dtype=q.dtype, batch_heads=B * H)
@@ -412,6 +501,8 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     the JAX package.
     """
     backend = config_backend(config, "attention")
+    if backend != "torch":
+        _refuse_dtensors("paged_attention", q, k_pool, v_pool)
     B, H, D = q.shape
     ps, KV = k_pool.shape[1], k_pool.shape[2]
     T = page_table.shape[1]

@@ -39,7 +39,8 @@ a dim sharded unevenly or over nested shards, which GSPMD reshards on its
 own), or its plan leaves a local shard a view cannot read, and the
 operation runs at its operands' global shapes (so the program's shapes
 are right), the operands are replicated explicitly and the operation is
-run again (:class:`ReplicateOnGap`; the MoE layer does it for its
+run again (:class:`repro_torch.runtime.sharding.ReplicateOnGap`, shared with
+real runs across ranks; the MoE layer does it for its
 dispatch and combine), each replication counted as
 ``dryrun.redistribute_for_op.<op>`` and printed with the cell; an
 in-place operation or any other failure ends the cell as an ``[ERR]``
@@ -69,8 +70,6 @@ import time
 import traceback
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_map
 
 from repro_torch import obs
 from repro_torch.configs import (SHAPES, RunConfig, get_config, input_specs,
@@ -83,6 +82,7 @@ from repro_torch.models import Ctx, build_model
 from repro_torch.models import transformer
 from repro_torch.optim import OptState, init_opt_state
 from repro_torch.runtime import sharding as shr
+from repro_torch.runtime.sharding import ReplicateOnGap
 
 __all__ = ["build_cell", "run_cell", "main", "ReplicateOnGap",
            "TRAIN_MICROBATCHES", "PREFILL_MICROBATCHES", "KV_INT8_ARCHS"]
@@ -130,77 +130,6 @@ PREFILL_MICROBATCHES = {
 # int8-quantized KV cache for decode: qwen1.5-32b is full MHA (40 kv
 # heads), whose bf16 cache at 128 x 32k is the reference's reason.
 KV_INT8_ARCHS = {"qwen1.5-32b"}
-
-
-# DTensor's words for an operation it cannot plan: its propagator's
-# failure (a view it cannot split over uneven or nested shards, a
-# transition it cannot run), an operator with no strategy, and a local
-# view its chosen plan leaves unreadable
-_GAPS = ("Sharding propagation failed", "does not have a sharding strategy",
-         "is invalid for input of size")
-
-
-def _runs_globally(func, args, kwargs) -> bool:
-    """Whether ``func`` runs on plain meta tensors of its operands' global
-    shapes and strides, outside every dispatch mode (nothing counted): a
-    shape fault of the program fails there too; a fault of DTensor's plan
-    does not."""
-    from torch.utils._python_dispatch import _disable_current_modes
-
-    def meta(x):
-        # a DTensor's shape and stride are its global ones
-        if isinstance(x, torch.Tensor):
-            return torch.empty_strided(x.shape, x.stride(), dtype=x.dtype,
-                                       device="meta")
-        return x
-    try:
-        with _disable_current_modes():
-            func(*tree_map(meta, args), **tree_map(meta, kwargs))
-    except Exception:
-        return False
-    return True
-
-
-class ReplicateOnGap(TorchDispatchMode):
-    """Runs a DTensor operation again where DTensor cannot plan it
-    (module docstring): first on operands with every shard but the
-    leading (batch) dim's replicated, then, if that fails too, on operands
-    replicated over their whole mesh.  Each replicated operand counts as
-    ``dryrun.redistribute_for_op.<op>``.  Only an error in DTensor's
-    words (``_GAPS``) for an operation that runs at its operands' global
-    shapes is retried; any other error stands, as does one of an
-    in-place operation (its result would land in a copy)."""
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        from torch.distributed.tensor import DTensor, Replicate
-        kwargs = kwargs or {}
-        if not any(issubclass(t, DTensor) for t in types):
-            return func(*args, **kwargs)
-        try:
-            return func(*args, **kwargs)
-        except (RuntimeError, NotImplementedError) as e:
-            mutates = any(a.alias_info is not None and a.alias_info.is_write
-                          for a in func._schema.arguments)
-            if mutates or not any(m in str(e) for m in _GAPS) \
-                    or not _runs_globally(func, args, kwargs):
-                raise
-            err = e
-        name = func.__name__
-        for keep_batch in (True, False):
-            def rep(x):
-                if not isinstance(x, DTensor):
-                    return x
-                pl = [p if keep_batch and p.is_shard() and p.dim == 0
-                      else Replicate() for p in x.placements]
-                if pl == list(x.placements):
-                    return x
-                obs.counter_inc(f"dryrun.redistribute_for_op.{name}")
-                return x.redistribute(x.device_mesh, pl)
-            try:
-                return func(*tree_map(rep, args), **tree_map(rep, kwargs))
-            except (RuntimeError, NotImplementedError) as e:
-                err = e
-        raise err
 
 
 def _split(batch: dict, n: int, i: int, mesh) -> dict:

@@ -1,38 +1,46 @@
 """Device meshes (the port of ``repro.launch.mesh``).
 
 Single pod: (16, 16), axes ('data', 'model').  Multi-pod: (2, 16, 16),
-axes ('pod', 'data', 'model').  On one H100 the only mesh that builds
-is (1, 1) (or (1,) and the like); a larger shape raises ``ValueError``,
-as ``jax.make_mesh`` does when the devices are too few.  On the ``meta``
-device any shape builds (placeholders, shapes only): the dry run's
-production meshes, the counterpart of JAX's 512 placeholder host
-devices.
+axes ('pod', 'data', 'model').  On the ``meta`` device any shape builds
+(placeholders, shapes only): the dry run's production meshes, the
+counterpart of JAX's 512 placeholder host devices.
 
-:class:`Mesh` is the port's own small record: ``axis_names`` and
-``devices``, an object array of ``torch.device`` in the mesh's shape.
-It is not ``torch.distributed.DeviceMesh``: ``init_device_mesh`` needs
-an initialised process group, and the kernels, bound through ctypes,
-take plain tensors and not ``DTensor``s.  :func:`fake_device_mesh`
-gives a mesh its ``DeviceMesh`` over a fake process group, for the dry
-run's DTensors of ``meta`` shards; a real mesh of more than one device
-comes with the multi-device slice of the port (pipeline parallelism and
-the sharded engine across cards).  The sharding rules
-(:mod:`repro_torch.runtime.sharding`) read only ``axis_names`` and
-``devices.shape``, so they run over any mesh shape, the production ones
-included, whatever devices are present.
+JAX runs a mesh from one process; the port runs one process a rank
+(:mod:`repro_torch.runtime.ranks`).  Without a process group a mesh
+spans this process's devices: on one H100 the only mesh that builds is
+(1, 1) (or (1,) and the like), and a larger shape raises ``ValueError``,
+as ``jax.make_mesh`` does when the devices are too few.  Once
+``init_ranks`` has made the default process group, a mesh spans the
+world's ranks instead: its shape must hold exactly the world's size,
+rank r sits at the row-major coordinate r (JAX's device order for a
+mesh of that shape), and each rank runs on its own device
+(``runtime.ranks.rank_device``).
+
+:class:`Mesh` is the port's own small record: ``axis_names``,
+``devices`` (an object array of ``torch.device`` in the mesh's shape)
+and, over ranks, ``ranks`` (the rank at each coordinate) and
+``device`` (this rank's device).  ``runtime.ranks.device_mesh`` gives a
+rank mesh its ``torch.distributed.DeviceMesh`` with the mesh's axis
+names, on which :mod:`repro_torch.runtime.sharding` places DTensors;
+:func:`fake_device_mesh` gives any mesh one over a fake process group,
+for the dry run's DTensors of ``meta`` shards.  The sharding rules read
+only ``axis_names`` and ``devices.shape``, so they run over any mesh
+shape, the production ones included, whatever devices are present.
 
 Functions, not module constants: importing this module touches no
-device.
+device and starts no process group.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.runtime.ranks import rank_device, world
 
 __all__ = ["Mesh", "make_mesh_compat", "make_production_mesh",
            "make_host_mesh", "local_devices", "fake_device_mesh"]
@@ -40,11 +48,16 @@ __all__ = ["Mesh", "make_mesh_compat", "make_production_mesh",
 
 class Mesh:
     """Named axes over an array of devices (``devices.shape`` is the
-    mesh's shape, ``axis_names`` one name an axis)."""
+    mesh's shape, ``axis_names`` one name an axis).  A mesh over ranks
+    also holds ``ranks``, the rank at each coordinate, and ``device``,
+    this rank's device; otherwise both are None."""
 
-    def __init__(self, devices, axis_names):
+    def __init__(self, devices, axis_names, *, ranks=None, device=None):
         self.devices = np.asarray(devices, dtype=object)
         self.axis_names = tuple(axis_names)
+        self.ranks = None if ranks is None else np.asarray(ranks)
+        self.device = device
+        self._device_mesh = None
         if self.devices.ndim != len(self.axis_names):
             raise ValueError(f"mesh of shape {self.devices.shape} needs "
                              f"{self.devices.ndim} axis names, got "
@@ -63,7 +76,9 @@ class Mesh:
 
     def __repr__(self) -> str:
         axes = ", ".join(f"{n}={s}" for n, s in self.shape.items())
-        return f"Mesh({axes}; {sorted({str(d) for d in self.devices.flat})})"
+        where = (f"{self.size} ranks" if self.ranks is not None else
+                 sorted({str(d) for d in self.devices.flat}))
+        return f"Mesh({axes}; {where})"
 
 
 def local_devices(device=None) -> list[torch.device]:
@@ -79,12 +94,29 @@ def local_devices(device=None) -> list[torch.device]:
 
 def make_mesh_compat(shape: tuple[int, ...], axes: tuple[str, ...], *,
                      device=None) -> Mesh:
-    """A mesh of ``shape`` over the first ``prod(shape)`` devices of
+    """A mesh of ``shape`` named ``axes``: over the world's ranks when a
+    default process group exists (a size other than the world's raises
+    ``ValueError``), else over the first ``prod(shape)`` devices of
     :func:`local_devices` (``device``: None for the card, ``"cpu"`` for the
-    host, ``"meta"`` for placeholders of any number), named ``axes``; too
-    few devices raise ``ValueError``."""
+    host, ``"meta"`` for placeholders of any number, also in a world of
+    ranks); too few devices raise ``ValueError``."""
     shape = tuple(int(s) for s in shape)
     n = math.prod(shape)
+    ranked = world()
+    if ranked is not None and torch.device(device or "cuda").type != "meta":
+        size = ranked[1]
+        if n != size:
+            raise ValueError(f"mesh of shape {shape} needs {n} ranks; the "
+                             f"world has {size}")
+        dev = rank_device(device)
+        # every rank of a host sits on its host's cards in LOCAL_RANK order
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", size))
+        arr = np.empty(n, dtype=object)
+        arr[:] = [dev if dev.type != "cuda" else torch.device(
+            "cuda", (r % local) % torch.cuda.device_count())
+            for r in range(n)]
+        return Mesh(arr.reshape(shape), axes,
+                    ranks=np.arange(n).reshape(shape), device=dev)
     devices = local_devices(device)
     if devices[0].type == "meta":
         devices = devices * n
@@ -105,8 +137,10 @@ def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
 def make_host_mesh(*, data: int | None = None, model: int = 1,
                    device=None) -> Mesh:
     """A small ('data', 'model') mesh over whatever devices exist (tests,
-    examples)."""
-    n = len(local_devices(device))
+    examples): the world's ranks in a process group (JAX's spans the
+    local devices), else this process's devices."""
+    ranked = world()
+    n = ranked[1] if ranked is not None else len(local_devices(device))
     data = data if data is not None else n // model
     if data * model > n:
         raise ValueError(f"mesh {data}x{model} > {n} devices")

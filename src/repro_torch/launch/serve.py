@@ -36,8 +36,10 @@ fronts N engine replicas, sharing one set of params, with a ``Router``
 (load-aware placement, fault-tolerant re-queue); ``--kill-replica R``
 fails replica R at router step ``--kill-at-step`` (fault injection: its
 in-flight requests finish on the survivors); ``--mesh DxM`` builds each
-engine as a ``ShardedEngine`` over a ('data', 'model') mesh (1x1 on one
-card).  ``--metrics`` prints the TTFT, queue-wait and per-token latency
+engine as a ``ShardedEngine`` over a ('data', 'model') mesh: 1x1 in one
+process, or, under ``torch.distributed.run`` with D x M processes, one
+rank a process (every replica over the same ranks; rank 0 alone
+prints; a mesh whose size is not the world's raises).  ``--metrics`` prints the TTFT, queue-wait and per-token latency
 percentiles, the mean dispatch occupancy and the per-op utilization
 table (:func:`repro_torch.obs.utilization_table`):
 
@@ -45,12 +47,19 @@ table (:func:`repro_torch.obs.utilization_table`):
       --no-reduced --dtype bfloat16 --batch 8 --prompt-len 128 \\
       --gen-len 32 --mixed --steps-per-dispatch 4 --replicas 2 \\
       --kill-replica 1 --metrics
+
+Across ranks (four ranks share one H100 over gloo, or use four cards):
+
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+      -m repro_torch.launch.serve --arch gemma-7b --mesh 1x4
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
+import os
 
 import numpy as np
 import torch
@@ -61,6 +70,7 @@ from repro_torch.models import Ctx, build_model
 from repro_torch.plan import Plan
 from repro_torch.plan.config import dtype_from_name
 from repro_torch.serve import Request, Router, ServeEngine, ShardedEngine
+from repro_torch.serve.cluster import place_in_turn
 
 __all__ = ["serve_batch", "make_requests", "frontend_len"]
 
@@ -177,12 +187,18 @@ def serve_batch(arch: str, *, reduced: bool = True, batch: int = 4,
         cfg = dataclasses.replace(cfg, n_layers=int(n_layers))
     model = build_model(cfg)
     ctx = Ctx(plan=backend, dtype=dtype)
-    params = model.init(seed=seed, dtype=dtype, device=device)
+    device_mesh = (_parse_mesh(mesh, device) if mesh is not None else None)
+    if device_mesh is not None and device_mesh.ranks is not None \
+            and device_mesh.size > 1:
+        params = place_in_turn(
+            lambda: model.init(seed=seed, dtype=dtype, device=device),
+            device_mesh)
+    else:
+        params = model.init(seed=seed, dtype=dtype, device=device)
     if isinstance(plan, str) and plan != "trace":
         plan = Plan.load(plan)
     slots = num_slots or min(batch, 4)
     n_prefix = 0 if cfg.family == "encdec" else frontend_len(cfg, prompt_len)
-    device_mesh = (_parse_mesh(mesh, device) if mesh is not None else None)
 
     def make_engine():
         kw = dict(num_slots=slots, max_len=prompt_len + n_prefix + gen_len,
@@ -295,7 +311,8 @@ def main(argv=None) -> None:
                     "(load-aware placement, fault-tolerant re-queue)")
     ap.add_argument("--mesh", default=None, metavar="DxM",
                     help="build each engine as a ShardedEngine over a "
-                    "('data', 'model') device mesh (1x1 on one card)")
+                    "('data', 'model') mesh: 1x1 in one process, or the "
+                    "ranks of torch.distributed.run (D x M of them)")
     ap.add_argument("--kill-replica", type=int, default=None,
                     help="fail this replica mid-run (fault injection: its "
                     "in-flight requests re-queue onto the survivors)")
@@ -309,6 +326,21 @@ def main(argv=None) -> None:
                     help="write a JSONL span/event trace of the run here "
                     "(implies tracing on; one JSON object per line)")
     args = ap.parse_args(argv)
+    ranked = int(os.environ.get("WORLD_SIZE", "1")) > 1
+    if ranked:
+        from repro_torch.runtime.ranks import init_ranks
+        init_ranks(device=args.device)
+    try:
+        _run(args, quiet=ranked and int(os.environ["RANK"]) != 0)
+    finally:
+        if ranked:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _run(args, *, quiet: bool) -> None:
+    """Serve as ``main``'s arguments say; ``quiet`` on every rank but
+    rank 0 of a world."""
     # --trace-out / --metrics turn observability on for the run: spans
     # and events stream to the JSONL sink (if any), kernel dispatches
     # feed the utilization table
@@ -331,8 +363,12 @@ def main(argv=None) -> None:
             validate_plan=args.validate_plan, replicas=args.replicas,
             mesh=args.mesh, kill_replica=args.kill_replica,
             kill_at_step=args.kill_at_step)
+        if quiet:
+            return
         s = out["stats"]
         print(f"generated shape: {out['generated'].shape}")
+        print(f"generated digest: "
+              f"{hashlib.sha256(out['generated'].tobytes()).hexdigest()[:16]}")
         print(f"prefill: {out['prefill_s']:.2f}s "
               f"({out['prefill_tok_s']:.1f} tok/s)  decode: "
               f"{out['decode_s']:.2f}s ({out['decode_tok_s']:.1f} tok/s)")

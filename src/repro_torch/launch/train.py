@@ -6,7 +6,13 @@ accumulation and gradient compression, AdamW in place) -> async
 checkpointing -> resilient executor (retry / heartbeat / straggler
 detection).  As in the JAX package, training runs the plain path
 (``Ctx(plan="torch")``: the kernels of the port have no backward, and
-JAX trains on its ``jnp`` path), on one device.  Example:
+JAX trains on its ``jnp`` path).  In one process it runs on one device;
+across ranks (:func:`repro_torch.runtime.ranks.init_ranks`, e.g. under
+``torch.distributed.run``) ``train_loop`` spans a ('data', 'model') mesh
+of every rank (``make_host_mesh``, as JAX's spans its local devices),
+places the state by the sharding rules and sets ``ctx.mesh``, and the
+step runs on DTensors under :func:`repro_torch.runtime.sharding.
+across_ranks`.  Example:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-7b \\
       --device cpu --reduced --steps 100 --seq-len 128 --global-batch 8
@@ -23,20 +29,23 @@ import dataclasses
 import time
 
 import torch
+import torch.distributed
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import RunConfig, get_config
 from repro_torch.data import make_pipeline
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import Ctx, build_model
 from repro_torch.optim import adamw_update_, init_opt_state
 from repro_torch.optim.compression import apply_error_feedback, init_residuals
 from repro_torch.runtime import sharding as shr
 from repro_torch.runtime.fault_tolerance import (Heartbeat, ResilientExecutor,
                                                  StragglerDetector)
+from repro_torch.runtime.ranks import device_mesh
 from repro_torch.tree import flatten, unflatten
 
-__all__ = ["train_loop", "make_train_step"]
+__all__ = ["train_loop", "make_train_step", "state_shardings"]
 
 
 def make_train_step(model, ctx: Ctx, run: RunConfig):
@@ -55,6 +64,10 @@ def make_train_step(model, ctx: Ctx, run: RunConfig):
         with torch.enable_grad():
             loss = model.loss(unflatten(treedef, xs), batch, ctx)
             grads = torch.autograd.grad(loss, xs)
+        # a DTensor gradient in its parameter's layout (a pending partial
+        # sum over the batch shards reduced), as JAX's gradients come
+        # out in their parameters' shardings
+        grads = [shr.like(g, p) for g, p in zip(grads, ps)]
         return loss.detach(), list(grads)
 
     def train_step(params, opt, residuals, batch):
@@ -86,6 +99,20 @@ def make_train_step(model, ctx: Ctx, run: RunConfig):
     return train_step
 
 
+def state_shardings(mesh, state: dict) -> dict:
+    """The :class:`~repro_torch.runtime.sharding.NamedSharding` of each
+    leaf of a train state {"params", "opt", "residuals"}: the parameter
+    rules for the params, their moments and residuals, the step
+    replicated (JAX's optimizer state inherits its parameters'
+    shardings)."""
+    opt = state["opt"]
+    return {"params": shr.param_shardings(mesh, state["params"]),
+            "opt": type(opt)(mu=shr.param_shardings(mesh, opt.mu),
+                             nu=shr.param_shardings(mesh, opt.nu),
+                             step=shr.replicated(mesh)),
+            "residuals": shr.param_shardings(mesh, state["residuals"])}
+
+
 def train_loop(arch: str, run: RunConfig, *, reduced: bool = True,
                resume: bool = True, failure_hook=None, log_every: int = 10,
                device=None, n_layers: int | None = None) -> dict:
@@ -105,34 +132,48 @@ def train_loop(arch: str, run: RunConfig, *, reduced: bool = True,
                              f"MoE and SSM families, not {cfg.family!r}")
         cfg = dataclasses.replace(cfg, n_layers=int(n_layers))
     model = build_model(cfg)
+    mesh = make_host_mesh(device=device)
+    ranked = mesh.size > 1
     ctx = Ctx(plan="torch",
               dtype=torch.float32 if run.dtype == "float32"
-              else torch.bfloat16)
+              else torch.bfloat16, mesh=mesh if ranked else None)
 
     params = model.init(seed=run.seed, dtype=torch.float32, device=device)
     opt = init_opt_state(params)
     residuals = (init_residuals(params)
                  if run.grad_compression != "none" else {})
     state = {"params": params, "opt": opt, "residuals": residuals}
+    restore_kw = {"device": device}
+    if ranked:
+        dm = device_mesh(mesh)
+        shardings = state_shardings(mesh, state)
+        state = shr.place(state, shardings, dm)
+        restore_kw = {"shardings": shardings, "device_mesh": dm}
 
     pipe = make_pipeline(cfg.vocab_size, run.seq_len, run.global_batch,
                          seed=run.seed)
     ckpt = Checkpointer(run.ckpt_dir, keep=run.keep_ckpts)
     start_step = 0
     if resume and ckpt.latest_step() is not None:
-        state, start_step = ckpt.restore(state, device=device)
+        state, start_step = ckpt.restore(state, **restore_kw)
         start_step += 1
 
     step_fn = make_train_step(model, ctx, run)
     detector = StragglerDetector()
-    hb = Heartbeat(run.ckpt_dir)
+    # one heartbeat file a rank
+    hb = Heartbeat(run.ckpt_dir,
+                   host_id=torch.distributed.get_rank() if ranked else 0)
 
     def restore_fn():
-        st, _ = ckpt.restore(state, device=device)
+        st, _ = ckpt.restore(state, **restore_kw)
         return st
 
     def run_one(st, batch):
-        p, o, r, m = step_fn(st["params"], st["opt"], st["residuals"], batch)
+        if ranked:
+            batch = shr.place(batch, shr.batch_shardings(mesh, batch), dm)
+        with shr.across_ranks(ranked):
+            p, o, r, m = step_fn(st["params"], st["opt"], st["residuals"],
+                                 batch)
         return {"params": p, "opt": o, "residuals": r}, m
 
     executor = ResilientExecutor(run_one, restore_fn=restore_fn,
@@ -144,12 +185,14 @@ def train_loop(arch: str, run: RunConfig, *, reduced: bool = True,
     for step in range(start_step, run.total_steps):
         batch = pipe.torch_batch(step, device)
         state, metrics = executor.run_step(step, state, batch)
-        losses.append(float(metrics["loss"]))
+        losses.append(float(shr.unplace(metrics["loss"])))
         if step % log_every == 0 or step == run.total_steps - 1:
-            print(f"step {step:5d} loss {losses[-1]:.4f} "
-                  f"lr {float(metrics['lr']):.2e} "
-                  f"gnorm {float(metrics['grad_norm']):.3f} "
-                  f"({(time.time()-t0):.1f}s)", flush=True)
+            m = shr.unplace(metrics)
+            if not ranked or torch.distributed.get_rank() == 0:
+                print(f"step {step:5d} loss {losses[-1]:.4f} "
+                      f"lr {float(m['lr']):.2e} "
+                      f"gnorm {float(m['grad_norm']):.3f} "
+                      f"({(time.time()-t0):.1f}s)", flush=True)
         if run.ckpt_every and step and step % run.ckpt_every == 0:
             ckpt.save(step, state)
     ckpt.save(run.total_steps - 1, state, blocking=True)

@@ -36,7 +36,8 @@ from repro_torch.quant.tensor import QTensor
 from repro_torch.runtime.sharding import (P, constrain, gather_fsdp,
                                           gather_inner, is_dtensor,
                                           label_logits, like, map_heads,
-                                          split_columns, write_row)
+                                          reduce_partial, split_columns,
+                                          write_row)
 
 __all__ = ["Ctx", "Params", "linear", "rms_norm", "rope", "attention",
            "attention_decode", "attention_decode_paged",
@@ -267,21 +268,14 @@ def _gqa_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     absolute position of query row 0.  Neither form has the reference's
     chunked variant (an S x T above 1024 x 1024 in 1024-row blocks): the
     port's plain attention holds the whole score matrix.  On DTensors
-    either form runs on each rank's batch and head shards
-    (:func:`repro_torch.runtime.sharding.map_heads`).
+    every form, the kernel's too, runs on each rank's batch and head
+    shards (:func:`repro_torch.runtime.sharding.map_heads`).
     """
-    H, KV = q.shape[2], k.shape[2]
-    rep = H // KV
     if config.backend == "auto":
-        if rep > 1:
-            k = torch.repeat_interleave(k, rep, dim=2)
-            v = torch.repeat_interleave(v, rep, dim=2)
-        o = ops.attention(q.transpose(1, 2).contiguous(),
-                          k.transpose(1, 2).contiguous(),
-                          v.transpose(1, 2).contiguous(), config=config,
-                          causal=causal, q_lens=lengths, kv_lens=lengths,
-                          q_offsets=q_offset)
-        return o.transpose(1, 2)
+        return map_heads(functools.partial(_gqa_full_kernel, causal=causal,
+                                           config=config),
+                         q, k, v, lengths, q_offset)
+    rep = q.shape[2] // k.shape[2]
     merged = ctx is not None and ctx.mesh is not None
     if merged:
         k = _head_shard(torch.repeat_interleave(k, rep, dim=2), ctx)
@@ -289,6 +283,23 @@ def _gqa_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q = _head_shard(q, ctx)
     return map_heads(functools.partial(_gqa_full_grouped, causal=causal),
                      q, k, v, lengths, q_offset)
+
+
+def _gqa_full_kernel(q, k, v, lengths, q_offset, *, causal: bool,
+                     config: Plan) -> torch.Tensor:
+    """:func:`_gqa_full`'s ``"auto"`` backend on local tensors: the KV
+    heads repeated up to H and the flash kernel in (B, H, S, D)
+    layout."""
+    rep = q.shape[2] // k.shape[2]
+    if rep > 1:
+        k = torch.repeat_interleave(k, rep, dim=2)
+        v = torch.repeat_interleave(v, rep, dim=2)
+    o = ops.attention(q.transpose(1, 2).contiguous(),
+                      k.transpose(1, 2).contiguous(),
+                      v.transpose(1, 2).contiguous(), config=config,
+                      causal=causal, q_lens=lengths, kv_lens=lengths,
+                      q_offsets=q_offset)
+    return o.transpose(1, 2)
 
 
 def _gqa_full_grouped(q, k, v, lengths, q_offset, *,
@@ -348,7 +359,7 @@ def _scatter_at(c: torch.Tensor, new: torch.Tensor,
     """
     S = c.shape[1]
     pos = torch.as_tensor(pos, device=c.device).to(torch.long).clamp(0, S - 1)
-    if pos.dim() == 0 and is_dtensor(c):
+    if is_dtensor(c):
         return write_row(c, new, pos)
     new = new[:, 0].to(c.dtype)
     if pos.dim() == 0:
@@ -543,7 +554,15 @@ def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx) -> torch.Tensor:
 
 
 def embed(p: Params, tokens: torch.Tensor, ctx: Ctx) -> torch.Tensor:
-    return gather_fsdp(p["tokens"]).to(ctx.dtype)[tokens]
+    """The rows of the (V, d) table at ``tokens`` (JAX's
+    ``table[tokens]``).  On a DTensor table it is an embedding lookup:
+    sharded over the vocabulary, each rank looks up its own rows and the
+    partial sums are all-reduced at once (Megatron's vocabulary-parallel
+    embedding), where an index would move the table."""
+    table = gather_fsdp(p["tokens"]).to(ctx.dtype)
+    if not is_dtensor(table):
+        return table[tokens]
+    return reduce_partial(F.embedding(tokens, table))
 
 
 def unembed(p: Params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:

@@ -28,11 +28,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import Ctx, Params
 from repro_torch.quant.tensor import k_major
+from repro_torch.runtime.sharding import unplace
 
 __all__ = ["init_linear", "init_embed", "init_attention", "init_mlp",
            "init_params", "forward", "loss_fn",
            "init_cache", "prefill", "prefill_chunk", "decode_step",
-           "remat_policy", "remat"]
+           "remat_policy", "remat", "layer_fwd"]
 
 
 # ----------------------------------------------------------------------
@@ -201,6 +202,25 @@ def _prepend(x: torch.Tensor, frontend_embeds: torch.Tensor | None,
     return torch.cat([fe, x], dim=1), fe.shape[1]
 
 
+def layer_fwd(cfg: ModelConfig, ctx: Ctx, mlp_fn: Callable | None,
+              x: torch.Tensor, lp: Params, positions: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One block (JAX's ``_layer_fwd``): ``(x, aux)``; ``mlp_fn``
+    follows :func:`_mlp_fn`'s protocol, None for the dense MLP."""
+    # the residual sequence-sharded, and the Megatron reduce-scatter
+    # form at the TP block outputs (L.shard_seq); not around MoE
+    # blocks, whose expert dispatch the reference found it fights
+    x = L.shard_act(x, ctx)
+    h = L.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
+    x = x + L.shard_seq(
+        L.attention(lp["attn"], h, cfg, ctx, positions=positions), ctx)
+    h = L.rms_norm(lp["mlp_norm"], x, cfg.norm_eps)
+    y, aux = _mlp_fn(cfg, ctx, mlp_fn)(lp["mlp"], h)
+    if mlp_fn is None:
+        y = L.shard_seq(y, ctx)
+    return x + y, torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+
+
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
             *, frontend_embeds: torch.Tensor | None = None,
             mlp_fn: Callable | None = None, last_only: bool = False,
@@ -215,22 +235,9 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
                           frontend_embeds, ctx)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-    fn = _mlp_fn(cfg, ctx, mlp_fn)
 
     def layer(x, lp):
-        # the residual sequence-sharded, and the Megatron reduce-scatter
-        # form at the TP block outputs (L.shard_seq); not around MoE
-        # blocks, whose expert dispatch the reference found it fights
-        x = L.shard_act(x, ctx)
-        h = L.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
-        x = x + L.shard_seq(
-            L.attention(lp["attn"], h, cfg, ctx, positions=positions), ctx)
-        h = L.rms_norm(lp["mlp_norm"], x, cfg.norm_eps)
-        y, aux = fn(lp["mlp"], h)
-        if mlp_fn is None:
-            y = L.shard_seq(y, ctx)
-        return x + y, torch.as_tensor(aux, dtype=torch.float32,
-                                      device=x.device)
+        return layer_fwd(cfg, ctx, mlp_fn, x, lp, positions)
 
     body = remat(layer, cfg, params["layers"])
     auxes = []
@@ -373,8 +380,10 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
                          o.reshape(B, S, cfg.n_heads * hd), ctx)
         h = L.rms_norm(lp["mlp_norm"], x, cfg.norm_eps)
         x = x + fn(lp["mlp"], h)[0]
-        ck[i, :, :S] = k
-        cv[i, :, :S] = v
+        # the K/V of a model placed across ranks come whole into the
+        # batch's own cache, which the engine installs into its placed one
+        ck[i, :, :S] = unplace(k)
+        cv[i, :, :S] = unplace(v)
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     if lens is None:
         x_last = x[:, -1:]

@@ -24,6 +24,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.runtime.sharding import from_replicated, is_dtensor
 from repro_torch.tree import flatten, stacked_groups, tree_map, unflatten
 
 __all__ = ["init_residuals", "compress_int8", "decompress_int8",
@@ -89,6 +90,15 @@ def apply_error_feedback(grads: Params, residuals: Params, *,
                                  for i in idx])
         if scheme == "int8":
             approx = decompress_int8(*compress_int8(corrected))
+        elif scheme == "topk" and is_dtensor(corrected):
+            # a DTensor across ranks: the top-k is global, so every rank
+            # picks it from the whole tensor and keeps its own shard
+            whole = corrected.full_tensor()
+            v, i = compress_topk(whole, topk_frac)
+            mesh = corrected.device_mesh
+            approx = from_replicated(
+                decompress_topk(v, i, whole.shape, torch.float32),
+                mesh).redistribute(mesh, corrected.placements)
         elif scheme == "topk":
             v, i = compress_topk(corrected, topk_frac)
             approx = decompress_topk(v, i, corrected.shape, torch.float32)

@@ -12,8 +12,10 @@ of ``repro.runtime.fault_tolerance``).
     `factor`x the fleet EWMA are flagged for microbatch rebalancing /
     replacement.
 
-``elastic_restore`` (a checkpoint restored onto a different device mesh)
-waits for the port of ``runtime/sharding.py``.
+  * ``elastic_restore`` — the latest checkpoint restored onto a
+    different mesh of ranks (after losing a pod, restore onto fewer):
+    checkpoints hold global arrays, so the parameters are placed by the
+    rules of the new mesh and everything else replicated.
 """
 
 from __future__ import annotations
@@ -26,10 +28,11 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.tree import leaves
+from repro_torch.runtime import sharding as shard_rules
+from repro_torch.tree import leaves, tree_map
 
 __all__ = ["ResilientExecutor", "StragglerDetector", "Heartbeat",
-           "RetryPolicy", "TransientError"]
+           "RetryPolicy", "TransientError", "elastic_restore"]
 
 
 def _block_until_ready(out: Any) -> None:
@@ -249,3 +252,22 @@ class ResilientExecutor:
                 if self.requeue_fn is not None:
                     self.requeue_fn(payload)
                 raise
+
+
+def elastic_restore(ckpt, template_state: Any, new_mesh, *,
+                    params_path: str = "params") -> tuple[Any, int]:
+    """Restore the latest checkpoint of ``ckpt`` (a
+    :class:`~repro_torch.checkpoint.Checkpointer`) onto ``new_mesh``, a
+    mesh over the ranks of the current world: ``template_state`` holds
+    the logical (global) shapes, the ``params_path`` subtree is placed by
+    the parameter rules of ``new_mesh`` and every other leaf replicated.
+    Returns (state, step)."""
+    from repro_torch.runtime.ranks import device_mesh
+    shardings = tree_map(lambda _: shard_rules.replicated(new_mesh),
+                         template_state)
+    if isinstance(template_state, dict) and params_path in template_state:
+        shardings = dict(shardings)
+        shardings[params_path] = shard_rules.param_shardings(
+            new_mesh, template_state[params_path])
+    return ckpt.restore(template_state, shardings=shardings,
+                        device_mesh=device_mesh(new_mesh))

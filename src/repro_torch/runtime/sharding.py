@@ -28,13 +28,16 @@ mesh and keeps them.
 Placement (DTensor, over a ``torch.distributed.DeviceMesh`` whose
 dimension names are the mesh's axis names): :func:`placements` turns a
 spec into DTensor placements, :func:`shard_shape` gives the shard one
-rank holds, :func:`place` builds DTensors from local shards of those
-shapes (``meta`` shards for the dry run, :mod:`repro_torch.launch.dryrun`;
-real tensors wait for the multi-device slice), :func:`constrain` is
-JAX's ``with_sharding_constraint`` as a redistribution, and
+rank holds, :func:`place` builds DTensors from the shard each rank
+takes of a global tensor (``meta`` shards for the dry run,
+:mod:`repro_torch.launch.dryrun`; real ones across ranks) and
+:func:`unplace` gathers them back, :func:`constrain` is JAX's
+``with_sharding_constraint`` as a redistribution, and
 :func:`gather_fsdp` gathers a weight's FSDP shard at its use.  On a
 plain tensor :func:`constrain` and :func:`gather_fsdp` return their
-input, so with no mesh nothing changes.
+input, so with no mesh nothing changes.  :class:`ReplicateOnGap` runs
+an operation DTensor cannot plan again on replicated operands, counted
+(the dry run and real runs across ranks share it).
 
 The port keeps a model's layers as lists of per-layer dicts where JAX
 stacks them along leading axes.  :func:`param_shardings` therefore
@@ -46,11 +49,14 @@ raises if one would be).
 
 from __future__ import annotations
 
+import contextlib
 import math
 import re
 from typing import Any
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_map as pytree_map
 
 from repro_torch.quant.tensor import QTensor
 from repro_torch.tree import tree_map
@@ -61,7 +67,8 @@ __all__ = ["P", "NamedSharding", "param_shardings", "batch_shardings",
            "gather_fsdp", "is_dtensor", "replicate_for_op", "from_replicated",
            "gather_inner", "gather_dims", "split_columns", "split_contraction",
            "like", "constrain_tree", "map_heads", "map_shards", "write_row",
-           "microbatch", "label_logits"]
+           "write_slot", "microbatch", "label_logits", "unplace",
+           "ReplicateOnGap", "reduce_partial", "across_ranks"]
 
 
 class P(tuple):
@@ -319,27 +326,38 @@ def is_dtensor(x) -> bool:
 
 def place(tree: Any, shardings: Any, device_mesh) -> Any:
     """DTensors over ``device_mesh`` for each leaf of ``tree`` (global
-    shapes) by the :class:`NamedSharding` at the same place in
+    tensors) by the :class:`NamedSharding` at the same place in
     ``shardings``, each built with ``DTensor.from_local`` from the shard
-    of :func:`shard_shape` this rank holds.
-
-    Only ``meta`` leaves are placed (the dry run: shapes, no data);
-    placing real tensors across ranks is the multi-device slice's."""
+    this rank holds: a ``meta`` leaf gives a ``meta`` shard of
+    :func:`shard_shape` (the dry run: shapes, no data); a real leaf is
+    sliced at this rank's coordinate in the mesh (not its rank number,
+    so a shard is the one JAX's device at that coordinate holds) and
+    the slice copied, contiguous, to the mesh's device, so the global
+    tensor can be freed."""
     from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
     names = device_mesh.mesh_dim_names
+    dev = (torch.device("cpu") if device_mesh.device_type == "cpu" else
+           torch.device("cuda", torch.cuda.current_device()))
 
     def one(x, sh):
-        if x.device.type != "meta":
-            raise NotImplementedError(
-                "place() builds meta shards only; placing real tensors "
-                "across ranks waits for the multi-device slice "
-                "(ROADMAP item 11b)")
-        local = torch.empty(shard_shape(sh, x.shape), dtype=x.dtype,
-                            device="meta")
-        return DTensor.from_local(local, device_mesh,
-                                  placements(sh.spec, names),
-                                  run_check=False, shape=x.shape,
-                                  stride=x.stride())
+        pl = placements(sh.spec, names)
+        if x.device.type == "meta":
+            local = torch.empty(shard_shape(sh, x.shape), dtype=x.dtype,
+                                device="meta")
+            return DTensor.from_local(local, device_mesh, pl,
+                                      run_check=False, shape=x.shape,
+                                      stride=x.stride())
+        shape, off = compute_local_shape_and_global_offset(x.shape,
+                                                           device_mesh, pl)
+        local = x[tuple(slice(o, o + n) for o, n in zip(off, shape))]
+        local = local.to(dev, memory_format=torch.contiguous_format,
+                         copy=True)
+        return DTensor.from_local(local, device_mesh, pl, run_check=False,
+                                  shape=x.shape,
+                                  stride=torch.empty(x.shape,
+                                                     device="meta").stride())
 
     def walk(x, sh):
         if isinstance(x, dict):
@@ -351,6 +369,13 @@ def place(tree: Any, shardings: Any, device_mesh) -> Any:
         return one(x, sh)
 
     return walk(tree, shardings)
+
+
+def unplace(tree: Any) -> Any:
+    """:func:`place`'s inverse: every DTensor leaf of ``tree`` gathered
+    into its global tensor (``full_tensor()``, a collective every rank
+    of its mesh joins), other leaves as they are."""
+    return tree_map(lambda x: x.full_tensor() if is_dtensor(x) else x, tree)
 
 
 def constrain(x: torch.Tensor, spec) -> torch.Tensor:
@@ -486,6 +511,18 @@ def gather_dims(x: torch.Tensor, dims) -> torch.Tensor:
     return x.redistribute(x.device_mesh, pl)
 
 
+def reduce_partial(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with every pending partial sum all-reduced (its shards kept);
+    a plain tensor is returned as it is."""
+    if type(x) is torch.Tensor or not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    pl = [Replicate() if p.is_partial() else p for p in x.placements]
+    if pl == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pl)
+
+
 def gather_inner(x: torch.Tensor) -> torch.Tensor:
     """``x`` (..., d), the input of a product, with every shard of its
     inner dims (neither the leading nor the last) all-gathered, so that
@@ -505,7 +542,8 @@ def gather_inner(x: torch.Tensor) -> torch.Tensor:
     # the batch split over the DP axes it is replicated on (a local
     # slice), so no two ranks of those axes repeat one product
     dp = [i for i, a in enumerate(mesh.mesh_dim_names)
-          if a in ("pod", "data") and pl[i].is_replicate()]
+          if a in ("pod", "data") and pl[i].is_replicate()
+          and mesh.size(i) > 1]
     if dp and x.shape[0] % math.prod(mesh.size(i) for i in dp) == 0:
         for i in dp:
             pl[i] = Shard(0)
@@ -567,7 +605,9 @@ def map_shards(fn, xs, heads, out_heads):
     axes, nb = [], 1
     for i, name in enumerate(mesh.mesh_dim_names):
         n = mesh.size(i)
-        if name in ("pod", "data") and ref.shape[0] % (nb * n) == 0:
+        if n == 1:
+            axes.append(None)
+        elif name in ("pod", "data") and ref.shape[0] % (nb * n) == 0:
             axes.append("batch")
             nb *= n
         elif name == "model" and all(
@@ -610,10 +650,10 @@ def map_heads(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def write_row(c: torch.Tensor, new: torch.Tensor,
               pos: torch.Tensor) -> torch.Tensor:
     """``c[:, pos] = new[:, 0]`` in place for a DTensor cache ``c`` (B, S,
-    ...) and a scalar position: each rank writes into its own shard, the
-    row only where its sequence range holds ``pos`` (DTensor's in-place
-    index ops refuse a sharded cache or mislabel its placements).
-    Returns ``c``."""
+    ...) and a scalar position, or ``c[b, pos[b]] = new[b, 0]`` for (B,)
+    positions: each rank writes into its own shard, a row only where its
+    sequence range holds the row's position (DTensor's in-place index ops
+    refuse a sharded cache or mislabel its placements).  Returns ``c``."""
     from torch.distributed.tensor import Replicate
     from torch.distributed.tensor._utils import (
         compute_local_shape_and_global_offset)
@@ -622,13 +662,46 @@ def write_row(c: torch.Tensor, new: torch.Tensor,
     if not is_dtensor(new):
         new = from_replicated(new, mesh)
     nl = new.redistribute(mesh, new_pl).to_local().to(c.dtype)
-    _, off = compute_local_shape_and_global_offset(c.shape, mesh, pl)
+    shape, off = compute_local_shape_and_global_offset(c.shape, mesh, pl)
     cl = c.to_local()
-    lp = (pos.to_local() if is_dtensor(pos) else pos) - off[1]
+    p = pos.full_tensor() if is_dtensor(pos) else pos
+    if p.dim() == 0:
+        lp = p - off[1]
+        inside = (lp >= 0) & (lp < cl.shape[1])
+        idx = lp.clamp(0, cl.shape[1] - 1).reshape(1)
+        cl.index_copy_(1, idx, torch.where(inside, nl,
+                                           cl.index_select(1, idx)))
+        return c
+    rows = torch.arange(shape[0], device=cl.device)
+    lp = p[off[0]:off[0] + shape[0]].to(cl.device).long() - off[1]
     inside = (lp >= 0) & (lp < cl.shape[1])
-    idx = lp.clamp(0, cl.shape[1] - 1).reshape(1)
-    cl.index_copy_(1, idx, torch.where(inside, nl, cl.index_select(1, idx)))
+    idx = lp.clamp(0, cl.shape[1] - 1)
+    keep = inside.reshape(-1, *([1] * (cl.dim() - 2)))
+    cl[rows, idx] = torch.where(keep, nl[:, 0], cl[rows, idx])
     return c
+
+
+def write_slot(dst: torch.Tensor, src: torch.Tensor, axis: int,
+               slot: int) -> None:
+    """``dst.select(axis, slot).copy_(src.select(axis, 0))`` for a DTensor
+    ``dst`` (a cache placed across ranks) and a batch-1 ``src`` (plain or
+    DTensor): ``src`` is brought to ``dst``'s placements on every dim but
+    ``axis``, and each rank writes the slot only if its shard of
+    ``axis`` holds it (an in-place write into a DTensor view of a sharded
+    dim would land in a copy)."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    mesh, pl = dst.device_mesh, list(dst.placements)
+    src_pl = [p if p.is_shard() and p.dim != axis else Replicate()
+              for p in pl]
+    if not is_dtensor(src):
+        src = from_replicated(src, mesh)
+    sl = src.redistribute(mesh, src_pl).to_local()
+    shape, off = compute_local_shape_and_global_offset(dst.shape, mesh, pl)
+    local = slot - off[axis]
+    if 0 <= local < shape[axis]:
+        dst.to_local().select(axis, local).copy_(sl.select(axis, 0))
 
 
 def microbatch(x: torch.Tensor, n: int, i: int) -> torch.Tensor:
@@ -670,3 +743,91 @@ def label_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     # the one-hot contraction of the plain path and the reference
     return like(torch.einsum("bsv,bsv->bs", logits, onehot), logits,
                 reduced=-1)
+
+
+# DTensor's words for an operation it cannot plan: its propagator's
+# failure (a view it cannot split over uneven or nested shards, a
+# transition it cannot run), an operator with no strategy, and a local
+# view its chosen plan leaves unreadable
+_GAPS = ("Sharding propagation failed", "does not have a sharding strategy",
+         "is invalid for input of size")
+
+
+def _runs_globally(func, args, kwargs) -> bool:
+    """Whether ``func`` runs on plain meta tensors of its operands' global
+    shapes and strides, outside every dispatch mode (nothing counted): a
+    shape fault of the program fails there too; a fault of DTensor's plan
+    does not."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    def meta(x):
+        # a DTensor's shape and stride are its global ones
+        if isinstance(x, torch.Tensor):
+            return torch.empty_strided(x.shape, x.stride(), dtype=x.dtype,
+                                       device="meta")
+        return x
+    try:
+        with _disable_current_modes():
+            func(*pytree_map(meta, args), **pytree_map(meta, kwargs))
+    except Exception:
+        return False
+    return True
+
+
+class ReplicateOnGap(TorchDispatchMode):
+    """Runs a DTensor operation again where DTensor cannot plan it: first
+    on operands with every shard but the leading (batch) dim's
+    replicated, then, if that fails too, on operands replicated over
+    their whole mesh.  Each replicated operand counts as
+    ``dryrun.redistribute_for_op.<op>`` (the dry run's name, kept for
+    real runs across ranks, which share this mode).  Only an error in
+    DTensor's words (``_GAPS``) for an operation that runs at its
+    operands' global shapes is retried; any other error stands, as does
+    one of an in-place operation (its result would land in a copy)."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor, Replicate
+        from repro_torch import obs
+        kwargs = kwargs or {}
+        if not any(issubclass(t, DTensor) for t in types):
+            return func(*args, **kwargs)
+        try:
+            return func(*args, **kwargs)
+        except (RuntimeError, NotImplementedError) as e:
+            mutates = any(a.alias_info is not None and a.alias_info.is_write
+                          for a in func._schema.arguments)
+            if mutates or not any(m in str(e) for m in _GAPS) \
+                    or not _runs_globally(func, args, kwargs):
+                raise
+            err = e
+        name = func.__name__
+        for keep_batch in (True, False):
+            def rep(x):
+                if not isinstance(x, DTensor):
+                    return x
+                pl = [p if keep_batch and p.is_shard() and p.dim == 0
+                      else Replicate() for p in x.placements]
+                if pl == list(x.placements):
+                    return x
+                obs.counter_inc(f"dryrun.redistribute_for_op.{name}")
+                return x.redistribute(x.device_mesh, pl)
+            try:
+                return func(*pytree_map(rep, args), **pytree_map(rep, kwargs))
+            except (RuntimeError, NotImplementedError) as e:
+                err = e
+        raise err
+
+
+@contextlib.contextmanager
+def across_ranks(enable: bool = True):
+    """The modes a step on DTensors across ranks runs under (a no-op with
+    ``enable`` False): plain tensors the step makes (positions, masks)
+    take part as replicated, as constants do under GSPMD, and
+    :class:`ReplicateOnGap` replicates, counted, what DTensor cannot
+    plan."""
+    if not enable:
+        yield
+        return
+    from torch.distributed.tensor.experimental import implicit_replication
+    with implicit_replication(), ReplicateOnGap():
+        yield

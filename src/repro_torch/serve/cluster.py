@@ -8,14 +8,17 @@ layers:
 **Sharded decode** (:class:`ShardedEngine`): one engine whose params and
 KV cache are laid out over a device mesh by the sharding rules
 (:func:`repro_torch.runtime.sharding.param_shardings` /
-:func:`~repro_torch.runtime.sharding.cache_shardings`).  The port runs it
-on a one-device mesh (:mod:`repro_torch.launch.mesh`): it computes and
-keeps the specs, places params and cache on the mesh's device and
-serves exactly as :class:`ServeEngine` does, so its tokens are the plain
-engine's.  A mesh of more than one device raises ``NotImplementedError``:
-placing by the specs across cards (DTensor, with the activation
-constraints the JAX model applies under a mesh) is the multi-device
-slice's, and the port never replicates silently where JAX would shard.
+:func:`~repro_torch.runtime.sharding.cache_shardings`).  On a one-device
+mesh it computes and keeps the specs, places params and cache on the
+mesh's device and serves exactly as :class:`ServeEngine` does, so its
+tokens are the plain engine's.  Over a mesh of ranks
+(:func:`repro_torch.runtime.ranks.init_ranks`, one process a rank, where
+JAX runs one process over its devices) the params and cache are placed
+as DTensors by the specs (:func:`~repro_torch.runtime.sharding.place`,
+JAX's ``device_put``) and ``ctx`` carries the mesh, so the model's
+activation constraints engage; every rank runs the same host control
+flow on logits gathered whole, so every rank admits, samples and
+retires alike.
 
 **Replica router** (:class:`Router`): N data-parallel engine replicas
 (in-process) behind one submit/step/run surface.
@@ -70,6 +73,8 @@ import collections
 import dataclasses
 from typing import Callable, Sequence
 
+import torch.distributed as dist
+
 import torch
 
 from repro_torch import obs
@@ -77,13 +82,15 @@ from repro_torch.quant.tensor import QTensor
 from repro_torch.runtime import sharding as shard_rules
 from repro_torch.runtime.fault_tolerance import (Heartbeat, ResilientExecutor,
                                                  RetryPolicy)
+from repro_torch.runtime.ranks import device_mesh
 from repro_torch.serve import engine as engine_mod
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.request import GenerationResult, Request
 from repro_torch.serve.stats import EngineStats
+from repro_torch.tree import leaves
 
 __all__ = ["Router", "ShardedEngine", "ReplicaTimeout", "RequeueExhausted",
-           "Replica"]
+           "Replica", "place_in_turn"]
 
 
 class ReplicaTimeout(RuntimeError):
@@ -136,6 +143,40 @@ def _place(tree, device: torch.device):
     return tree if tree.device == device else tree.to(device)
 
 
+def place_in_turn(make, mesh):
+    """The params tree ``make()`` returns, placed across the ranks of
+    ``mesh`` by the parameter rules: each rank in turn draws the global
+    tree, keeps its shards and frees the rest, and the ranks wait for one
+    another at a barrier, so that ranks sharing one card never hold more
+    than one global tree at once.  ``make`` must draw the same tree on
+    every rank (a seeded init)."""
+    dm = device_mesh(mesh)
+    placed = None
+    for r in range(mesh.size):
+        if dist.get_rank() == r:
+            tree = make()
+            placed = shard_rules.place(
+                tree, shard_rules.param_shardings(mesh, tree), dm)
+            del tree
+            if mesh.device.type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    return placed
+
+
+def _gathered(fn):
+    """A model entry point run across ranks: plain operands (tokens,
+    lengths, positions) take part as replicated, and the logits come
+    back whole on every rank, so every rank samples the same tokens."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    def call(*args, **kwargs):
+        with implicit_replication():
+            logits, cache = fn(*args, **kwargs)
+        return shard_rules.unplace(logits), cache
+    return call
+
+
 class ShardedEngine(ServeEngine):
     """A :class:`ServeEngine` over a device mesh (module docstring).
 
@@ -145,7 +186,15 @@ class ShardedEngine(ServeEngine):
     pool's ``(num_pages, page_size, ...)`` leaves are outside
     ``cache_shardings``' shape vocabulary, so ``page_size`` is refused,
     as in the JAX package.
-    """
+
+    Over a mesh of ranks ``params`` is the global tree (every rank's
+    alike; each keeps its shards) or one already placed
+    (:func:`place_in_turn`).  Scope across ranks: the dense family in
+    bf16 and fp32; W8A8 weights and the other families raise
+    ``NotImplementedError`` (their kernels on local shards are queued in
+    ROADMAP.md).  No decode block is captured in a CUDA graph across
+    ranks (``captures`` stays empty): a graph cannot capture the host
+    side of a gloo collective, and ranks sharing a card run gloo."""
 
     def __init__(self, model, params, ctx, *, mesh, **kwargs):
         if kwargs.get("page_size") is not None:
@@ -153,21 +202,58 @@ class ShardedEngine(ServeEngine):
                 "ShardedEngine does not support page_size: the page "
                 "pool's (num_pages, page_size, ...) layout is outside "
                 "cache_shardings' shape vocabulary")
-        if mesh.size != 1:
-            raise NotImplementedError(
-                f"ShardedEngine over {mesh!r}: placing params and cache "
-                f"across {mesh.size} devices (DTensor) is the port's "
-                f"multi-device slice (ROADMAP.md item 11); this port "
-                f"serves on a one-device mesh")
         if kwargs.get("device") is not None:
             raise ValueError("ShardedEngine runs on its mesh's device; "
                              "pass no device")
-        device = torch.device(mesh.devices.flat[0])
-        kwargs["device"] = device
-        self.param_specs = shard_rules.param_shardings(mesh, params)
-        super().__init__(model, _place(params, device), ctx, **kwargs)
-        self.cache_specs = shard_rules.cache_shardings(mesh, self.cache)
         self.mesh = mesh
+        if mesh.size == 1:
+            device = torch.device(mesh.devices.flat[0])
+            self.param_specs = shard_rules.param_shardings(mesh, params)
+            super().__init__(model, _place(params, device), ctx,
+                             device=device, **kwargs)
+            self.cache_specs = shard_rules.cache_shardings(mesh, self.cache)
+            return
+        if mesh.ranks is None:
+            raise NotImplementedError(
+                f"ShardedEngine over {mesh!r}: the port runs a mesh of "
+                f"more than one device as one process a rank; call "
+                f"runtime.ranks.init_ranks() first (e.g. under torchrun)")
+        if model.cfg.family != "dense" or any(
+                isinstance(x, QTensor) for x in leaves(params)):
+            raise NotImplementedError(
+                f"ShardedEngine across ranks serves the dense family in "
+                f"bf16 and fp32; {model.cfg.family!r}"
+                f"{' with W8A8 weights' if model.cfg.family == 'dense' else ''}"
+                f" across ranks (kernels 4-6 on local shards) is ROADMAP.md's "
+                f"next item")
+        dm = device_mesh(mesh)
+        if not shard_rules.is_dtensor(leaves(params)[0]):
+            params = shard_rules.place(
+                params, shard_rules.param_shardings(mesh, params), dm)
+        self.param_specs = shard_rules.param_shardings(mesh, params)
+        model = dataclasses.replace(model, prefill=_gathered(model.prefill),
+                                    decode=_gathered(model.decode))
+        ctx = dataclasses.replace(ctx, mesh=mesh)
+        super().__init__(model, params, ctx, device=mesh.device, **kwargs)
+        self.cache_specs = shard_rules.cache_shardings(mesh, self.cache)
+        # pos stays a plain tensor, alike on every rank (replicated)
+        self.cache = {**shard_rules.place(
+            {k: v for k, v in self.cache.items() if k != "pos"},
+            {k: v for k, v in self.cache_specs.items() if k != "pos"}, dm),
+            "pos": self.cache["pos"]}
+
+    def _capture(self, greedy_only: bool) -> None:
+        if self.mesh.size == 1:
+            super()._capture(greedy_only)
+        # across ranks every dispatch runs the block eagerly (class
+        # docstring)
+
+    def _install(self, req, slot: int, cache1, n_prompt: int) -> None:
+        if self.mesh.size == 1:
+            return super()._install(req, slot, cache1, n_prompt)
+        for name, bax in self._axes.items():
+            shard_rules.write_slot(self.cache[name], cache1[name], bax, slot)
+        self.cache["pos"][slot] = cache1["pos"][0]
 
 
 class Router:

@@ -496,12 +496,13 @@ def test_sharded_engine_rejects_paged_cache():
 
 
 def test_sharded_engine_refuses_more_than_one_device():
-    """Placing params across devices is the multi-device slice's: a mesh
-    of two devices raises instead of replicating where JAX shards."""
+    """The port places params across ranks, one process a rank: a mesh
+    of two devices in one process (no process group) raises instead of
+    replicating where JAX shards."""
     m, params = _port("gemma-7b")
     devs = np.empty((1, 2), dtype=object)
     devs[0, 0] = devs[0, 1] = torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="init_ranks"):
         ShardedEngine(m, params, CTX, mesh=Mesh(devs, ("data", "model")),
                       max_len=32)
     mesh = make_mesh_compat((1, 1), ("data", "model"), device="cpu")

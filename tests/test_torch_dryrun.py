@@ -30,7 +30,9 @@ against the JAX package's.
   prints ``[OK]``.
 * With ``mesh=None`` reduced gemma-7b's prefill logits, one decode step
   and the loss are bit-equal to the parent tree's
-  (``tests/data/torch_gemma_mesh_none.npz``, written by it).
+  (``tests/data/torch_gemma_mesh_none.npz``, written by it), and so are
+  the embedding's gradient and every leaf's squared gradient norm of
+  the loss (``tests/data/torch_gemma_mesh_none_grads.npz``).
 * The dry run's modules import neither ``jax`` nor ``repro``.
 Every subprocess has its own timeout.
 """
@@ -56,6 +58,7 @@ from repro.core.roofline import parse_collective_bytes
 from repro_torch.configs import SHAPES, get_config, input_specs
 from repro_torch.core.trace_costs import trace_costs
 from repro_torch.models import Ctx, build_model
+from repro_torch.tree import flatten, unflatten
 from torch_tune_cache import port_tune_cache  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -568,6 +571,31 @@ def test_mesh_none_outputs_are_bit_equal_to_the_parent_tree():
         for k, v in got.items():
             assert np.array_equal(v.float().numpy(), want[f"{name}_{k}"]), \
                 (name, k)
+
+
+def test_mesh_none_gradients_are_bit_equal_to_the_parent_tree():
+    """The backward pass without a mesh, as the one-rank train step runs
+    it: the embedding table's gradient and every leaf's squared gradient
+    norm (float64) of ``m.loss``, bit-equal to the same computation on
+    the tree before execution across ranks (the embedding's backward, an
+    index's, is the one a DTensor's lookup would change)."""
+    want = np.load(ROOT / "tests" / "data" / "torch_gemma_mesh_none_grads.npz")
+    cfg = get_config("gemma-7b", reduced=True)
+    m = build_model(cfg)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 8)))
+    for name, ctx in (("torch_f32", Ctx(plan="torch", dtype=torch.float32)),
+                      ("auto_bf16", Ctx(dtype=torch.bfloat16))):
+        ps, treedef = flatten(m.init(seed=0, dtype=ctx.dtype, device="cpu"))
+        xs = [p.detach().requires_grad_() for p in ps]
+        loss = m.loss(unflatten(treedef, xs),
+                      {"tokens": tokens, "targets": tokens}, ctx)
+        gs = torch.autograd.grad(loss, xs)
+        embed = unflatten(treedef, list(gs))["embed"]["tokens"]
+        assert np.array_equal(embed.float().numpy(),
+                              want[f"{name}_embed_grad"]), name
+        assert np.array_equal([float(g.double().square().sum()) for g in gs],
+                              want[f"{name}_grad_sq"]), name
 
 
 # ----------------------------------------------------------------------
