@@ -236,14 +236,16 @@ Phases, each printed as it runs:
    point-to-point transfers of CUDA tensors staged through pinned host
    memory (``runtime.ranks.HostStagedGloo``), in worlds of
    ``runtime.ranks.spawn_ranks`` with timeouts: (a) gemma-7b
-   at full width, bf16, ``ShardedEngine`` on (1, 4) ('data', 'model')
-   with phase 5's traffic on phase 5's weights drawn in turn
+   at full width and 8 of its 28 layers (the cut makes room for (g) and
+   (h)), bf16, ``ShardedEngine`` on (1, 4) ('data', 'model') with phase
+   5's traffic on weights drawn from seed 0 in turn
    (``serve.cluster.place_in_turn``): on every rank kernel 1's launches
-   (7 * 28 + 1) x (admissions + decode steps), kernel 2's 28 x
+   (7 * 8 + 1) x (admissions + decode steps), kernel 2's 8 x
    admissions, none of kernels 3-6, param leaves sharded, no decode
    graph and rank 0's tokens; rank 0's first-prefill logits of request 0
-   within 5% of the largest of phase 5's; printed: tokens equal to phase
-   5's, prefill and decode tokens/s (four ranks time-sharing one card:
+   within 5% of the largest of one rank's on the same weights and
+   traffic (made on the card first); printed: tokens equal to one
+   rank's, prefill and decode tokens/s (four ranks time-sharing one card:
    no four-card price), the staged collectives by kind a pass, each
    rank's peak memory; (b) reduced gemma-7b in fp32 on (1, 4) and (2, 2),
    the requests of JAX's ``test_sharded_engine_8_device_parity``: the
@@ -258,7 +260,26 @@ Phases, each printed as it runs:
    the new mesh's shape; (f) ``python -m torch.distributed.run
    --nproc-per-node 4 -m repro_torch.launch.serve --arch gemma-7b
    --reduced --mesh 1x4 ...`` in a subprocess with a timeout: the
-   one-rank launcher's tokens (its digest line);
+   one-rank launcher's tokens (its digest line); (g) W8A8 at full width:
+   gemma-7b W8A8 at 8 of 28 layers (5e's draw), olmoe-1b-7b bf16 and
+   W8A8 (5c's and 5d's weights), each drawn in turn onto (1, 4) and
+   served by ``ShardedEngine`` with the first 2 requests of phase 5's
+   traffic, 16 new tokens each, in a four-rank world after one-rank
+   references of
+   the same weights and traffic made on the card first: on every rank
+   each kernel's launches equal to one rank's (kernels 4, 5 and 6 among
+   them, none zero where one rank launches it), no decode graph, rank
+   0's first-prefill logits of request 0 within 5% of the largest of the
+   one-rank run's; printed: tokens equal to one rank's, prefill and
+   decode tokens/s, each rank's peak memory, what DTensor could not plan
+   (replicated, counted); (h) the same at full width for
+   seamless-m4t-large-v2 at full size in bf16 (128 source frames a
+   request), zamba2-2.7b in bf16 at 6 of 54 mamba layers (one
+   shared-block invocation), mamba2-130m in fp32 at 8 of 24 layers
+   (bf16 rounding alone moves its logits by about 10% of the largest,
+   5h) and llava-next-34b in bf16 at 8 of 60 layers (2880 patch
+   positions a request), with kernels 1 and 2's launch counts; every
+   configuration is printed before a failed gate ends the phase;
 6. each kernel's time at the main-path shapes with CUDA events over a
    CUDA graph of many calls (device time, with the host's launch work
    taken out; operands cycled past the 50 MB L2), beside its plain
@@ -4229,6 +4250,9 @@ def train_on_the_card(torch, kern) -> None:
 # and launching the kernels on them.  The times price four ranks
 # time-sharing one card, not a four-card deployment.
 R5_WORLD = 4
+# (a)'s depth: gemma-7b at full width, 8 of its 28 layers, so that 5r's
+# new parts (g) and (h) fit the script's time
+R5_A_LAYERS = 8
 R5_DIR = ROOT / "build" / "chip_smoke_5r"
 # the ranks tune through a file of their own (each rank merges its writes)
 R5_TUNE_CACHE = R5_DIR / "tune.json"
@@ -4320,8 +4344,9 @@ def r5_pp_grads(mesh=None) -> tuple[float, list]:
 
 
 def r5_world(rank: int, n: int, want_first_of: int) -> dict:
-    """One rank of 5r's four-rank world: sub-phases (a)-(d) and the save of
-    (e).  Returns what the parent gates and prints."""
+    """One rank of 5r's four-rank world: sub-phases (a)-(d), the save of
+    (e), then (g) and (h) (:func:`r5_families`).  Returns what the parent
+    gates and prints."""
     import torch
     r5_tune_cache()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4340,9 +4365,10 @@ def r5_world(rank: int, n: int, want_first_of: int) -> dict:
     from repro_torch.tree import leaves
     out: dict = {}
 
-    # (a) gemma-7b at full width, bf16, the kernel path, on (1, 4)
+    # (a) gemma-7b at full width and R5_A_LAYERS layers, bf16, the kernel
+    # path, on (1, 4)
     t0 = time.perf_counter()
-    cfg = get_config("gemma-7b")
+    cfg = cut("gemma-7b", R5_A_LAYERS)
     model = build_model(cfg)
     mesh = make_mesh_compat((1, R5_WORLD), ("data", "model"))
     torch.cuda.reset_peak_memory_stats()
@@ -4423,7 +4449,36 @@ def r5_world(rank: int, n: int, want_first_of: int) -> dict:
         10, {"params": shr.place(sparams, shr.param_shardings(grid, sparams),
                                  device_mesh(grid))}, blocking=True)
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del sparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["gh"] = r5_families()
     return out
+
+
+def r5_a_reference(torch) -> dict:
+    """(a)'s one-rank reference on the card: the same cut gemma-7b, weights
+    and traffic through ``ServeEngine`` (tokens, request 0's first-prefill
+    logits)."""
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import Ctx, build_model
+    from repro_torch.serve import ServeEngine
+    kw = SERVE_KW
+    cfg = cut("gemma-7b", R5_A_LAYERS)
+    model = build_model(cfg)
+    params = model.init(seed=0, dtype=torch.bfloat16, device="cuda")
+    eng = ServeEngine(model, params, Ctx(plan="auto", dtype=torch.bfloat16),
+                      num_slots=kw["num_slots"],
+                      max_len=kw["prompt_len"] + kw["gen_len"],
+                      cache_dtype=torch.bfloat16,
+                      steps_per_dispatch=kw["steps_per_dispatch"],
+                      seed=kw["seed"], device="cuda")
+    got = r5_serve(eng, make_requests(cfg, kw["seed"], kw["batch"],
+                                      kw["prompt_len"], kw["gen_len"],
+                                      kw["mixed"]))
+    del eng, params
+    torch.cuda.empty_cache()
+    return got
 
 
 def r5_restore(rank: int, n: int) -> dict:
@@ -4454,9 +4509,253 @@ def r5_restore(rank: int, n: int) -> dict:
             "leaves": len(got)}
 
 
+# 5r (g) and (h): W8A8 and every family across ranks at full width, each
+# (label, arch, layers kept (None: all), W8A8, dtype) on weights drawn from
+# seed 0 as its one-card phase draws them (5e, 5c, 5d, 5h, 5g, 5i, 5j),
+# with the first R5_FAM_REQS requests of phase 5's traffic, R5_FAM_NEW
+# new tokens each.  mamba2-130m runs in fp32: bf16 rounding alone moves a
+# random 24-layer mamba2's logits by about 10% of the largest (5h's
+# rounding floor), so only fp32 can hold it to one rank within 5%.  The
+# depth of gemma-7b, mamba2-130m and zamba2-2.7b is cut so that (g) and
+# (h) fit the script's time: the SSM layers' decode moves their states
+# between layouts through staged all-gathers (about 100 a pass at full
+# depth: 152 s for zamba2's 18 passes).
+R5_FAMILIES = (
+    ("gemma-7b W8A8, 8 of 28 layers", "gemma-7b", 8, True, "bfloat16"),
+    ("olmoe-1b-7b bf16", "olmoe-1b-7b", None, False, "bfloat16"),
+    ("olmoe-1b-7b W8A8", "olmoe-1b-7b", None, True, "bfloat16"),
+    ("mamba2-130m fp32, 8 of 24 layers", "mamba2-130m", 8, False,
+     "float32"),
+    ("zamba2-2.7b bf16, 6 of 54 mamba layers", "zamba2-2.7b", 6, False,
+     "bfloat16"),
+    ("seamless-m4t-large-v2 bf16", "seamless-m4t-large-v2", None, False,
+     "bfloat16"),
+    ("llava-next-34b bf16, 8 of 60 layers", "llava-next-34b", 8, False,
+     "bfloat16"),
+)
+# the kernels each configuration must launch (on one rank, and so on
+# every rank): kernels 1 and 2 where nothing else is named
+R5_FAM_KERNELS = {
+    "gemma-7b W8A8, 8 of 28 layers": ("quantized_zero_stall_matmul",
+                                      "zero_stall_matmul",
+                      "flash_attention"),
+    "olmoe-1b-7b bf16": ("grouped_zero_stall_matmul", "zero_stall_matmul",
+                         "flash_attention"),
+    "olmoe-1b-7b W8A8": ("quantized_grouped_zero_stall_matmul",
+                         "quantized_zero_stall_matmul", "zero_stall_matmul",
+                         "flash_attention"),
+    "mamba2-130m fp32, 8 of 24 layers": ("zero_stall_matmul",),
+}
+R5_FAM_REQS, R5_FAM_NEW = 2, 16
+
+
+def r5_family(arch: str, layers, quant: bool, dtype: str):
+    """One (g)/(h) configuration on the card: (model, a function drawing
+    its weights, ctx, engine kwargs, requests)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import frontend_len, make_requests
+    from repro_torch.models import Ctx, build_model
+    from repro_torch.plan import KernelConfig
+    cfg = get_config(arch) if layers is None else cut(arch, layers)
+    model = build_model(cfg)
+
+    dt = getattr(torch, dtype)
+
+    def make():
+        params = model.init(seed=0, dtype=dt, device="cuda")
+        return model.quantize_weights(params) if quant else params
+
+    kw = SERVE_KW
+    reqs = [dataclasses.replace(r, max_new_tokens=R5_FAM_NEW)
+            for r in make_requests(cfg, kw["seed"], kw["batch"],
+                                   kw["prompt_len"], kw["gen_len"],
+                                   kw["mixed"], device="cuda",
+                                   dtype=dt)[:R5_FAM_REQS]]
+    front = frontend_len(cfg, kw["prompt_len"])
+    eng_kw = dict(num_slots=kw["num_slots"], cache_dtype=dt,
+                  steps_per_dispatch=kw["steps_per_dispatch"],
+                  seed=kw["seed"], max_len=kw["prompt_len"] + R5_FAM_NEW)
+    if cfg.family == "encdec":
+        eng_kw["cache_kwargs"] = {"enc_len": front}
+    else:
+        eng_kw["max_len"] += front
+    ctx = Ctx(plan=KernelConfig(quant="int8") if quant else "auto",
+              dtype=dt)
+    return model, make, ctx, eng_kw, reqs
+
+
+def r5_serve(eng, reqs) -> dict:
+    """``eng.run(reqs)`` with the launch counts, staged collectives and
+    replications for DTensor's gaps set to 0 just before: tokens, request
+    0's first-prefill logits (numpy fp32), launches, stats, replications,
+    staged collectives and captures."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.kernels import launches
+    first = {}
+    first_token = eng._first_token
+
+    def recording(req, slot, logits):
+        if req.rid == 0 and 0 not in first:
+            first[0] = logits[:, -1].float().cpu().numpy()
+        return first_token(req, slot, logits)
+
+    eng._first_token = recording
+    torch.cuda.synchronize()
+    obs.reset_counters("dryrun.")
+    obs.reset_counters("dist.")
+    before = launches.snapshot()
+    t0 = time.perf_counter()
+    res = eng.run(reqs)
+    torch.cuda.synchronize()
+    s = eng.stats
+    return {"tokens": {i: r.tokens for i, r in res.items()},
+            "first_logits": first.get(0), "launches": launches.since(before),
+            "run_s": time.perf_counter() - t0,
+            "stats": {"admitted": s.admitted, "decode_steps": s.decode_steps,
+                      "prefill_tok_s": s.prefill_tok_s,
+                      "decode_tok_s": s.decode_tok_s},
+            "replicated": obs.counters("dryrun.redistribute_for_op."),
+            "staged": obs.counters("dist.host_staged."),
+            "captures": list(eng.captures)}
+
+
+def r5_sharded(tree) -> tuple[int, int]:
+    """(sharded, all) DTensor leaves of ``tree``, a QTensor's codes and
+    scales counted apart."""
+    from repro_torch.quant.tensor import QTensor
+    from repro_torch.tree import leaves
+    xs = [y for x in leaves(tree)
+          for y in ((x.data, x.scale) if isinstance(x, QTensor) else (x,))]
+    return (sum(any(not p.is_replicate() for p in x.placements) for x in xs),
+            len(xs))
+
+
+def r5_families() -> dict:
+    """(g) and (h) on one rank of 5r's world: each of :data:`R5_FAMILIES`
+    in turn, drawn in turn (``place_in_turn``) onto (1, 4) and served by
+    ``ShardedEngine``, then freed."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.serve import ShardedEngine
+    from repro_torch.serve.cluster import place_in_turn
+    mesh = make_mesh_compat((1, R5_WORLD), ("data", "model"))
+    out = {}
+    for label, *config in R5_FAMILIES:
+        model, make, ctx, eng_kw, reqs = r5_family(*config)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = place_in_turn(make, mesh)
+        draw_s = time.perf_counter() - t0
+        eng = ShardedEngine(model, params, ctx, mesh=mesh, **eng_kw)
+        got = r5_serve(eng, reqs)
+        got.update(draw_s=draw_s, sharded=r5_sharded(eng.params),
+                   peak_bytes=torch.cuda.max_memory_allocated())
+        out[label] = got
+        if dist.get_rank() == 0:
+            print(f"      rank 0: {label} drawn in {draw_s:.1f} s, served in "
+                  f"{got['run_s']:.1f} s", flush=True)
+        del eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def r5_family_refs(torch) -> dict:
+    """(g)/(h)'s one-rank references on the card: each of
+    :data:`R5_FAMILIES` drawn and served by ``ServeEngine`` alone, then
+    freed."""
+    from repro_torch.serve import ServeEngine
+    refs = {}
+    for label, *config in R5_FAMILIES:
+        model, make, ctx, eng_kw, reqs = r5_family(*config)
+        params = make()
+        eng = ServeEngine(model, params, ctx, device="cuda", **eng_kw)
+        refs[label] = r5_serve(eng, reqs)
+        del eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return refs
+
+
+def check_families(kern, refs: dict, outs: list) -> dict:
+    """5r (g) and (h)'s gates and prints (see the module docstring) on the
+    four ranks' results ``outs`` against the one-rank ``refs``.  Returns
+    rank 0's launches, summed over the configurations."""
+    import numpy as np
+    print(f"    (g)/(h) W8A8 and every family across ranks at full width, "
+          f"(1, {R5_WORLD}), the first {R5_FAM_REQS} requests of phase 5's "
+          f"traffic, {R5_FAM_NEW} new tokens each: "
+          f"{', '.join(c[0] for c in R5_FAMILIES)}", flush=True)
+    total = {name: 0 for name in kern}
+    failed = []     # every configuration is printed before a gate fails
+    for label, *_ in R5_FAMILIES:
+        ref = refs[label]
+        want = {name: ref["launches"].get(name, 0) for name in kern}
+        for name in R5_FAM_KERNELS.get(label, ("zero_stall_matmul",
+                                               "flash_attention")):
+            if not want[name]:
+                failed.append(f"{label}: one rank launched no {name}")
+        for r, o in enumerate(outs):
+            got = o[label]
+            counts = {name: got["launches"].get(name, 0) for name in kern}
+            if counts != want:
+                failed.append(f"{label} rank {r}: launches {counts} against "
+                              f"one rank's {want}")
+            if got["captures"]:
+                failed.append(f"{label}: a decode graph across ranks")
+            if not got["sharded"][0]:
+                failed.append(f"{label} rank {r}: no param leaf sharded")
+            if got["tokens"].keys() != ref["tokens"].keys() or any(
+                    len(t) != R5_FAM_NEW for t in got["tokens"].values()):
+                failed.append(f"{label} rank {r}: not every request "
+                              f"completed")
+            if got["tokens"] != outs[0][label]["tokens"]:
+                failed.append(f"{label}: rank {r}'s tokens differ from rank "
+                              f"0's")
+        o0 = outs[0][label]
+        for name in kern:
+            total[name] += o0["launches"].get(name, 0)
+        logits, want_logits = o0["first_logits"], ref["first_logits"]
+        if logits is None or not bool(np.isfinite(logits).all()):
+            failed.append(f"{label}: no finite first-prefill logits of "
+                          f"request 0")
+            continue
+        err = float(np.abs(logits - want_logits).max())
+        scale = float(np.abs(want_logits).max())
+        if err > 0.05 * scale:
+            failed.append(f"{label}: first-prefill logits disagree")
+        same = sum(a == b for i, toks in o0["tokens"].items()
+                   for a, b in zip(toks, ref["tokens"][i]))
+        s, rs = o0["stats"], ref["stats"]
+        peaks = ", ".join(f"{o[label]['peak_bytes'] / 2**30:.2f}"
+                          for o in outs)
+        print(f"      {label}: launches on every rank "
+              f"{ {k: v for k, v in o0['launches'].items() if v} }, one "
+              f"rank's { {k: v for k, v in want.items() if v} }; request 0's "
+              f"first prefill logits max|ranks - one rank| {err:.4g}, "
+              f"max|one rank| {scale:.4g} ({err / scale:.2%}; tol 5%); "
+              f"tokens equal to one rank's {same} of "
+              f"{R5_FAM_REQS * R5_FAM_NEW}; prefill "
+              f"{s['prefill_tok_s']:.1f} / decode {s['decode_tok_s']:.2f} "
+              f"tok/s (rank 0, four ranks time-sharing the card; one rank "
+              f"{rs['prefill_tok_s']:.1f} / {rs['decode_tok_s']:.1f}); "
+              f"draw in turn {o0['draw_s']:.1f} s, serve {o0['run_s']:.1f} "
+              f"s; sharded leaves {o0['sharded'][0]} of {o0['sharded'][1]}; "
+              f"peak memory a rank {peaks} GiB; replicated for DTensor's "
+              f"gaps {o0['replicated']}; "
+              f"staged {o0['staged']}", flush=True)
+    require(not failed, "5r (g)/(h): " + "; ".join(failed))
+    return total
+
+
 def across_ranks(torch, kern) -> dict:
     """5r (see the module docstring): four ranks on the one card.  Returns
-    rank 0's launches of (a), the main path across ranks."""
+    rank 0's launches of (a), the main path across ranks, (g) and (h)."""
     import os
     import shutil
     import numpy as np
@@ -4487,22 +4786,26 @@ def across_ranks(torch, kern) -> dict:
     ref_loss, ref_grads = r5_pp_grads()
     del sparams
     torch.cuda.empty_cache()
-
+    a_ref = r5_a_reference(torch)
     t1 = time.perf_counter()
-    outs = spawn_ranks(r5_world, R5_WORLD, store_dir=str(R5_DIR),
-                       args=(0,), timeout_s=420.0)
+    gh_refs = r5_family_refs(torch)
     t2 = time.perf_counter()
-    print(f"    the four-rank world took {t2 - t1:.1f} s (spawn, draw, "
-          f"(a)-(d), the save of (e))", flush=True)
+    outs = spawn_ranks(r5_world, R5_WORLD, store_dir=str(R5_DIR),
+                       args=(0,), timeout_s=900.0)
+    print(f"    the one-rank references took {t2 - t0:.1f} s ((g) and (h)'s "
+          f"{t2 - t1:.1f} s), the four-rank world "
+          f"{time.perf_counter() - t2:.1f} s (spawn, draws, (a)-(d), the save "
+          f"of (e), (g) and (h))", flush=True)
 
     # (a)
-    L, o0 = GEMMA["layers"], outs[0]
+    L, o0 = R5_A_LAYERS, outs[0]
     s = o0["a_stats"]
     want = {n: 0 for n in kern}
     want.update(zero_stall_matmul=(7 * L + 1) * (s["admitted"]
                                                 + s["decode_steps"]),
                 flash_attention=L * s["admitted"])
-    print(f"    (a) gemma-7b full width on (1, 4), bf16, phase 5's traffic: "
+    print(f"    (a) gemma-7b full width, {L} of {GEMMA['layers']} layers, on "
+          f"(1, 4), bf16, phase 5's traffic: "
           f"draw in turn {o0['a_draw_s']:.1f} s, serve {o0['a_run_s']:.1f} "
           f"s; prefill {s['prefill_tok_s']:.1f} tok/s over "
           f"{s['prefill_s']:.3f} s, decode {s['decode_tok_s']:.1f} tok/s "
@@ -4528,20 +4831,20 @@ def across_ranks(torch, kern) -> dict:
     print("      staged collectives a pass (prefill or decode step): " +
           ", ".join(f"{k[len('dist.host_staged.'):]} {v / passes:.1f}"
                     for k, v in sorted(o0["a_staged"].items())))
-    want_logits = PHASE5["first_logits"]
+    want_logits = a_ref["first_logits"]
     got_logits = o0["a_first_logits"]
     require(got_logits is not None and bool(np.isfinite(got_logits).all()),
             "5r (a): no finite first-prefill logits of request 0")
     err = float(np.abs(got_logits - want_logits).max())
     scale = float(np.abs(want_logits).max())
-    print(f"      request 0's first prefill logits: max|ranks - phase 5| "
-          f"{err:.4g}, max|phase 5| {scale:.4g} (tol 0.05 * max: bf16 "
+    print(f"      request 0's first prefill logits: max|ranks - one rank| "
+          f"{err:.4g}, max|one rank| {scale:.4g} (tol 0.05 * max: bf16 "
           f"partial sums reduced in another order)")
     require(err <= 0.05 * scale, "5r (a): first-prefill logits disagree")
     same = sum(a == b for i, toks in o0["a_tokens"].items()
-               for a, b in zip(toks, PHASE5["tokens"][i]))
-    total = sum(len(t) for t in PHASE5["tokens"].values())
-    print(f"      tokens equal to phase 5's: {same} of {total} (printed, not "
+               for a, b in zip(toks, a_ref["tokens"][i]))
+    total = sum(len(t) for t in a_ref["tokens"].values())
+    print(f"      tokens equal to one rank's: {same} of {total} (printed, not "
           f"gated: a greedy tie may break otherwise)")
     # (b)
     for shape in ((1, R5_WORLD), (2, R5_WORLD // 2)):
@@ -4617,9 +4920,11 @@ def across_ranks(torch, kern) -> dict:
           f"{R5_WORLD} -m repro_torch.launch.serve {' '.join(args)} --mesh "
           f"1x{R5_WORLD}: the one-rank launcher's tokens (digest {digest}), "
           f"rank 0 alone printing ({time.perf_counter() - t4:.1f} s)")
+    # (g) W8A8 and (h) every other family
+    more = check_families(kern, gh_refs, [o["gh"] for o in outs])
     shutil.rmtree(R5_DIR, ignore_errors=True)
     print(f"    5r took {time.perf_counter() - t0:.1f} s", flush=True)
-    return {n: o0["a_launches"].get(n, 0) for n in kern}
+    return {n: o0["a_launches"].get(n, 0) + more[n] for n in kern}
 
 
 # ----------------------------------------------------------------------

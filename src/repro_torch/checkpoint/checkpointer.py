@@ -73,9 +73,11 @@ class Checkpointer:
         self.wait()  # one outstanding save at a time
         leaves, treedef = flatten(tree)
         ranked = any(shard_rules.is_dtensor(x) for x in leaves)
-        leaves = [x.full_tensor() if shard_rules.is_dtensor(x) else x
-                  for x in leaves]
-        host_leaves = [_to_host(x) for x in leaves]  # device->host copy
+        # device->host copy, a leaf at a time: a DTensor leaf is gathered
+        # whole and copied before the next is gathered, so at most one
+        # whole leaf is ever alive on a rank's device
+        host_leaves = [_to_host(x.full_tensor() if shard_rules.is_dtensor(x)
+                                else x) for x in leaves]
         spec = {"treedef": str(treedef), "n_leaves": len(leaves),
                 "step": step,
                 "dtypes": [str(x.dtype).removeprefix("torch.")

@@ -35,7 +35,11 @@ the chip count, JAX's convention (per-device HLO x chips).
 
 JAX's ``n_while`` and ``max_trip`` are dropped: an eager program unrolls
 its loops, so every iteration is traced and there is no trip count to
-correct.
+correct.  Where a loop's iterations all cost the same and tracing each
+would take long (the chunked attention's 32 x 32 block steps a layer of
+a 32k prefill), the program traces one and counts it with
+:func:`counted_times`, as ``hlo_costs`` counts a scan body once times
+its trip count.
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
 __all__ = ["TraceCosts", "CostCounter", "trace_costs", "tensor_bytes",
-           "local_tensor", "argument_bytes"]
+           "local_tensor", "argument_bytes", "counted_times"]
 
 aten = torch.ops.aten
 
@@ -102,6 +106,23 @@ _DTYPE_NAMES = {
     torch.int32: "s32", torch.float32: "f32", torch.int64: "s64",
     torch.float64: "f64",
 }
+
+
+# how many times each op traced now counts (counted_times), innermost last
+_TIMES = [1]
+
+
+@contextlib.contextmanager
+def counted_times(n: int):
+    """Inside, every op a :class:`CostCounter` counts (FLOPs, bytes,
+    collectives) counts ``n`` times, nested contexts multiplying: one
+    traced iteration of a loop whose ``n`` iterations cost alike.  The
+    memory it allocates counts once, as a loop's buffers are reused."""
+    _TIMES.append(_TIMES[-1] * int(n))
+    try:
+        yield
+    finally:
+        _TIMES.pop()
 
 
 @dataclasses.dataclass
@@ -211,21 +232,22 @@ class CostCounter(TorchDispatchMode):
         name = func.__name__.split(".")[0]
         ns = func.namespace
         ins = _tensors((args, kwargs))
+        times = _TIMES[-1]
         if ns == "_c10d_functional" and name in _COLLECTIVE_OPS:
             kind = _COLLECTIVE_OPS[name]
             ib = sum(tensor_bytes(t) for t in ins)
             ob = sum(tensor_bytes(t) for t in outs)
             moved = ob if kind == "all-gather" else ib
-            self.coll_bytes[kind] += _COLLECTIVE_W[kind] * moved
-            self.coll_count[kind] += 1
-            self.bytes += ib + ob
+            self.coll_bytes[kind] += _COLLECTIVE_W[kind] * moved * times
+            self.coll_count[kind] += times
+            self.bytes += (ib + ob) * times
         elif func in _PRODUCTS or name in _ATTENTION:
-            fl = self._product_flops(func, name, args)
+            fl = self._product_flops(func, name, args) * times
             self.flops += fl
             self.dot_by_shape[_shape_name(outs[0])] += fl
-            self.bytes += sum(tensor_bytes(t) for t in ins + outs)
+            self.bytes += sum(tensor_bytes(t) for t in ins + outs) * times
         elif name not in _SKIP_BYTES_OPS:
-            self.bytes += sum(tensor_bytes(t) for t in ins + outs)
+            self.bytes += sum(tensor_bytes(t) for t in ins + outs) * times
         if not func.is_view and not _aliases(func) \
                 and name not in _REWRAPS:
             # an output that is storage of an input (a wrapper returned

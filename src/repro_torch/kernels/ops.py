@@ -33,16 +33,18 @@ paper's loop-nest CSR writes, with the JAX package's vocabulary:
     so a traced plan never consults the tuner at run time.
 
 DTensor operands (a model placed across ranks,
-:mod:`repro_torch.runtime.sharding`): on the ``"auto"`` backend
-:func:`matmul` runs its kernel on each rank's local shards and wraps the
-result back with the placements DTensor's own ``mm`` strategy gives
-(:func:`_matmul_on_shards`); attention reaches its kernel on local
-shards through ``sharding.map_heads``, so :func:`attention` itself takes
-no DTensor; the other entry points raise ``NotImplementedError`` on one
-(W8A8 and MoE across ranks are queued in ROADMAP.md).  No entry point
-falls back to a plain version on a DTensor; on the ``"torch"`` backend
-DTensors run the plain versions through DTensor's own operators (the dry
-run).
+:mod:`repro_torch.runtime.sharding`): on the ``"auto"`` backend the four
+matmul entry points run their kernels on each rank's local shards and
+wrap the result back with the placements DTensor's own ``mm`` / ``bmm``
+strategy gives (:func:`_on_shards`); the int8 ones quantize the
+activation's rows on the DTensor first, so a row's scale is its global
+absmax even where its contraction is sharded.  Attention reaches its
+kernel on local shards through ``sharding.map_heads``, so
+:func:`attention` itself takes no DTensor; :func:`paged_attention`
+refuses one (paged serving across ranks is refused, as in the JAX
+package).  No entry point falls back to a plain version on a DTensor; on
+the ``"torch"`` backend DTensors run the plain versions through
+DTensor's own operators (the dry run).
 
 Resolution happens on the kernel path whatever the tensors' device (the
 CPU and the meta device included), so a trace on the CPU resolves the
@@ -80,8 +82,9 @@ from repro_torch.kernels.zero_stall_matmul import zero_stall_matmul
 from repro_torch.plan.config import KernelConfig, OpKey, dtype_from_name, \
     dtype_name
 from repro_torch.plan.plan import Plan, config_backend, resolve
-from repro_torch.quant.tensor import QTensor, quantize_rows
-from repro_torch.runtime.sharding import from_replicated, is_dtensor
+from repro_torch.quant.tensor import QTensor, k_major, quantize_rows
+from repro_torch.runtime.sharding import (from_replicated, is_dtensor,
+                                          reduce_partial)
 
 __all__ = ["matmul", "grouped_matmul", "quantized_matmul",
            "quantized_grouped_matmul", "attention", "paged_attention",
@@ -128,61 +131,109 @@ def _dtensors(*xs) -> bool:
     return any(type(x) is not torch.Tensor and is_dtensor(x) for x in xs)
 
 
-def _refuse_dtensors(op: str, *xs) -> None:
-    """Kernels 3-6 take no DTensor yet: W8A8 and MoE serving across ranks
-    (their kernels on local shards) are queued in ROADMAP.md."""
-    if _dtensors(*xs):
-        raise NotImplementedError(
-            f"ops.{op} on DTensors: this kernel on local shards (W8A8, MoE "
-            f"or paged serving across ranks) is queued in ROADMAP.md")
+def _on_shards(a: torch.Tensor, b: torch.Tensor, run, *,
+               out_dtype: torch.dtype, trans_b: bool = False,
+               b_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """A product ``a (..., M, K) @ b (..., K, N)`` of DTensor operands (a
+    plain operand counts as replicated), 2-D (``mm``) or with a leading
+    group dim on both (``bmm``, the expert banks), run on each rank's
+    local shards and wrapped back as a DTensor with the placements of
+    DTensor's own strategy, a mesh dim at a time: rows of ``a`` sharded
+    give rows, columns of ``b`` give columns, groups sharded on both give
+    groups, the contraction sharded on both gives a ``Partial`` sum, and
+    a partial operand against a replicated one stays partial.  Where one
+    operand is sharded on the contraction or the groups and the other
+    replicated, the replicated one is sliced to match (a local slice, as
+    DTensor does).  Any other pair gathers (or reduces) ``a``, the
+    activation, on that mesh dim first, never the weight; a pair that
+    still has no local form raises ``ValueError``.  A partial sum of an
+    fp32 output is reduced where the next constraint asks for it; one of
+    a narrower ``out_dtype`` is computed in fp32, reduced at once and then
+    rounded, so that the ranks' partials are rounded once, as one rank
+    rounds its sum (an int8 product's codes downstream move with a
+    rounding).
 
-
-def _matmul_on_shards(a: torch.Tensor, b: torch.Tensor, trans_b: bool,
-                      run) -> torch.Tensor:
-    """``run(local a, local b)`` on each rank's shards of a product whose
-    operands are DTensors (a plain operand counts as replicated), wrapped
-    back as a DTensor with the placements of DTensor's ``mm`` strategy, a
-    mesh dim at a time: rows of ``a`` sharded give rows, columns of ``b``
-    give columns, the contraction sharded on both gives a ``Partial``
-    sum (reduced where the next constraint asks for it), and a partial
-    operand against a replicated one stays partial.  Where one operand
-    is sharded on the contraction and the other replicated, the
-    replicated one is sliced to match (a local slice, as DTensor does).
-    Any other pair has no local form and raises ``ValueError``."""
+    ``run(local a, local b, dtype)`` computes a local product in
+    ``dtype``; with ``b_scale`` (the per-column scales of int8 codes
+    ``b``, (..., 1, N)) ``a`` is an activation, quantized per row here on
+    the DTensor (so a row's scale is its global absmax, whichever dim is
+    sharded), and ``run(local codes, local b, local row scales, local
+    b_scale, dtype)``."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     mesh = (a if _dtensors(a) else b).device_mesh
     a = a if _dtensors(a) else from_replicated(a, mesh)
     b = b if _dtensors(b) else from_replicated(b, mesh)
-    kb, nb = (1, 0) if trans_b else (0, 1)
-    pa, pb, out = list(a.placements), list(b.placements), []
-    for i in range(mesh.ndim):
-        x, y = pa[i], pb[i]
-        if x.is_shard(1) and y.is_replicate():
-            y = pb[i] = Shard(kb)
+    nd = a.ndim
+    grouped = nd == 3
+    ma, ka = nd - 2, nd - 1
+    kb, nb = (nd - 1, nd - 2) if trans_b else (nd - 2, nd - 1)
+
+    def local_form(x, y):
+        """(a's, b's, the output's placement) of a local product, with
+        a replicated operand sliced to match its partner, or None."""
+        if x.is_shard(ka) and y.is_replicate():
+            y = Shard(kb)
         elif y.is_shard(kb) and x.is_replicate():
-            x = pa[i] = Shard(1)
+            x = Shard(ka)
+        elif grouped and x.is_shard(0) and y.is_replicate():
+            y = Shard(0)
+        elif grouped and y.is_shard(0) and x.is_replicate():
+            x = Shard(0)
         if x.is_replicate() and y.is_replicate():
-            out.append(Replicate())
-        elif x.is_shard(0) and y.is_replicate():
-            out.append(Shard(0))
-        elif x.is_replicate() and y.is_shard(nb):
-            out.append(Shard(1))
-        elif (x.is_shard(1) and y.is_shard(kb)) or (
+            return x, y, Replicate()
+        if grouped and x.is_shard(0) and y.is_shard(0):
+            return x, y, Shard(0)
+        if x.is_shard(ma) and y.is_replicate():
+            return x, y, Shard(nd - 2)
+        if x.is_replicate() and y.is_shard(nb):
+            return x, y, Shard(nd - 1)
+        if (x.is_shard(ka) and y.is_shard(kb)) or (
                 x.is_partial() and y.is_replicate()) or (
                 x.is_replicate() and y.is_partial()):
-            out.append(Partial())
-        else:
+            return x, y, Partial()
+        return None
+
+    pa, pb, out = list(a.placements), list(b.placements), []
+    for i in range(mesh.ndim):
+        form = (local_form(pa[i], pb[i])
+                or local_form(Replicate(), pb[i]))
+        if form is None:
             raise ValueError(
-                f"ops.matmul: operands placed {x} and {y} on mesh dim "
+                f"ops: operands placed {pa[i]} and {pb[i]} on mesh dim "
                 f"{mesh.mesh_dim_names[i]!r} have no local product")
+        pa[i], pb[i], o = form
+        out.append(o)
     if pa != list(a.placements):
         a = a.redistribute(mesh, pa)
     if pb != list(b.placements):
         b = b.redistribute(mesh, pb)
-    c = run(a.to_local(), b.to_local())
-    M, N = a.shape[0], b.shape[nb]
-    return DTensor.from_local(c, mesh, out, run_check=False, shape=(M, N),
-                              stride=(N, 1))
+    shape = (*a.shape[:-1], b.shape[nb])
+    stride = torch.empty(shape, device="meta").stride()
+    dt = (torch.float32 if any(p.is_partial() for p in out)
+          else out_dtype)
+
+    def wrap(c):
+        c = DTensor.from_local(c, mesh, out, run_check=False, shape=shape,
+                               stride=stride)
+        return c if dt == out_dtype else reduce_partial(c).to(out_dtype)
+
+    if b_scale is None:
+        return wrap(run(a.to_local(), b.to_local(), dt))
+
+    def scale_like(s, pl, dim):
+        # the scales of the rows (columns) a local shard holds: sharded
+        # where the rows (columns) or the groups are, else replicated
+        s = s if _dtensors(s) else from_replicated(s, mesh)
+        want = [Shard(dim) if p.is_shard(dim) else
+                Shard(0) if grouped and p.is_shard(0) else Replicate()
+                for p in pl]
+        if list(s.placements) != want:
+            s = s.redistribute(mesh, want)
+        return s.to_local()
+
+    a_q, a_s = quantize_rows(a)
+    return wrap(run(a_q.to_local(), b.to_local(), scale_like(a_s, pa, ma),
+                    scale_like(b_scale.to(torch.float32), pb, nb), dt))
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *, config=None,
@@ -195,17 +246,18 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, config=None,
     the config's ``out_dtype``, then A's dtype.  ``trans_b`` takes B as
     (N, K) row-major and computes A @ B.T (the tied LM head).
     DTensor operands run the kernel on each rank's local shards
-    (:func:`_matmul_on_shards`).
+    (:func:`_on_shards`).
     """
     backend = config_backend(config, "matmul")
-    if backend != "torch" and _dtensors(a, b):
-        return _matmul_on_shards(a, b, trans_b, lambda x, y: matmul(
-            x, y, config=config, out_dtype=out_dtype, trans_b=trans_b))
     M, K = a.shape
     N = b.shape[0] if trans_b else b.shape[1]
     out_dtype = _out_dtype(out_dtype, config,
                            ("matmul", M, N, K, 1, dtype_name(a.dtype)),
                            a.dtype)
+    if backend != "torch" and _dtensors(a, b):
+        return _on_shards(a, b, lambda x, y, dt: matmul(
+            x, y, config=config, out_dtype=dt, trans_b=trans_b),
+            out_dtype=out_dtype, trans_b=trans_b)
     if backend == "torch":
         _record("matmul", M=M, N=N, K=K, dtype=a.dtype, backend=backend)
         return _ref.matmul_ref(a, b.t() if trans_b else b, out_dtype)
@@ -227,15 +279,17 @@ def grouped_matmul(a: torch.Tensor, b: torch.Tensor, *, config=None,
     """(G, M, K) @ (G, K, N) -> (G, M, N) per-expert matmul through the
     grouped zero-stall engine (the MoE dispatch path,
     ``models.moe.moe_mlp``).  Same ``config`` vocabulary and out_dtype
-    priority as :func:`matmul`."""
+    priority as :func:`matmul`; DTensor operands run each rank's groups
+    and columns (:func:`_on_shards`)."""
     backend = config_backend(config, "grouped_matmul")
     G, M, K = a.shape
     N = b.shape[2]
     out_dtype = _out_dtype(out_dtype, config,
                            ("grouped_matmul", M, N, K, G, dtype_name(a.dtype)),
                            a.dtype)
-    if backend != "torch":
-        _refuse_dtensors("grouped_matmul", a, b)
+    if backend != "torch" and _dtensors(a, b):
+        return _on_shards(a, b, lambda x, y, dt: grouped_matmul(
+            x, y, config=config, out_dtype=dt), out_dtype=out_dtype)
     if backend == "torch":
         _record("grouped_matmul", M=M, N=N, K=K, dtype=a.dtype,
                 backend=backend, groups=G)
@@ -271,35 +325,15 @@ def quantized_matmul(x: torch.Tensor, qw: QTensor, *, config=None,
     call site resolves as ``matmul`` at dtype ``int8`` (the int8 tile
     space, whose plan entries never collide with bf16's).  An fp8
     QTensor takes the simulated-fp8 route: dequantize to x's dtype and
-    run :func:`matmul`.
+    run :func:`matmul`.  DTensor operands (``x`` and the QTensor's codes
+    and scales) run each rank's local shards (:func:`_on_shards`), with
+    every row's scale taken over its whole contraction.
     """
     _check_qtensor(qw)
     if qw.fmt != "int8":
         return matmul(x, qw.dequantize(x.dtype), config=config,
                       out_dtype=out_dtype)
-    backend = config_backend(config, "matmul")
-    if backend != "torch":
-        _refuse_dtensors("quantized_matmul", x, qw.data)
-    M, K = x.shape
-    N = qw.shape[1]
-    out_dtype = _out_dtype(out_dtype, config, ("matmul", M, N, K, 1, "int8"),
-                           x.dtype)
-    x_q, x_s = quantize_rows(x)
-    w_s = qw.scale.to(torch.float32)
-    if backend == "torch":
-        _record("matmul", M=M, N=N, K=K, dtype="int8", backend=backend)
-        return _ref.quantized_matmul_ref(x_q, qw.data, x_s, w_s, out_dtype)
-    cfg = resolve(config, op="matmul", M=M, N=N, K=K, dtype=torch.int8)
-    _record("matmul", M=M, N=N, K=K, dtype="int8", backend=backend,
-            config=cfg)
-    if x.is_meta:
-        _meta.note(lambda: _quant.launch_geometry(
-            M, N, K, sms=_zs.sms_of(x.device),
-            **cfg.matmul_kwargs(torch.int8)))
-        return x.new_empty((M, N), dtype=out_dtype)
-    return quantized_zero_stall_matmul(x_q, qw.data, x_s, w_s.contiguous(),
-                                       out_dtype=out_dtype,
-                                       **cfg.matmul_kwargs(torch.int8))
+    return _int8_product("matmul", x, qw, config, out_dtype)
 
 
 def quantized_grouped_matmul(x: torch.Tensor, qw: QTensor, *, config=None,
@@ -313,32 +347,64 @@ def quantized_grouped_matmul(x: torch.Tensor, qw: QTensor, *, config=None,
     if qw.fmt != "int8":
         return grouped_matmul(x, qw.dequantize(x.dtype), config=config,
                               out_dtype=out_dtype)
-    backend = config_backend(config, "grouped_matmul")
-    if backend != "torch":
-        _refuse_dtensors("quantized_grouped_matmul", x, qw.data)
-    G, M, K = x.shape
-    N = qw.shape[2]
-    out_dtype = _out_dtype(out_dtype, config,
-                           ("grouped_matmul", M, N, K, G, "int8"), x.dtype)
+    return _int8_product("grouped_matmul", x, qw, config, out_dtype)
+
+
+def _int8_product(op: str, x: torch.Tensor, qw: QTensor, config,
+                  out_dtype: torch.dtype | None) -> torch.Tensor:
+    """The int8 product of :func:`quantized_matmul` (``op`` "matmul") or
+    :func:`quantized_grouped_matmul` ("grouped_matmul")."""
+    backend = config_backend(config, op)
+    if backend != "torch" and _dtensors(x, qw.data, qw.scale):
+        G = x.shape[0] if op == "grouped_matmul" else 1
+        M, K = x.shape[-2:]
+        od = _out_dtype(out_dtype, config, (op, M, qw.shape[-1], K, G,
+                                            "int8"), x.dtype)
+        # a local slice of the codes along K is no longer K-major, as
+        # the kernels read B: it is copied so (a no-op for any other)
+        return _on_shards(x, qw.data, lambda x_q, b, x_s, w_s, dt:
+                          _int8_local(op, x_q, x_s, k_major(b), w_s, config,
+                                      dt, x.dtype),
+                          out_dtype=od, b_scale=qw.scale)
     x_q, x_s = quantize_rows(x)
-    w_s = qw.scale.to(torch.float32)
+    return _int8_local(op, x_q, x_s, qw.data, qw.scale, config, out_dtype,
+                       x.dtype)
+
+
+def _int8_local(op: str, x_q: torch.Tensor, x_s: torch.Tensor,
+                codes: torch.Tensor, w_s: torch.Tensor, config,
+                out_dtype: torch.dtype | None,
+                dtype: torch.dtype) -> torch.Tensor:
+    """The int8 product of row-quantized activation codes ``x_q`` (scales
+    ``x_s``) and weight codes ``codes`` (scales ``w_s``) on one device;
+    ``dtype`` is the activation's, the output's default."""
+    backend = config_backend(config, op)
+    grouped = op == "grouped_matmul"
+    G = x_q.shape[0] if grouped else 1
+    M, K = x_q.shape[-2:]
+    N = codes.shape[-1]
+    out_dtype = _out_dtype(out_dtype, config, (op, M, N, K, G, "int8"),
+                           dtype)
+    w_s = w_s.to(torch.float32)
     if backend == "torch":
-        _record("grouped_matmul", M=M, N=N, K=K, dtype="int8",
-                backend=backend, groups=G)
-        return _ref.quantized_grouped_matmul_ref(x_q, qw.data, x_s, w_s,
-                                                 out_dtype)
-    cfg = resolve(config, op="grouped_matmul", M=M, N=N, K=K,
-                  dtype=torch.int8, groups=G)
-    _record("grouped_matmul", M=M, N=N, K=K, dtype="int8", backend=backend,
-            config=cfg, groups=G)
-    if x.is_meta:
+        _record(op, M=M, N=N, K=K, dtype="int8", backend=backend, groups=G)
+        ref = (_ref.quantized_grouped_matmul_ref if grouped
+               else _ref.quantized_matmul_ref)
+        return ref(x_q, codes, x_s, w_s, out_dtype)
+    cfg = resolve(config, op=op, M=M, N=N, K=K, dtype=torch.int8, groups=G)
+    _record(op, M=M, N=N, K=K, dtype="int8", backend=backend, config=cfg,
+            groups=G)
+    kw = cfg.matmul_kwargs(torch.int8, grouped=grouped)
+    if x_q.is_meta:
+        sms = _zs.sms_of(x_q.device)
         _meta.note(lambda: _quant.grouped_launch_geometry(
-            G, M, N, K, sms=_zs.sms_of(x.device),
-            **cfg.matmul_kwargs(torch.int8, grouped=True)))
-        return x.new_empty((G, M, N), dtype=out_dtype)
-    return quantized_grouped_zero_stall_matmul(
-        x_q, qw.data, x_s, w_s.contiguous(), out_dtype=out_dtype,
-        **cfg.matmul_kwargs(torch.int8, grouped=True))
+            G, M, N, K, sms=sms, **kw) if grouped else
+            _quant.launch_geometry(M, N, K, sms=sms, **kw))
+        return x_q.new_empty((*x_q.shape[:-1], N), dtype=out_dtype)
+    kernel = (quantized_grouped_zero_stall_matmul if grouped
+              else quantized_zero_stall_matmul)
+    return kernel(x_q, codes, x_s, w_s.contiguous(), out_dtype=out_dtype,
+                  **kw)
 
 
 _FALLBACK_PREFIX = "ops.fallback."
@@ -501,8 +567,11 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     the JAX package.
     """
     backend = config_backend(config, "attention")
-    if backend != "torch":
-        _refuse_dtensors("paged_attention", q, k_pool, v_pool)
+    if backend != "torch" and _dtensors(q, k_pool, v_pool):
+        raise NotImplementedError(
+            "ops.paged_attention on DTensors: paged serving across ranks is "
+            "refused (ShardedEngine takes no page_size, as in the JAX "
+            "package)")
     B, H, D = q.shape
     ps, KV = k_pool.shape[1], k_pool.shape[2]
     T = page_table.shape[1]

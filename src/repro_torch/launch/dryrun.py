@@ -44,10 +44,12 @@ real runs across ranks; the MoE layer does it for its
 dispatch and combine), each replication counted as
 ``dryrun.redistribute_for_op.<op>`` and printed with the cell; an
 in-place operation or any other failure ends the cell as an ``[ERR]``
-row naming the operator, as JAX's ``run_cell`` reports errors.  The port's
-plain attention holds the whole (S, T) score matrix (the reference's
-1024-row chunked form is not ported), so long-sequence cells report
-more per-device bytes than JAX's.
+row naming the operator, as JAX's ``run_cell`` reports errors.  Past the
+reference's threshold the plain attention runs its 1024-row chunked
+forms (``models.layers._gqa_chunked`` / ``_mha_chunked``), a Python
+double loop over q and kv blocks that computes every block pair, as
+JAX's scans do, so a long-sequence cell holds no whole (S, T) score
+matrix and counts JAX's attention FLOPs.
 
 The environment variables ``REPRO_REMAT`` (the remat mode),
 ``REPRO_MB`` (train microbatches) and ``REPRO_MOMENTS_FP32`` (fp32 Adam

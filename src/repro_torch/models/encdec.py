@@ -29,6 +29,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.layers import Ctx, Params
 from repro_torch.models.transformer import (init_attention, init_embed,
                                             init_mlp, remat)
+from repro_torch.runtime.sharding import unplace
 
 __all__ = ["init_params", "encode", "forward", "loss_fn", "init_cache",
            "prefill", "decode_step"]
@@ -213,10 +214,12 @@ def prefill(params: Params, tokens: torch.Tensor, frames: torch.Tensor,
         x = x + _cross_attention(lp["cross_attn"], h, ek, ev, cfg, ctx)
         h = L.rms_norm(lp["mlp_norm"], x, cfg.norm_eps)
         x = x + L.mlp(lp["mlp"], h, cfg, ctx)
-        ck[i, :, :S] = k
-        cv[i, :, :S] = v
-        xk[i] = ek
-        xv[i] = ev
+        # across ranks the batch's own cache takes its K/V whole (the
+        # engine installs them into each rank's shards)
+        ck[i, :, :S] = unplace(k)
+        cv[i, :, :S] = unplace(v)
+        xk[i] = unplace(ek)
+        xv[i] = unplace(ev)
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     logits = L.unembed(params["embed"], L.gather_last(x, lens), ctx)
     pos = (torch.tensor(S, dtype=torch.int32, device=dev) if lengths is None

@@ -32,6 +32,7 @@ from repro_torch.models import ssm
 from repro_torch.models.layers import Ctx, Params
 from repro_torch.models.transformer import (_layer_params, init_embed,
                                             init_linear, remat)
+from repro_torch.runtime.sharding import unplace, write_layers
 
 __all__ = ["init_params", "forward", "loss_fn", "init_cache", "decode_step",
            "prefill"]
@@ -179,8 +180,10 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
         h = h + L.linear(sp["attn"]["wo"],
                          o.reshape(B, S, cfg.n_heads * hd), ctx)
         x = _post(sp, x, h, cfg, ctx)
-        ck[gi, :, :S0] = k[:, :S0]
-        cv[gi, :, :S0] = v[:, :S0]
+        # across ranks the batch's own cache takes its K/V whole (the
+        # engine installs them into each rank's shards)
+        ck[gi, :, :S0] = unplace(k)[:, :S0]
+        cv[gi, :, :S0] = unplace(v)[:, :S0]
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     logits = L.unembed(params["embed"], L.gather_last(x, lens), ctx)
     ae = cfg.attn_every
@@ -204,9 +207,10 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
     for gi, group in enumerate(params["layers"]):
         for li, lp in enumerate(group):
             h = L.rms_norm(lp["norm"], x, cfg.norm_eps)
-            y, _ = ssm.mamba_decode(lp["mamba"], h, cfg, ctx,
-                                    {"conv": cache["conv"][gi, li],
-                                     "ssm": cache["ssm"][gi, li]})
+            y, st = ssm.mamba_decode(lp["mamba"], h, cfg, ctx,
+                                     {"conv": cache["conv"][gi, li],
+                                      "ssm": cache["ssm"][gi, li]})
+            write_layers(cache, st, (gi, li))
             x = x + y
         h, hn = _pre(sp, x, x0, cfg, ctx)
         kv = {"k": cache["k"][gi], "v": cache["v"][gi]}

@@ -27,8 +27,10 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.trace_costs import counted_times
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.plan.plan import Plan, as_plan
@@ -265,11 +267,13 @@ def _gqa_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     up to H and q, K and V held head-sharded, so the one head dim shards
     over 'model'.  ``lengths``: optional (B,) valid lengths, rows/cols at
     >= length masked, fully-masked rows zero; ``q_offset``: optional (B,)
-    absolute position of query row 0.  Neither form has the reference's
-    chunked variant (an S x T above 1024 x 1024 in 1024-row blocks): the
-    port's plain attention holds the whole score matrix.  On DTensors
-    every form, the kernel's too, runs on each rank's batch and head
-    shards (:func:`repro_torch.runtime.sharding.map_heads`).
+    absolute position of query row 0.  Past the reference's threshold
+    (no ``lengths``, S x T above ``_ATTN_CHUNK_ELEMS``, S and T multiples
+    of the 1024-row chunks) the ``"torch"`` backend runs the reference's
+    blockwise forms instead (:func:`_gqa_chunked`, merged-head
+    :func:`_mha_chunked`), which never hold the whole score matrix.  On
+    DTensors every form, the kernel's too, runs on each rank's batch and
+    head shards (:func:`repro_torch.runtime.sharding.map_heads`).
     """
     if config.backend == "auto":
         return map_heads(functools.partial(_gqa_full_kernel, causal=causal,
@@ -281,6 +285,12 @@ def _gqa_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         k = _head_shard(torch.repeat_interleave(k, rep, dim=2), ctx)
         v = _head_shard(torch.repeat_interleave(v, rep, dim=2), ctx)
         q = _head_shard(q, ctx)
+    S, T = q.shape[1], k.shape[1]
+    if (lengths is None and S * T > _ATTN_CHUNK_ELEMS
+            and S % _Q_CHUNK == 0 and T % _KV_CHUNK == 0):
+        return map_heads(functools.partial(
+            _mha_chunked if merged else _gqa_chunked, causal=causal),
+            q, k, v)
     return map_heads(functools.partial(_gqa_full_grouped, causal=causal),
                      q, k, v, lengths, q_offset)
 
@@ -326,6 +336,125 @@ def _gqa_full_grouped(q, k, v, lengths, q_offset, *,
         o = torch.where(m.any(-1)[:, :, None, None, None], o,
                         torch.zeros((), dtype=o.dtype, device=o.device))
     return o.reshape(B, S, H, D)
+
+
+# the reference's chunk rule: the whole (S, T) score matrix only up to
+# this element count; past it 1024-row q blocks over 1024-row kv blocks
+_ATTN_CHUNK_ELEMS = 1024 * 1024
+_Q_CHUNK = 1024
+_KV_CHUNK = 1024
+
+
+def _online_block(q_blk: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  qi: int, *, causal: bool, kv_chunk: int, scores: str,
+                  values: str) -> torch.Tensor:
+    """One q block of the blockwise forms against every kv block in turn
+    (the reference's inner scan, the masked blocks included): the online
+    softmax in fp32, the causal fill against absolute row and column
+    indices, ``den == 0`` guarded.  ``scores`` / ``values`` are the two
+    einsums, whose score axes are the last two; returns the normalised
+    fp32 accumulator.  On ``meta`` tensors (the dry run's trace, shapes
+    only) kv steps 1 to the last cost alike: one is traced and counted
+    for all
+    (``trace_costs.counted_times``)."""
+    q_chunk, D = q_blk.shape[1], q_blk.shape[-1]
+    scale = D ** -0.5
+    qf = q_blk.to(torch.float32)
+
+    def step(kj, state):
+        cols = slice(kj * kv_chunk, (kj + 1) * kv_chunk)
+        s = torch.einsum(scores, qf, k[:, cols].to(torch.float32)) * scale
+        if causal:
+            rows = qi * q_chunk + torch.arange(q_chunk, device=s.device)
+            keys = kj * kv_chunk + torch.arange(kv_chunk, device=s.device)
+            s = torch.where(rows[:, None] >= keys[None, :], s, NEG_INF)
+        if state is None:
+            m = torch.full_like(s[..., :1], NEG_INF)
+            den = torch.zeros_like(m)
+            acc = torch.zeros(*s.shape[:-1], D, dtype=torch.float32,
+                              device=s.device)
+        else:
+            m, den, acc = state
+        m_new = torch.maximum(m, torch.amax(s, dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        den = alpha * den + torch.sum(p, dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum(
+            values, p.to(v.dtype).to(torch.float32),
+            v[:, cols].to(torch.float32))
+        return m_new, den, acc
+
+    nkv = k.shape[1] // kv_chunk
+    state = step(0, None)
+    if k.is_meta and nkv > 1:
+        with counted_times(nkv - 1):
+            state = step(1, state)
+    else:
+        for kj in range(1, nkv):
+            state = step(kj, state)
+    _, den, acc = state
+    return acc / torch.where(den == 0.0, torch.ones_like(den), den)
+
+
+def _remat_blocks(block, q_blocks, k, v) -> list[torch.Tensor]:
+    """``block(qi, q_blk, k, v)`` for each q block, each rematerialised in
+    the backward (the reference's ``jax.checkpoint(..., nothing_saveable)``
+    on its outer scan's body) when autograd records it.  Unrecorded on
+    ``meta`` tensors (a dry run's prefill) the q blocks cost alike: one is
+    traced and counted for all, the others allocated."""
+    grads = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q_blocks[0], k, v))
+    if not grads and q_blocks[0].is_meta:
+        with counted_times(len(q_blocks)):
+            first = block(0, q_blocks[0], k, v)
+        return [first] + [torch.empty_like(first) for _ in q_blocks[1:]]
+    if not grads:
+        return [block(qi, qb, k, v) for qi, qb in enumerate(q_blocks)]
+    return [checkpoint(functools.partial(block, qi), qb, k, v,
+                       use_reentrant=False, preserve_rng_state=False)
+            for qi, qb in enumerate(q_blocks)]
+
+
+def _gqa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 causal: bool, q_chunk: int = _Q_CHUNK,
+                 kv_chunk: int = _KV_CHUNK) -> torch.Tensor:
+    """The reference's blockwise grouped attention, q (B, S, H, D) and
+    k, v (B, T, KV, D) -> (B, S, H, D): q blocks outer (rematerialised),
+    kv blocks inner with the online softmax, so the (S, T) score matrix
+    is never held."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    rep = H // KV
+
+    def block(qi, q_blk, k, v):
+        out = _online_block(q_blk, k, v, qi, causal=causal,
+                            kv_chunk=kv_chunk, scores="bqkrd,btkd->bkrqt",
+                            values="bkrqt,btkd->bkrqd")
+        # (B, KV, rep, qc, D) -> (B, qc, KV, rep, D), cast before stacking
+        return out.permute(0, 3, 1, 2, 4).to(q.dtype)
+
+    qg = q.reshape(B, S // q_chunk, q_chunk, KV, rep, D)
+    blocks = _remat_blocks(block, qg.unbind(1), k, v)
+    return torch.stack(blocks, dim=1).reshape(B, S, H, D)
+
+
+def _mha_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 causal: bool, q_chunk: int = _Q_CHUNK,
+                 kv_chunk: int = _KV_CHUNK) -> torch.Tensor:
+    """The reference's merged-head blockwise attention (q, k, v all (B,
+    S|T, H, D), K and V already repeated to q's heads), as
+    :func:`_gqa_chunked`."""
+    B, S, H, D = q.shape
+
+    def block(qi, q_blk, k, v):
+        out = _online_block(q_blk, k, v, qi, causal=causal,
+                            kv_chunk=kv_chunk, scores="bqhd,bthd->bhqt",
+                            values="bhqt,bthd->bhqd")
+        return out.transpose(1, 2).to(q.dtype)     # (B, qc, H, D)
+
+    qg = q.reshape(B, S // q_chunk, q_chunk, H, D)
+    blocks = _remat_blocks(block, qg.unbind(1), k, v)
+    return torch.stack(blocks, dim=1).reshape(B, S, H, D)
 
 
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,

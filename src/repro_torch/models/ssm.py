@@ -33,8 +33,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import Ctx, Params
 from repro_torch.models.transformer import init_embed, init_linear, remat
-from repro_torch.runtime.sharding import (P, constrain, gather_dims, like,
-                                          map_shards)
+from repro_torch.runtime.sharding import (P, constrain, gather_dims,
+                                          is_dtensor, like, map_shards,
+                                          write_layers)
 
 __all__ = ["ssd_chunked", "init_mamba", "mamba_forward", "mamba_decode",
            "mamba_prefill", "init_ssm_state", "init_params", "forward",
@@ -147,6 +148,18 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
     of ck - 1), written as ck shifted multiply-adds summed in fp32 and
     rounded once to the input dtype: no library convolution (cuDNN would
     run fp32 in TF32 unless told otherwise), and ck is 4."""
+    if is_dtensor(xbc):
+        # across ranks: on each rank's batch shard, the window's sequence
+        # and the channels whole (a pending partial sum reduced), with the
+        # conv's few weights gathered: torch 2.11's DTensor plans the
+        # broadcast of a channel-sharded weight against this input wrong
+        from torch.distributed.tensor import DTensor, Replicate
+        x = xbc.redistribute(xbc.device_mesh, [
+            p if p.is_shard(0) else Replicate() for p in xbc.placements])
+        out = _causal_conv(x.to_local(), w.full_tensor(), b.full_tensor())
+        return DTensor.from_local(out, x.device_mesh, x.placements,
+                                  run_check=False, shape=x.shape,
+                                  stride=x.stride())
     ck = w.shape[0]
     S = xbc.shape[1]
     xp = F.pad(xbc, (0, 0, ck - 1, 0)).to(torch.float32)
@@ -451,9 +464,10 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
     x = L.embed(params["embed"], tokens, ctx)
     for i, lp in enumerate(params["layers"]):
         h = L.rms_norm(lp["norm"], x, cfg.norm_eps)
-        y, _ = mamba_decode(lp["mamba"], h, cfg, ctx,
-                            {"conv": cache["conv"][i],
-                             "ssm": cache["ssm"][i]})
+        y, st = mamba_decode(lp["mamba"], h, cfg, ctx,
+                             {"conv": cache["conv"][i],
+                              "ssm": cache["ssm"][i]})
+        write_layers(cache, st, (i,))
         x = x + y
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     logits = L.unembed(params["embed"], x, ctx)

@@ -67,8 +67,8 @@ __all__ = ["P", "NamedSharding", "param_shardings", "batch_shardings",
            "gather_fsdp", "is_dtensor", "replicate_for_op", "from_replicated",
            "gather_inner", "gather_dims", "split_columns", "split_contraction",
            "like", "constrain_tree", "map_heads", "map_shards", "write_row",
-           "write_slot", "microbatch", "label_logits", "unplace",
-           "ReplicateOnGap", "reduce_partial", "across_ranks"]
+           "write_slot", "write_layers", "microbatch", "label_logits",
+           "unplace", "ReplicateOnGap", "reduce_partial", "across_ranks"]
 
 
 class P(tuple):
@@ -333,7 +333,9 @@ def place(tree: Any, shardings: Any, device_mesh) -> Any:
     sliced at this rank's coordinate in the mesh (not its rank number,
     so a shard is the one JAX's device at that coordinate holds) and
     the slice copied, contiguous, to the mesh's device, so the global
-    tensor can be freed."""
+    tensor can be freed.  A :class:`QTensor` leaf's codes and scales are
+    placed by its two specs, the codes' shards K-major as QTensor keeps
+    them (the int8 kernels read B so)."""
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor._utils import (
         compute_local_shape_and_global_offset)
@@ -341,7 +343,7 @@ def place(tree: Any, shardings: Any, device_mesh) -> Any:
     dev = (torch.device("cpu") if device_mesh.device_type == "cpu" else
            torch.device("cuda", torch.cuda.current_device()))
 
-    def one(x, sh):
+    def one(x, sh, k_major=False):
         pl = placements(sh.spec, names)
         if x.device.type == "meta":
             local = torch.empty(shard_shape(sh, x.shape), dtype=x.dtype,
@@ -352,14 +354,21 @@ def place(tree: Any, shardings: Any, device_mesh) -> Any:
         shape, off = compute_local_shape_and_global_offset(x.shape,
                                                            device_mesh, pl)
         local = x[tuple(slice(o, o + n) for o, n in zip(off, shape))]
-        local = local.to(dev, memory_format=torch.contiguous_format,
-                         copy=True)
+        if k_major:
+            local = local.mT.to(dev, memory_format=torch.contiguous_format,
+                                copy=True).mT
+        else:
+            local = local.to(dev, memory_format=torch.contiguous_format,
+                             copy=True)
         return DTensor.from_local(local, device_mesh, pl, run_check=False,
                                   shape=x.shape,
                                   stride=torch.empty(x.shape,
                                                      device="meta").stride())
 
     def walk(x, sh):
+        if isinstance(x, QTensor):
+            return QTensor(one(x.data, sh.data, k_major=True),
+                           one(x.scale, sh.scale), x.fmt, x.w8a8)
         if isinstance(x, dict):
             return {k: walk(v, sh[k]) for k, v in x.items()}
         if isinstance(x, (list, tuple)):
@@ -702,6 +711,39 @@ def write_slot(dst: torch.Tensor, src: torch.Tensor, axis: int,
     local = slot - off[axis]
     if 0 <= local < shape[axis]:
         dst.to_local().select(axis, local).copy_(sl.select(axis, 0))
+
+
+def write_layers(cache: dict, state: dict, idx: tuple) -> None:
+    """After a layer's decode updated ``state`` in place (``{name:
+    cache[name][idx]}``, ``idx`` the layer's indices over the leading
+    stacked dims of each leaf), make each DTensor leaf of ``cache`` hold
+    it: where a leaf's stacked dims are sharded (JAX's rules shard the
+    mamba ``conv`` state's leading dims, whose name ends like a KV
+    leaf's), ``cache[name][idx]`` is a gathered copy, not a view, and the
+    in-place update never reached the cache.  Each rank writes the layer
+    into its own shard where that holds ``idx``.  Plain leaves were
+    updated through their views: nothing to do."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    n = len(idx)
+    for name, src in state.items():
+        dst = cache[name]
+        if type(dst) is torch.Tensor or not is_dtensor(dst):
+            continue
+        mesh, pl = dst.device_mesh, list(dst.placements)
+        if not any(p.is_shard() and p.dim < n for p in pl):
+            continue        # the state was a view of the local shard
+        src_pl = [Shard(p.dim - n) if p.is_shard() and p.dim >= n
+                  else Replicate() for p in pl]
+        if not is_dtensor(src):
+            src = from_replicated(src, mesh)
+        sl = src.redistribute(mesh, src_pl).to_local()
+        shape, off = compute_local_shape_and_global_offset(dst.shape, mesh,
+                                                           pl)
+        local = tuple(i - o for i, o in zip(idx, off))
+        if all(0 <= i < m for i, m in zip(local, shape)):
+            dst.to_local()[local].copy_(sl)
 
 
 def microbatch(x: torch.Tensor, n: int, i: int) -> torch.Tensor:

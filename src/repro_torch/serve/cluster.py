@@ -165,13 +165,13 @@ def place_in_turn(make, mesh):
 
 
 def _gathered(fn):
-    """A model entry point run across ranks: plain operands (tokens,
-    lengths, positions) take part as replicated, and the logits come
+    """A model entry point run across ranks (``sharding.across_ranks``):
+    plain operands (tokens, lengths, positions, a request's frontend
+    embeddings) take part as replicated, an operation DTensor cannot plan
+    runs replicated and counted (``ReplicateOnGap``), and the logits come
     back whole on every rank, so every rank samples the same tokens."""
-    from torch.distributed.tensor.experimental import implicit_replication
-
     def call(*args, **kwargs):
-        with implicit_replication():
+        with shard_rules.across_ranks():
             logits, cache = fn(*args, **kwargs)
         return shard_rules.unplace(logits), cache
     return call
@@ -189,12 +189,14 @@ class ShardedEngine(ServeEngine):
 
     Over a mesh of ranks ``params`` is the global tree (every rank's
     alike; each keeps its shards) or one already placed
-    (:func:`place_in_turn`).  Scope across ranks: the dense family in
-    bf16 and fp32; W8A8 weights and the other families raise
-    ``NotImplementedError`` (their kernels on local shards are queued in
-    ROADMAP.md).  No decode block is captured in a CUDA graph across
-    ranks (``captures`` stays empty): a graph cannot capture the host
-    side of a gloo collective, and ranks sharing a card run gloo."""
+    (:func:`place_in_turn`).  Every family serves across ranks, in bf16,
+    fp32 and W8A8 (a QTensor's codes and scales placed by the rules'
+    children 0 and 1), the cache of each placed by ``cache_shardings``
+    and written slot by slot on each leaf's batch axis
+    (``sharding.write_slot``).  No decode block is captured in a CUDA
+    graph across ranks (``captures`` stays empty): a graph cannot capture
+    the host side of a gloo collective, and ranks sharing a card run
+    gloo."""
 
     def __init__(self, model, params, ctx, *, mesh, **kwargs):
         if kwargs.get("page_size") is not None:
@@ -218,16 +220,8 @@ class ShardedEngine(ServeEngine):
                 f"ShardedEngine over {mesh!r}: the port runs a mesh of "
                 f"more than one device as one process a rank; call "
                 f"runtime.ranks.init_ranks() first (e.g. under torchrun)")
-        if model.cfg.family != "dense" or any(
-                isinstance(x, QTensor) for x in leaves(params)):
-            raise NotImplementedError(
-                f"ShardedEngine across ranks serves the dense family in "
-                f"bf16 and fp32; {model.cfg.family!r}"
-                f"{' with W8A8 weights' if model.cfg.family == 'dense' else ''}"
-                f" across ranks (kernels 4-6 on local shards) is ROADMAP.md's "
-                f"next item")
         dm = device_mesh(mesh)
-        if not shard_rules.is_dtensor(leaves(params)[0]):
+        if not any(shard_rules.is_dtensor(x) for x in leaves(params)):
             params = shard_rules.place(
                 params, shard_rules.param_shardings(mesh, params), dm)
         self.param_specs = shard_rules.param_shardings(mesh, params)

@@ -26,6 +26,7 @@ from repro_torch.configs import get_config
 from repro_torch.interop import params_from_numpy
 from repro_torch.models import Ctx, build_model
 from repro_torch.serve import Request, ServeEngine
+import torch_tune_cache  # noqa: F401 (pins torch's threads)
 
 J_CTX = JCtx(plan=JPlan(backend="interpret"), dtype=jnp.float32)
 CTX = Ctx(plan="auto", dtype=torch.float32)

@@ -14,7 +14,7 @@ counterparts run in a subprocess with four host devices as JAX's
   plain path, the requests of JAX's ``test_sharded_engine_8_device_parity``:
   tokens equal to JAX's unsharded ``ServeEngine`` and the port's one-rank
   engine on every rank, params sharded for real, no decode graph;
-  ``page_size``, W8A8 and MoE across ranks refused.
+  ``page_size`` across ranks refused, W8A8 and MoE engines serving.
 * the kernels' entry points on DTensor operands (the plain versions on
   the CPU): column-, row- and batch-sharded products and attention
   through ``map_heads`` against the global product.
@@ -170,10 +170,13 @@ def test_sharded_engine_matches_jax_and_one_rank(gemma, shape, tmp_path):
         assert o["sharded"] > 0
         assert o["captures"] == []
         refused = {what: (kind, msg) for what, kind, msg in o["refused"]}
+        assert set(refused) == {"page_size"}
         assert refused["page_size"][0] == "ValueError"
-        assert refused["w8a8"][0] == "NotImplementedError"
-        assert refused["moe"][0] == "NotImplementedError"
-        assert "ROADMAP" in refused["moe"][1]
+        # W8A8 and MoE now serve across ranks (their tokens against one
+        # rank: test_torch_multirank_quant_moe.py)
+        assert set(o["served"]) == {"w8a8", "moe"}
+        assert all(len(t) == torch_ranks.MAX_NEW[0]
+                   for t in o["served"].values())
 
 
 def test_kernel_entry_points_on_local_shards(tmp_path):

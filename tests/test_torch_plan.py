@@ -34,6 +34,7 @@ from repro_torch.models import Ctx, build_model
 from repro_torch.plan import (KernelConfig, OpKey, Plan, as_plan,
                               config_backend, resolve, trace_model)
 from repro_torch.serve import Request, ServeEngine
+import torch_tune_cache  # noqa: F401 (pins torch's threads)
 
 ARCHS = ("gemma-7b", "deepseek-coder-33b", "olmoe-1b-7b", "mamba2-130m",
          "zamba2-2.7b", "seamless-m4t-large-v2", "llava-next-34b")

@@ -39,6 +39,7 @@ from repro_torch.kernels import zero_stall_matmul as zs
 from repro_torch.plan import KernelConfig, OpKey, Plan
 from repro_torch.tune import (DEFAULT_SPACE, SMALL_SPACE, AnalyticOracle,
                               Candidate, MeasuredOracle, Problem, TuneCache)
+import torch_tune_cache  # noqa: F401 (pins torch's threads)
 
 
 # the modules (the packages export functions of the same name)

@@ -59,9 +59,13 @@ def local_tree(tree):
 
 
 def sharded_leaves(tree) -> int:
+    """The DTensor leaves of ``tree`` sharded on some mesh dim (a
+    QTensor's codes and scales counted apart)."""
+    from repro_torch.quant.tensor import QTensor
     from repro_torch.tree import leaves
-    return sum(any(not p.is_replicate() for p in x.placements)
-               for x in leaves(tree))
+    xs = [y for x in leaves(tree)
+          for y in ((x.data, x.scale) if isinstance(x, QTensor) else (x,))]
+    return sum(any(not p.is_replicate() for p in x.placements) for x in xs)
 
 
 def coordinate(mesh) -> tuple:
@@ -145,7 +149,9 @@ def _unflat(flat: dict) -> dict:
 
 def sharded_engine(rank, n, shape, npz, backend):
     """ShardedEngine over ``shape`` on JAX's reduced gemma-7b params: its
-    tokens, the leaves it shards, and the refusals across ranks."""
+    tokens, the leaves it shards, the refusal of ``page_size`` across
+    ranks, and the tokens the W8A8 and MoE engines serve there (which
+    ``test_torch_multirank_quant_moe.py`` holds against one rank)."""
     from repro_torch.configs import get_config
     from repro_torch.interop import params_from_numpy
     from repro_torch.launch.mesh import make_mesh_compat
@@ -161,7 +167,7 @@ def sharded_engine(rank, n, shape, npz, backend):
     res = eng.run(requests(cfg.vocab_size))
     out = {"tokens": {i: r.tokens for i, r in res.items()},
            "sharded": sharded_leaves(eng.params),
-           "captures": eng.captures, "refused": []}
+           "captures": eng.captures, "refused": [], "served": {}}
     moe = get_config("olmoe-1b-7b", reduced=True)
     for what, make in (
             ("page_size", lambda: ShardedEngine(
@@ -174,9 +180,11 @@ def sharded_engine(rank, n, shape, npz, backend):
                     seed=0, dtype=torch.float32, device="cpu"), ctx,
                 mesh=mesh, max_len=32))):
         try:
-            make()
+            got = make().run(requests(cfg.vocab_size)[:1])
         except (ValueError, NotImplementedError) as e:
             out["refused"].append((what, type(e).__name__, str(e)))
+        else:
+            out["served"][what] = got[0].tokens
     return out
 
 
@@ -378,3 +386,191 @@ def ops_on_shards(rank, n, device):
     out["scale"] = float(want.abs().max())
     out["launches"] = launches.since(before)
     return out
+
+
+def int8_and_grouped_ops_on_shards(rank, n, device):
+    """Kernels 4, 5 and 6 on DTensor operands, each against its plain
+    version on the same global operands: the int8 product column-, row-
+    and batch-sharded, the grouped product sharded by group, by
+    contraction and by group against a replicated bank, the int8 grouped
+    product by group and by contraction.  The row-parallel (contraction)
+    cases give each rank's slice of every row a different absmax, so a
+    scale taken over a rank's slice alone would show.  The largest
+    errors and placements, the plain scales and the launches made (none
+    on the CPU)."""
+    from repro_torch.kernels import launches, ops
+    from repro_torch.kernels import ref
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.quant import quantize, quantize_rows
+    from repro_torch.quant.tensor import QTensor
+    from repro_torch.runtime.ranks import device_mesh
+    from repro_torch.runtime.sharding import P, NamedSharding, place
+    dt = torch.bfloat16 if device != "cpu" else torch.float32
+    g = torch.Generator().manual_seed(1)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g)
+
+    # every row's slices of K differ in magnitude: a per-slice absmax
+    # differs from the row's
+    ramp = torch.linspace(0.25, 4.0, 256)
+    x = (randn(64, 256) * ramp).to(device, dt)
+    xg = (randn(4, 16, 256) * ramp).to(device, dt)
+    w, wg = quantize(randn(256, 384)), quantize(randn(4, 256, 96))
+    w = QTensor(w.data.to(device), w.scale.to(device), w.fmt, w.w8a8)
+    wg = QTensor(wg.data.to(device), wg.scale.to(device), wg.fmt, wg.w8a8)
+    bg = randn(4, 256, 96).to(device, dt)
+
+    def plain_int8(a, qw, rf):
+        a_q, a_s = quantize_rows(a)
+        return rf(a_q, qw.data, a_s, qw.scale, torch.float32)
+
+    want = {"int8": plain_int8(x, w, ref.quantized_matmul_ref),
+            "grouped": ref.grouped_matmul_ref(xg, bg, torch.float32),
+            "int8_grouped": plain_int8(xg, wg,
+                                       ref.quantized_grouped_matmul_ref)}
+    cols = make_mesh_compat((1, n), ("data", "model"), device=device)
+    rows = make_mesh_compat((n, 1), ("data", "model"), device=device)
+
+    def placed(t, mesh, spec, scale_spec=None):
+        dm = device_mesh(mesh)
+        if isinstance(t, QTensor):
+            sh = QTensor(NamedSharding(mesh, P(*spec)),
+                         NamedSharding(mesh, P(*scale_spec)), t.fmt, t.w8a8)
+        else:
+            sh = NamedSharding(mesh, P(*spec))
+        return place({"t": t}, {"t": sh}, dm)["t"]
+
+    R3 = (None, None, None)
+    cases = {
+        "int8_column": ("int8", cols, x, (), w, (None, "model"),
+                        (None, "model")),
+        "int8_row": ("int8", cols, x, (None, "model"), w, (), ()),
+        "int8_batch": ("int8", rows, x, ("data", None), w, (), ()),
+        "grouped_groups": ("grouped", cols, xg, ("model",), bg,
+                           ("model",), None),
+        "grouped_contraction": ("grouped", cols, xg, (None, None, "model"),
+                                bg, (None, "model", None), None),
+        "grouped_bank_replicated": ("grouped", cols, xg, ("model",), bg, R3,
+                                    None),
+        "int8_grouped_groups": ("int8_grouped", cols, xg, ("model",), wg, R3,
+                                R3),
+        "int8_grouped_row": ("int8_grouped", cols, xg, (None, None, "model"),
+                             wg, R3, R3),
+    }
+    out, before = {}, launches.snapshot()
+    for name, (kind, mesh, a, sa, b, sb, ss) in cases.items():
+        ad, bd = placed(a, mesh, sa), placed(b, mesh, sb, ss)
+        fn = {"int8": ops.quantized_matmul, "grouped": ops.grouped_matmul,
+              "int8_grouped": ops.quantized_grouped_matmul}[kind]
+        y = fn(ad, bd, config="auto", out_dtype=dt)
+        out[name] = (float((y.full_tensor().float() - want[kind]).abs().max()),
+                     [str(p) for p in y.placements])
+    out["scale"] = {k: float(v.abs().max()) for k, v in want.items()}
+    out["launches"] = launches.since(before)
+    return out
+
+
+S_ENC = 12      # an encdec request's source frames (enc_len)
+
+
+def family_requests(cfg):
+    """:func:`requests` with the family's frontend: a vlm request's
+    ``frontend_tokens`` prefix positions, an encdec request's ``S_ENC``
+    source frames (random, 0.1 scale, from seed 4)."""
+    import dataclasses
+    reqs = requests(cfg.vocab_size)
+    n = {"vlm": getattr(cfg, "frontend_tokens", 0),
+         "encdec": S_ENC}.get(cfg.family)
+    if not n:
+        return reqs
+    fe = (np.random.default_rng(4).standard_normal(
+        (len(reqs), n, cfg.d_model)) * 0.1).astype(np.float32)
+    return [dataclasses.replace(r, frontend_embeds=f)
+            for r, f in zip(reqs, fe)]
+
+
+def family_engine_kw(cfg) -> dict:
+    kw = dict(ENGINE_KW)
+    if cfg.family == "encdec":
+        kw["cache_kwargs"] = {"enc_len": S_ENC}
+    return kw
+
+
+def family_engine(rank, n, arch, npz, quant, shapes):
+    """``ShardedEngine`` of the reduced ``arch`` on JAX's params in
+    ``npz`` (W8A8 with ``quant``; the kernel path, whose wrappers run
+    their plain versions on the CPU) over each mesh of ``shapes`` in
+    turn: its tokens, the param and cache leaves it shards, its captures
+    and the operations replicated for want of a DTensor plan."""
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import Ctx, build_model
+    from repro_torch.plan import KernelConfig
+    from repro_torch.serve import ShardedEngine
+    cfg = get_config(arch, reduced=True)
+    model = build_model(cfg)
+    params = params_from_numpy(_unflat(dict(np.load(npz))), cfg,
+                               device="cpu")
+    if quant:
+        params = model.quantize_weights(params)
+    ctx = Ctx(plan=KernelConfig(quant="int8") if quant else "auto",
+              dtype=torch.float32)
+    out = {}
+    for shape in shapes:
+        mesh = make_mesh_compat(tuple(shape), ("data", "model"),
+                                device="cpu")
+        obs.reset_counters("dryrun.")
+        eng = ShardedEngine(model, params, ctx, mesh=mesh,
+                            **family_engine_kw(cfg))
+        res = eng.run(family_requests(cfg))
+        out[tuple(shape)] = {
+            "tokens": {i: r.tokens for i, r in res.items()},
+            "sharded": sharded_leaves(eng.params),
+            "cache_sharded": sharded_leaves(
+                {k: v for k, v in eng.cache.items() if k != "pos"}),
+            "captures": eng.captures,
+            "replicated": obs.counters("dryrun.redistribute_for_op.")}
+    return out
+
+
+def save_one_leaf_at_a_time(rank, n, save_dir):
+    """Reduced gemma-7b params (seed 0) placed on (2, 2) and saved at step
+    10 in ``save_dir``, every ``DTensor.full_tensor`` result counted
+    while it is alive: how many gathers ran and the most alive at once."""
+    import weakref
+    from torch.distributed.tensor import DTensor
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import build_model
+    from repro_torch.runtime import sharding as shr
+    from repro_torch.runtime.ranks import device_mesh
+    params = build_model(get_config("gemma-7b", reduced=True)).init(
+        seed=0, dtype=torch.float32, device="cpu")
+    mesh = make_mesh_compat((2, 2), ("data", "model"), device="cpu")
+    placed = shr.place(params, shr.param_shardings(mesh, params),
+                       device_mesh(mesh))
+    count = {"alive": 0, "peak": 0, "gathers": 0}
+    gather = DTensor.full_tensor
+
+    def dead():
+        count["alive"] -= 1
+
+    def counted(self, *args, **kwargs):
+        t = gather(self, *args, **kwargs)
+        count["gathers"] += 1
+        count["alive"] += 1
+        count["peak"] = max(count["peak"], count["alive"])
+        weakref.finalize(t, dead)
+        return t
+
+    DTensor.full_tensor = counted
+    try:
+        Checkpointer(save_dir, keep=1).save(10, {"params": placed},
+                                            blocking=True)
+    finally:
+        DTensor.full_tensor = gather
+    return count
