@@ -65,8 +65,9 @@ Phases, each printed as it runs:
    cache, the paged cache, and (dense only) the paged cache with
    chunked prefill; and, sampled (temperature 0.9, top-k 20, top-p
    0.95, seeded and engine-derived keys), the tokens of the engine's
-   CUDA graph must equal those of its eager block, bit for bit, at
-   K = 1 and K = 4 (dense: K = 1's equal K = 4's);
+   CUDA graphs (decode block and prefill) must equal those of its
+   eager block and eager prefill, bit for bit, at K = 1 and K = 4
+   (dense: K = 1's equal K = 4's);
 5. full-width gemma-7b (28 layers, random weights from a seed) in bf16
    serving 8 mixed-length requests through ``serve_batch``: prefill and
    decode tokens/s, each kernel's launch count against the count the
@@ -280,6 +281,32 @@ Phases, each printed as it runs:
    5h) and llava-next-34b in bf16 at 8 of 60 layers (2880 patch
    positions a request), with kernels 1 and 2's launch counts; every
    configuration is printed before a failed gate ends the phase;
+   (5s (d)) no engine across ranks captures a graph, prefill included;
+5s. prefill as compiled programs (one CUDA graph a prompt bucket and
+   frontend shape, one a chunk shape, every one writing the engine's one
+   batch-1 cache): (a) inside phase 5, on
+   its weights and traffic, one ``ServeEngine`` prefilling through its
+   graphs and one with the private hook stubbed (eager prefill): each
+   request's first-prefill logits and its batch-1 cache rows up to
+   ``pos`` bit-equal, the 256 greedy tokens equal, launch counts the
+   path's, one prefill graph a bucket; a prefill pass a bucket (32, 64,
+   128) under the graph and eagerly, in turns graph, eager, eager,
+   graph, and the device-busy share of a graphed and an eager 128-token
+   pass; then the graphs' memory at gemma-7b's 8192-token context: one
+   admission at each of the 11 buckets (8 to 8192) of a one-slot
+   engine, each capture's pool, the memory allocated and reserved, the
+   allocated growth after the first capture under one batch-1 cache
+   (3.76 GB; a graph a bucket holding its own would need 11), and all
+   of it back when the engine is dropped; (b) inside 5b, on its weights and traffic, chunked prefill
+   (96-token chunks, two chunked admissions in flight at once)
+   contiguous and paged, graphed against eager chunks: logits and
+   tokens bit-equal, the same chunk count, one chunk graph, the stripe
+   handed between the admissions in flight; (c)
+   inside 5c, 5d, 5g, 5h, 5i and 5j, on their weights, one request
+   each (olmoe-1b-7b bf16 and W8A8, zamba2-2.7b, mamba2-130m,
+   seamless-m4t-large-v2 with its frames, llava-next-34b with 2880
+   patch positions): the first-prefill logits of the graph's replay
+   bit-equal to the eager body's;
 6. each kernel's time at the main-path shapes with CUDA events over a
    CUDA graph of many calls (device time, with the host's launch work
    taken out; operands cycled past the 50 MB L2), beside its plain
@@ -307,7 +334,8 @@ Phases, each printed as it runs:
    128-tile) over a CUDA graph and issued eagerly, beside kernel 1 and
    cuBLAS (printed, not gated);
 7. the script's wall time, a ``{"kernels": [...]}`` line (with each
-   kernel's launches on the paths of 5p, 5g-5l and 5r (rank 0), the zamba2
+   kernel's launches on the paths of 5p, 5g-5l, 5r (rank 0) and 5s,
+   the zamba2
    shapes' and
    the slice-9 shapes' timings of kernels 1-3 and kernel 1's ZONL
    comparison), the card line, and the
@@ -315,9 +343,11 @@ Phases, each printed as it runs:
    ``{"ok": true, ...}`` line.
 
 On the card the engine decodes through one CUDA graph a variant
-(greedy only, sampled), captured after the variant's first dispatch;
-every serving phase prints its engines' captures and their pool bytes,
-and each wrapper's launch count counts the launches a replay runs.
+(greedy only, sampled), captured after the variant's first dispatch,
+and prefills through one graph a prompt bucket and one a chunk shape,
+each captured after its first (eager) use; every serving phase prints
+its engines' captures and their pool bytes, and each wrapper's launch
+count counts the launches a replay runs.
 
 Any failed check raises, so the script exits non-zero and prints no
 ``ok`` line.  It exits non-zero at once without a CUDA device, or when
@@ -475,7 +505,7 @@ def main() -> int:
     # kernel 4 runs on two paths (5d, 5e); the line reads 5e's, where it
     # carries every projection, so that each count is that of one run
     counts["quantized_zero_stall_matmul"] = serve_gemma_w8a8(torch, kern)
-    by_path = {"5p": PHASE5["5p"]}
+    by_path = {"5p": PHASE5["5p"], "5s": PHASE5["5s"]}
     by_path.update(serve_zamba2_full_width(torch, kern))
     by_path.update(serve_mamba2_full_width(torch, kern))
     for phase in (serve_seamless_full_width, serve_llava_full_width,
@@ -496,7 +526,8 @@ def main() -> int:
         {"name": "zero_stall_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/zero_stall_sm90.cu",
          "design": "bf16: TMA + mbarrier ring, wgmma (swap AB), split-k; "
-                   "decode replays it inside the engine's CUDA graph",
+                   "decode and prefill replay it inside the engine's CUDA "
+                   "graphs",
          "replaces": "src/repro/kernels/zero_stall_matmul.py:200",
          "launches": counts["zero_stall_matmul"],
          "max_abs_err": errs["zero_stall_matmul"], **timings["matmul"]},
@@ -1465,9 +1496,18 @@ REDUCED_ENC_LEN = 12
 
 
 def variants(eng) -> list[str]:
-    """The variants (greedy, sampled) of the CUDA graphs ``eng`` captured,
-    in capture order."""
-    return [c["variant"] for c in eng.captures]
+    """The decode variants (greedy, sampled) of the CUDA graphs ``eng``
+    (an engine, or its list of captures) captured, in capture order; its
+    prefill and chunk graphs are left out (:func:`prefill_variants`)."""
+    caps = eng if isinstance(eng, list) else eng.captures
+    return [c["variant"] for c in caps
+            if not c["variant"].startswith("prefill")]
+
+
+def prefill_variants(eng) -> list[str]:
+    """The prefill and chunk graphs ``eng`` captured, in capture order."""
+    return [c["variant"] for c in eng.captures
+            if c["variant"].startswith("prefill")]
 
 
 def print_captures(label: str, captures: list[dict]) -> None:
@@ -1576,7 +1616,9 @@ def check_reduced_engines(torch, kern) -> None:
                         num_slots=2, max_len=32, steps_per_dispatch=K,
                         seed=3, device="cuda", **mode_kw, **enc_kw)
                     if eager:
+                        # no graph at all: the eager block and prefill
                         eng._capture = lambda greedy_only: None
+                        eng._capture_prefill = lambda key: None
                     res = eng.run([Request(rid=i, prompt=p, max_new_tokens=m,
                                            frontend_embeds=fronts[i],
                                            temperature=0.9, top_k=20,
@@ -1586,7 +1628,8 @@ def check_reduced_engines(torch, kern) -> None:
                                                                   max_new))])
                     sampled[mode, K, eager] = [res[i].tokens
                                                for i in range(4)]
-                    require(variants(eng) == ([] if eager else ["sampled"]),
+                    require(variants(eng) == ([] if eager else ["sampled"])
+                            and bool(prefill_variants(eng)) != eager,
                             f"{arch} {weights} {mode} sampled K={K}: "
                             f"captures {eng.captures}")
                 require(sampled[mode, K, False] == sampled[mode, K, True],
@@ -1607,7 +1650,8 @@ def check_reduced_engines(torch, kern) -> None:
               f"{sum(map(len, outs['contiguous', 'torch', 1]))} tokens "
               f"equal on both paths at K=1 and K=4 in {len(outs) // 4} modes"
               + (" (each mode and K against itself)" if moe else "")
-              + "; sampled, graph == eager block at K=1 and K=4"
+              + "; sampled, graphs (decode and prefill) == eager block "
+              "and prefill at K=1 and K=4"
               + ("" if moe else ", K=1 == K=4"))
 
 
@@ -1675,7 +1719,7 @@ def serve_full_width(torch, kern):
             "flash-attention launch count differs from the path's")
     check_designs("5", kern)
     print_captures("serve_batch's engine", out["captures"])
-    require([c["variant"] for c in out["captures"]] == ["greedy"],
+    require(variants(out["captures"]) == ["greedy"],
             "5: the engine did not decode through one greedy CUDA graph")
     gen = out["generated"]
     require(gen.shape == (8, 32) and (gen >= 0).all()
@@ -1710,6 +1754,8 @@ def serve_full_width(torch, kern):
     greedy = serve_block_full_width(torch, kern, model, params, gen)
     PHASE5["tokens"] = greedy
     serve_sampled_full_width(torch, kern, model, params, greedy)
+    PHASE5["5s"] = prefill_graphs_full_width(torch, kern, model, params,
+                                             greedy)
     PHASE5["5p"] = serve_cluster_full_width(torch, kern, model, params,
                                             greedy)
     roofline_of_the_card(torch, model, params)
@@ -1861,9 +1907,9 @@ def roofline_of_the_card(torch, model, params) -> None:
 def engine_for(torch, model, params, ctx, *, K: int, eager: bool = False,
                max_len: int | None = None, **kw):
     """A ``ServeEngine`` with phase 5's slots and length (or ``max_len``)
-    on the card; with ``eager`` it never captures, so every dispatch runs
-    the block's eager loop (the engine's private hook; no public switch
-    exists)."""
+    on the card; with ``eager`` it never captures the decode block, so
+    every dispatch runs the block's eager loop (the engine's private
+    hook; no public switch exists)."""
     from repro_torch.serve import ServeEngine
     eng = ServeEngine(model, params, ctx, num_slots=SERVE_KW["num_slots"],
                       max_len=max_len or (SERVE_KW["prompt_len"]
@@ -2216,6 +2262,10 @@ def serve_cluster_full_width(torch, kern, model, params, greedy: dict
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     mem_alive = torch.cuda.memory_allocated()
+    res_alive = torch.cuda.memory_reserved()
+    fleet_pools = sum(c["pool_bytes"] for rep in router.replicas
+                      for c in rep.engine.captures
+                      if c["variant"].startswith("prefill"))
     print(f"    (b) Router over 2 paged replicas, router.kill(1) after step "
           f"{KILL_AT}: {len(res)} requests in {wall:.3f} s of wall time; "
           f"in flight on replica 1 at the kill {info['requeued']}; seconds "
@@ -2239,8 +2289,12 @@ def serve_cluster_full_width(torch, kern, model, params, greedy: dict
     mem_after = torch.cuda.memory_allocated()
     print(f"    memory allocated: {mem0 / 2 ** 30:.3f} GiB before 5p, "
           f"{mem_alive / 2 ** 30:.3f} GiB with (b)'s router (its dead "
-          f"replica's cache and graph included), {mem_after / 2 ** 30:.3f} "
-          f"GiB after it is dropped")
+          f"replica's cache and graphs included), "
+          f"{mem_after / 2 ** 30:.3f} GiB after it is dropped; reserved "
+          f"{res_alive / 2 ** 30:.3f} GiB with the router, "
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB after; the "
+          f"two replicas' prefill graphs' pools "
+          f"{fleet_pools / 2 ** 20:.1f} MiB")
     # one replica's page pool alone is 41 pages of 16 rows (300 MiB)
     require(mem_after <= mem0 + 2 ** 26, "5p (b): the dropped fleet left "
             "memory allocated")
@@ -2449,6 +2503,8 @@ def serve_paged_full_width(torch, kern) -> dict:
         del eng, res
         torch.cuda.empty_cache()
     engine_mod._wait = wait
+    chunk_graphs_full_width(torch, kern, model, params, ctx, reqs, base,
+                            chunk, ps)
 
     # the first four requests (prompts of 128, 96, 80 and 112 tokens):
     # the paged engine admits the 128- and 112-token ones through its
@@ -2462,8 +2518,7 @@ def serve_paged_full_width(torch, kern) -> dict:
     for mode in ("contiguous", "paged"):
         eng = ServeEngine(model, params, ctx, **base,
                           **(paged if mode == "paged" else {}))
-        pre[mode] = {}
-        record_first_logits(eng, pre[mode])
+        pre[mode] = prefill_recorder(eng)["logits"]
         launched = kern["flash_attention"].launches
         first[mode] = []
         for slot, r in enumerate(reqs[:n]):
@@ -2492,8 +2547,8 @@ def serve_paged_full_width(torch, kern) -> dict:
             require(eng.stats.pages_shared >= 4, "the 4 admissions share "
                     "fewer than 4 prefix pages")
         del eng
-    first_pre = torch.cat([pre["paged"][i] for i in range(n)])
-    want_pre = torch.cat([pre["contiguous"][i] for i in range(n)])
+    first_pre = torch.cat([pre["paged"][i][:, -1] for i in range(n)])
+    want_pre = torch.cat([pre["contiguous"][i][:, -1] for i in range(n)])
     err = (first_pre - want_pre).abs().max().item()
     scale = want_pre.abs().max().item()
     print(f"    first tokens: paged, chunked {first['paged']}, contiguous "
@@ -2518,16 +2573,382 @@ def serve_paged_full_width(torch, kern) -> dict:
     return counts
 
 
-def record_first_logits(eng, out: dict) -> None:
-    """Have ``eng`` keep each admission's last-position prefill logits
-    in ``out[slot]`` when it samples the first token."""
-    first_token = eng._first_token
+# ----------------------------------------------------------------------
+# 5s. prefill as compiled programs: one CUDA graph a prompt bucket and
+# frontend shape, one a chunk shape
+# ----------------------------------------------------------------------
+GEMMA_CONTEXT = 8192        # gemma-7b's published context length
+def eager_prefill(eng):
+    """``eng`` with the private hook stubbed: no prefill or chunk program
+    is ever captured, so every one runs eagerly (no public switch)."""
+    eng._capture_prefill = lambda key: None
+    return eng
 
-    def recording(req, slot, logits):
-        out[slot] = logits[:, -1].float()
+
+def prefill_recorder(eng) -> dict:
+    """Have ``eng`` keep, by request id, each admission's first-prefill
+    logits and its batch-1 cache as installed: the ``k`` and ``v`` rows
+    up to ``pos`` and ``pos`` itself."""
+    rec = {"logits": {}, "rows": {}}
+    install, first_token = eng._install, eng._first_token
+
+    def installing(req, slot, cache1, n_prompt):
+        rec["rows"][req.rid] = {n: cache1[n][:, :, :n_prompt].clone()
+                                for n in ("k", "v")}
+        rec["rows"][req.rid]["pos"] = cache1["pos"].clone()
+        return install(req, slot, cache1, n_prompt)
+
+    def sampling(req, slot, logits):
+        rec["logits"][req.rid] = logits.clone()
         return first_token(req, slot, logits)
 
-    eng._first_token = recording
+    eng._install, eng._first_token = installing, sampling
+    return rec
+
+
+def same_prefills(torch, label: str, got: dict, want: dict,
+                  rows: bool = True) -> None:
+    """Two recorders' logits (and cache rows) bit-equal, request by
+    request; the largest difference printed where they are not."""
+    bad = []
+    for rid, lg in want["logits"].items():
+        if not torch.equal(got["logits"][rid], lg):
+            bad.append(f"request {rid} logits, max |diff| "
+                       f"{(got['logits'][rid] - lg).abs().max().item():.4g}")
+        for name, t in (want["rows"][rid].items() if rows else ()):
+            if not torch.equal(got["rows"][rid][name], t):
+                bad.append(f"request {rid} cache {name}")
+    print(f"    {label}: {len(want['logits'])} requests' first-prefill "
+          f"logits" + (" and cache rows up to pos" if rows else "")
+          + (" bit-equal" if not bad else f" DIFFER: {bad}"))
+    require(not bad and got["logits"].keys() == want["logits"].keys(),
+            f"{label}: graphed and eager prefill differ: {bad}")
+
+
+def prefill_passes(eng, reqs, bucket: int) -> dict:
+    """The graphed and the eager prefill pass of ``eng`` at ``bucket``, on
+    the first of ``reqs`` whose prompt fills it, each ended by the host's
+    read of its logits."""
+    from repro_torch.serve.engine import _host
+    req = next(r for r in reqs if len(r.prompt) == bucket)
+    key = eng._load_prefill(req)
+    graph, (logits, _), _ = eng._pf_graphs[key]
+    return {"graph": lambda: (graph.replay(), _host(logits)),
+            "eager": lambda: _host(eng._prefill_program(key)[0])}
+
+
+def prefill_pass_ms(torch, eng, reqs, n: int = 3) -> dict:
+    """ms of one prefill pass of ``eng`` at each bucket that a prompt of
+    ``reqs`` fills, the graph's replay against the eager body, in turns
+    graph, eager, eager, graph of ``n`` passes (:func:`prefill_passes`);
+    then the device-busy share of a graphed and an eager pass at the
+    largest of them.  The launch counters are left as they were."""
+    from repro_torch.kernels import launches
+    before = launches.snapshot()
+    out = {}
+    for b in sorted({len(r.prompt) for r in reqs
+                     if eng._bucket(len(r.prompt), eng.max_len)
+                     == len(r.prompt)}):
+        fns = prefill_passes(eng, reqs, b)
+        for fn in fns.values():
+            fn()
+        torch.cuda.synchronize()
+        times = {"graph": [], "eager": []}
+        for how in ("graph", "eager", "eager", "graph"):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fns[how]()
+            times[how].append(1e3 * (time.perf_counter() - t0) / n)
+        out[b] = times
+        g, e = (sum(times[k]) / 2 for k in ("graph", "eager"))
+        print(f"    prefill pass at bucket {b} (ms; turns graph, eager, "
+              f"eager, graph): graph "
+              f"{' / '.join(f'{t:.3f}' for t in times['graph'])}, eager "
+              f"{' / '.join(f'{t:.3f}' for t in times['eager'])}: "
+              f"{e / g:.2f}x")
+    top = max(out)
+    for how, fn in prefill_passes(eng, reqs, top).items():
+        busy, wall_us, names, events = device_busy(torch, fn)
+        if not events:
+            print(f"    {how} {top}-token pass: the profiler recorded no "
+                  f"device event: device-busy share not measured")
+            continue
+        pass_us = 1e3 * sum(out[top][how]) / 2
+        print(f"    {how} {top}-token pass under torch.profiler: {events} "
+              f"device events, device busy {busy:.0f} us of {wall_us:.0f} "
+              f"us of host time ({busy / wall_us:.1%}); against the "
+              f"unprofiled pass ({pass_us:.0f} us): {busy / pass_us:.1%} "
+              f"busy, {1 - busy / pass_us:.1%} idle")
+        print("      most device time: " + "; ".join(
+            f"{name[:60]} {us:.0f} us" for name, us in names))
+    launches.add(launches.since(before), -1)
+    return out
+
+
+def prefill_graphs_full_width(torch, kern, model, params, greedy: dict
+                              ) -> dict:
+    """5s (a): phase 5's traffic through ``ServeEngine`` on phase 5's
+    weights, prefilling through its graphs (one a prompt bucket) and
+    then eagerly (the private hook stubbed): each request's first-prefill
+    logits and cache rows up to ``pos`` bit-equal, the greedy tokens
+    equal to each other and to phase 5's, the launches the path's; then
+    :func:`prefill_pass_ms`.  Returns the graphed run's launch counts
+    (this slice's path, its counts set to 0 just before it)."""
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import Ctx
+    kw, L = SERVE_KW, GEMMA["layers"]
+    print("[5s] prefill as compiled programs, gemma-7b full width bf16 on "
+          "phase 5's weights and traffic: (a) ServeEngine prefilling "
+          "through one CUDA graph a prompt bucket, then eagerly",
+          flush=True)
+    ctx = Ctx(plan="auto", dtype=torch.bfloat16)
+    runs, engines = {}, {}
+    for how in ("graph", "eager"):
+        reqs = make_requests(model.cfg, kw["seed"], kw["batch"],
+                             kw["prompt_len"], kw["gen_len"], kw["mixed"])
+        eng = engine_for(torch, model, params, ctx,
+                         K=kw["steps_per_dispatch"])
+        if how == "eager":
+            eager_prefill(eng)
+        rec = prefill_recorder(eng)
+        reset_counts(kern)
+        t0 = time.perf_counter()
+        res = eng.run(reqs)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        s = eng.stats
+        got = {n: k.launches for n, k in kern.items()}
+        want = {n: 0 for n in kern}
+        want.update(
+            zero_stall_matmul=(7 * L + 1) * (s.admitted + s.decode_steps),
+            flash_attention=L * s.admitted)
+        print(f"    {how} prefill: prefill {s.prefill_tok_s:.1f} tok/s over "
+              f"{s.prefill_s:.3f} s ({s.admitted} admissions); decode "
+              f"{s.decode_tok_s:.1f} tok/s over {s.decode_s:.3f} s; run "
+              f"{t_run:.3f} s")
+        check_counts(f"5s (a) {how}", got, want, f"(7*{L}+1) matmuls per "
+                     f"pass over {s.admitted} + {s.decode_steps} passes, "
+                     f"{L} flash calls per prefill")
+        print_captures(f"5s (a) {how}", eng.captures)
+        runs[how] = {"tokens": {i: r.tokens for i, r in res.items()},
+                     "rec": rec, "launches": got}
+        engines[how] = eng
+    buckets = sorted({eng._bucket(n, eng.max_len)
+                      for n in (len(r.prompt) for r in reqs)})
+    pf = prefill_variants(engines["graph"])
+    require(sorted(pf) == sorted(f"prefill:{b}" for b in buckets)
+            and len(engines["graph"]._pf_graphs) == len(buckets),
+            f"5s (a): prefill graphs {pf}, one a bucket of {buckets} "
+            f"expected")
+    require(not prefill_variants(engines["eager"]),
+            "5s (a): the eager engine captured a prefill")
+    same_prefills(torch, "5s (a) graph against eager",
+                  runs["graph"]["rec"], runs["eager"]["rec"])
+    n_tok = sum(map(len, runs["eager"]["tokens"].values()))
+    require(runs["graph"]["tokens"] == runs["eager"]["tokens"] == greedy,
+            "5s (a): graphed prefill's tokens differ from eager prefill's "
+            "or phase 5's")
+    print(f"    5s (a): all {n_tok} greedy tokens equal (graph, eager, "
+          f"phase 5); {len(buckets)} prefill graphs for "
+          f"{len(runs['graph']['rec']['logits'])} admissions")
+    launched = runs["graph"]["launches"]
+    del engines["eager"], runs
+    prefill_pass_ms(torch, engines["graph"], reqs)
+    del engines
+    torch.cuda.empty_cache()
+    prefill_memory_at_context(torch, model, params)
+    return launched
+
+
+def prefill_memory_at_context(torch, model, params) -> None:
+    """5s (a), memory: a one-slot bf16 ``ServeEngine`` at gemma-7b's
+    8192-token context admits one prompt at each of its buckets (8 to
+    8192, random tokens from seed 0), each admission's first use eager
+    and then its capture.  Prints each capture's pool and the memory
+    allocated and reserved; requires the allocated growth after the
+    first capture to stay under one batch-1 cache (the graphs write the
+    engine's one buffer: a graph that held a cache of its own would add
+    one a bucket) and everything to go back when the engine is dropped.
+    The launch counters are left as they were."""
+    import numpy as np
+
+    from repro_torch.kernels import launches
+    from repro_torch.models import Ctx
+    from repro_torch.serve import Request, ServeEngine
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = launches.snapshot()
+    mem0 = torch.cuda.memory_allocated()
+    res0 = torch.cuda.memory_reserved()
+    eng = ServeEngine(model, params, Ctx(plan="auto", dtype=torch.bfloat16),
+                      num_slots=1, max_len=GEMMA_CONTEXT,
+                      cache_dtype=torch.bfloat16, device="cuda")
+    one = sum(t.numel() * t.element_size()
+              for t in eng._batch1(torch.bfloat16).values())
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    mem = []
+    for i, b in enumerate(eng.bucket_sizes):
+        prompt = [int(t) for t in rng.integers(1, GEMMA["V"], b)]
+        eng._admit(Request(rid=i, prompt=prompt, max_new_tokens=1), 0)
+        torch.cuda.synchronize()
+        mem.append(torch.cuda.memory_allocated())
+    wall = time.perf_counter() - t0
+    res1 = torch.cuda.memory_reserved()
+    pools = sum(c["pool_bytes"] for c in eng.captures)
+    print_captures(f"5s (a) memory at a {GEMMA_CONTEXT}-token context",
+                   eng.captures)
+    grow = mem[-1] - mem[0]
+    print(f"    5s (a) memory at a {GEMMA_CONTEXT}-token context: "
+          f"{len(eng.captures)} prefill graphs (buckets "
+          f"{list(eng.bucket_sizes)}) in {wall:.3f} s; one batch-1 cache "
+          f"{one / 2 ** 30:.3f} GiB; allocated {mem0 / 2 ** 30:.3f} GiB "
+          f"before the engine, {mem[0] / 2 ** 30:.3f} GiB after the first "
+          f"capture, {mem[-1] / 2 ** 30:.3f} GiB after the last (+"
+          f"{grow / 2 ** 20:.1f} MiB); reserved {res0 / 2 ** 30:.3f} -> "
+          f"{res1 / 2 ** 30:.3f} GiB, the graphs' pool "
+          f"{pools / 2 ** 30:.3f} GiB")
+    require(prefill_variants(eng) == [f"prefill:{b}"
+                                      for b in eng.bucket_sizes],
+            f"5s (a) memory: captures {prefill_variants(eng)}")
+    require(grow < one, "5s (a) memory: the prefill graphs hold a cache "
+            "each")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem_after = torch.cuda.memory_allocated()
+    print(f"    5s (a) memory: {mem_after / 2 ** 30:.3f} GiB allocated "
+          f"after the engine is dropped, reserved "
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB")
+    require(mem_after <= mem0 + 2 ** 26, "5s (a) memory: the dropped "
+            "engine left memory allocated")
+    launches.add(launches.since(before), -1)
+
+
+def chunk_graphs_full_width(torch, kern, model, params, ctx, reqs, base: dict,
+                            chunk: int, ps: int) -> None:
+    """5s (b): 5b's traffic with ``prefill_chunk`` contiguous and paged,
+    chunks through one graph against eager chunks (the private hook
+    stubbed): at least two chunked admissions in flight at once, the
+    stripe handed between them,
+    each request's first-prefill logits bit-equal, the tokens and the
+    chunk and launch counts equal."""
+    from repro_torch.serve import ServeEngine
+    print(f"    5s (b) chunked prefill through CUDA graphs, {chunk}-token "
+          f"chunks, on 5b's weights and traffic: contiguous and paged "
+          f"(page_size {ps}), graph against eager", flush=True)
+    for mode, mode_kw in (("contiguous", {}), ("paged", {"page_size": ps})):
+        runs = {}
+        for how in ("graph", "eager"):
+            eng = ServeEngine(model, params, ctx, **base, **mode_kw,
+                              prefill_chunk=chunk)
+            if how == "eager":
+                eager_prefill(eng)
+            rec = prefill_recorder(eng)
+            in_flight, handoffs = [], []
+            advance, take = eng._advance_chunk, eng._take_stripe
+
+            def counting(slot, eng=eng, advance=advance):
+                in_flight.append(len(eng._chunking))
+                return advance(slot)
+
+            def taking(slot, eng=eng, take=take):
+                if None not in (eng._stripe_slot, slot) \
+                        and eng._stripe_slot != slot:
+                    handoffs.append(slot)
+                return take(slot)
+
+            eng._advance_chunk, eng._take_stripe = counting, taking
+            reset_counts(kern)
+            res = eng.run(reqs)
+            torch.cuda.synchronize()
+            runs[how] = {"tokens": {i: r.tokens for i, r in res.items()},
+                         "rec": rec, "chunks": eng.stats.prefill_chunks,
+                         "launches": {n: k.launches
+                                      for n, k in kern.items()},
+                         "in_flight": max(in_flight, default=0),
+                         "handoffs": len(handoffs),
+                         "captures": eng.captures}
+            print(f"      {mode} {how}: {eng.stats.prefill_chunks} chunks, "
+                  f"at most {runs[how]['in_flight']} chunked admissions in "
+                  f"flight, the stripe handed between them "
+                  f"{len(handoffs)} times, prefill "
+                  f"{eng.stats.prefill_tok_s:.1f} tok/s, launches "
+                  f"{runs[how]['launches']}")
+            print_captures(f"5s (b) {mode} {how}", eng.captures)
+            del eng, res
+        g, e = runs["graph"], runs["eager"]
+        chunk_graphs = [c["variant"] for c in g["captures"]
+                        if c["variant"].startswith("prefill_chunk")]
+        require(e["in_flight"] >= 2 and g["in_flight"] >= 2,
+                f"5s (b) {mode}: fewer than two chunked admissions in "
+                f"flight at once")
+        require(g["chunks"] == e["chunks"] > 0 and g["launches"]
+                == e["launches"], f"5s (b) {mode}: chunk counts "
+                f"{g['chunks']} / {e['chunks']} or launches differ")
+        require(chunk_graphs == [f"prefill_chunk:{chunk}"]
+                and g["handoffs"] > 0
+                and not any(c["variant"].startswith("prefill")
+                            for c in e["captures"]),
+                f"5s (b) {mode}: chunk graphs {chunk_graphs}, the stripe "
+                f"handed over {g['handoffs']} times")
+        same_prefills(torch, f"5s (b) {mode} graph against eager chunks",
+                      g["rec"], e["rec"])
+        require(g["tokens"] == e["tokens"], f"5s (b) {mode}: graphed "
+                f"chunks' tokens differ from eager chunks'")
+        print(f"      5s (b) {mode}: tokens equal, {g['chunks']} chunks "
+              f"each, one chunk graph")
+    torch.cuda.empty_cache()
+
+
+def prefill_graph_vs_eager(torch, label: str, model, params, ctx) -> None:
+    """5s (c): the first request of phase 5's traffic (its frontend
+    included) through a one-slot ``ServeEngine`` on the phase's weights:
+    its prefill program's first use runs eagerly and captures the graph,
+    the next use replays it, and the eager body runs once more; the
+    three give the same logits bit for bit.  The launch counters are
+    left as they were."""
+    from repro_torch.kernels import launches
+    from repro_torch.launch.serve import frontend_len, make_requests
+    from repro_torch.serve import ServeEngine
+    cfg = model.cfg
+    req = make_requests(cfg, 0, 8, 128, 32, True, device="cuda",
+                        dtype=torch.bfloat16)[0]
+    kw, max_len = {}, 160
+    if cfg.family == "encdec":
+        kw["cache_kwargs"] = {"enc_len": int(req.frontend_embeds.shape[0])}
+    else:
+        max_len += frontend_len(cfg, 128)
+    eng = ServeEngine(model, params, ctx, num_slots=1, max_len=max_len,
+                      cache_dtype=torch.bfloat16, device="cuda", **kw)
+    before = launches.snapshot()
+    key = eng._load_prefill(req)
+
+    def program():
+        logits, _ = eng._run(eng._pf_graphs, key,
+                             lambda: eng._prefill_program(key),
+                             eng._capture_prefill)
+        return logits.clone()
+
+    first = program()
+    graph = program()
+    eager = eng._prefill_program(key)[0].clone()
+    torch.cuda.synchronize()
+    launches.add(launches.since(before), -1)
+    err = (graph - eager).abs().max().item()
+    cap = eng.captures[-1]
+    print(f"    5s (c) {label}: first-prefill logits {tuple(graph.shape)}, "
+          f"the graph's replay against the eager body: bit-equal "
+          f"{torch.equal(graph, eager)} (max |diff| {err:.4g}); the first "
+          f"(eager) use {torch.equal(first, eager)}; {cap['variant']} "
+          f"captured in {1e3 * cap['capture_s']:.1f} ms, pool "
+          f"{cap['pool_bytes'] / 2 ** 20:.1f} MiB")
+    require(prefill_variants(eng) == [cap["variant"]]
+            and torch.equal(graph, eager) and torch.equal(first, eager),
+            f"5s (c) {label}: the prefill graph's logits differ from the "
+            f"eager prefill's")
+    del eng
+    torch.cuda.empty_cache()
 
 
 # ----------------------------------------------------------------------
@@ -2630,7 +3051,7 @@ def serve_moe_full_width(torch, kern) -> dict:
     got = {n: k.launches for n, k in kern.items()}
     check_designs("5c", kern)
     print_captures("serve_batch's engine", out["captures"])
-    require([c["variant"] for c in out["captures"]] == ["greedy"],
+    require(variants(out["captures"]) == ["greedy"],
             "5c: the engine did not decode through one greedy CUDA graph")
     s = out["stats"]
     passes = s["admitted"] + s["decode_steps"]
@@ -2663,6 +3084,8 @@ def serve_moe_full_width(torch, kern) -> dict:
         "torch": Ctx(plan="torch", dtype=torch.bfloat16)})
     judge_logits(torch, f"5c first prefill logits (1, 1, {V})",
                  bf16["auto"], bf16["torch"])
+    prefill_graph_vs_eager(torch, "olmoe-1b-7b bf16", model, params,
+                           Ctx(plan="auto", dtype=torch.bfloat16))
 
     torch.cuda.reset_peak_memory_stats()
     qparams = model.quantize_weights(params)
@@ -2695,6 +3118,9 @@ def serve_moe_full_width(torch, kern) -> dict:
                      dtype=torch.bfloat16)})
     judge_logits(torch, f"5d first prefill logits (1, 1, {V})",
                  w8a8["auto"], w8a8["torch"])
+    prefill_graph_vs_eager(torch, "olmoe-1b-7b W8A8", model, qparams,
+                           Ctx(plan=KernelConfig(quant="int8"),
+                               dtype=torch.bfloat16))
     dist = (w8a8["auto"] - bf16["auto"]).abs().max().item()
     scale = bf16["auto"].abs().max().item()
     print(f"    5d W8A8 logits against 5c's bf16 logits (kernel paths; "
@@ -2842,7 +3268,7 @@ def serve_zamba2_full_width(torch, kern) -> dict:
                  f"{s['decode_steps']} passes, {G} flash calls a prefill")
     check_designs("5g", kern)
     print_captures("serve_batch's engine", out["captures"])
-    require([c["variant"] for c in out["captures"]] == ["greedy"],
+    require(variants(out["captures"]) == ["greedy"],
             "5g: the engine did not decode through one greedy CUDA graph")
     gen = out["generated"]
     require(gen.shape == (8, 32) and (gen >= 0).all() and (gen < V).all(),
@@ -2859,6 +3285,7 @@ def serve_zamba2_full_width(torch, kern) -> dict:
     judge_logits(torch, f"5g first prefill logits (1, 1, {V})",
                  bf16["auto"], bf16["torch"])
     rounding_floor(torch, "5g", model, params, bf16)
+    prefill_graph_vs_eager(torch, "zamba2-2.7b bf16", model, params, ctx)
 
     reqs = make_requests(model.cfg, kw["seed"], kw["batch"], kw["prompt_len"],
                          kw["gen_len"], kw["mixed"])
@@ -2986,7 +3413,7 @@ def serve_mamba2_full_width(torch, kern) -> dict:
                      f"(2 x 24 mamba projections, the head), no attention")
         check_designs(f"5h {mode}", kern)
         print_captures(f"5h {mode}", out["captures"])
-        require([c["variant"] for c in out["captures"]] == ["greedy"],
+        require(variants(out["captures"]) == ["greedy"],
                 f"5h {mode}: not one greedy CUDA graph")
         require(s["pages_in_use"] == 0 and s["pages_shared"] == 0,
                 f"5h {mode}: page gauges are not zero")
@@ -3018,6 +3445,7 @@ def serve_mamba2_full_width(torch, kern) -> dict:
     require(err <= floor, "5h: the kernel path departs from the plain path "
             "further than bf16 rounding moves the plain path")
     ctx = Ctx(plan="auto", dtype=torch.bfloat16)
+    prefill_graph_vs_eager(torch, "mamba2-130m bf16", model, params, ctx)
     eng = engine_for(torch, model, params, ctx, K=kw["steps_per_dispatch"])
     eng.run(make_requests(model.cfg, kw["seed"], kw["batch"],
                           kw["prompt_len"], kw["gen_len"], kw["mixed"]))
@@ -3182,7 +3610,7 @@ def serve_seamless_full_width(torch, kern) -> dict:
     check_counts("5i serve_batch", got, *want_fn(passes(st)))
     check_designs("5i", kern)
     print_captures("serve_batch's engine", out["captures"])
-    require([c["variant"] for c in out["captures"]] == ["greedy"],
+    require(variants(out["captures"]) == ["greedy"],
             "5i: the engine did not decode through one greedy CUDA graph")
     gen = out["generated"]
     require(gen.shape == (8, 32) and (gen >= 0).all()
@@ -3195,6 +3623,8 @@ def serve_seamless_full_width(torch, kern) -> dict:
     params = model.init(seed=0, dtype=torch.bfloat16, device="cuda")
     gate = judge_first_logits(torch, "5i", model, params)
     ctx = Ctx(plan="auto", dtype=torch.bfloat16)
+    prefill_graph_vs_eager(torch, "seamless-m4t-large-v2 bf16 (128 frames)",
+                           model, params, ctx)
     reqs = make_requests(cfg, kw["seed"], kw["batch"], kw["prompt_len"],
                          kw["gen_len"], kw["mixed"], device="cuda",
                          dtype=torch.bfloat16)
@@ -3261,6 +3691,8 @@ def serve_llava_full_width(torch, kern) -> dict:
           f"phase 5's traffic", flush=True)
     gate = judge_first_logits(torch, "5j", model, params)
     ctx = Ctx(plan="auto", dtype=torch.bfloat16)
+    prefill_graph_vs_eager(torch, f"llava-next-34b bf16 ({c['P']} patch "
+                           f"positions)", model, params, ctx)
     reqs = make_requests(cfg, kw["seed"], kw["batch"], kw["prompt_len"],
                          kw["gen_len"], kw["mixed"], device="cuda",
                          dtype=torch.bfloat16)
@@ -3331,7 +3763,7 @@ def serve_qwen_full_width(torch, kern) -> dict:
     check_counts("5k serve_batch", got,
                  *dense_want(kern, c["layers"], passes(st), paged=False))
     check_designs("5k", kern)
-    require([x["variant"] for x in out["captures"]] == ["greedy"],
+    require(variants(out["captures"]) == ["greedy"],
             "5k: the engine did not decode through one greedy CUDA graph")
     gen = out["generated"]
     require(gen.shape == (8, 32) and (gen >= 0).all()
@@ -4707,7 +5139,8 @@ def check_families(kern, refs: dict, outs: list) -> dict:
                 failed.append(f"{label} rank {r}: launches {counts} against "
                               f"one rank's {want}")
             if got["captures"]:
-                failed.append(f"{label}: a decode graph across ranks")
+                failed.append(f"{label}: a decode or prefill graph across "
+                              f"ranks (5s (d))")
             if not got["sharded"][0]:
                 failed.append(f"{label} rank {r}: no param leaf sharded")
             if got["tokens"].keys() != ref["tokens"].keys() or any(
@@ -4750,6 +5183,9 @@ def check_families(kern, refs: dict, outs: list) -> dict:
               f"gaps {o0['replicated']}; "
               f"staged {o0['staged']}", flush=True)
     require(not failed, "5r (g)/(h): " + "; ".join(failed))
+    print(f"    5s (d): no engine across ranks captured a graph, decode or "
+          f"prefill: (a) and {len(R5_FAMILIES)} configurations of (g)/(h) "
+          f"on each of the {len(outs)} ranks")
     return total
 
 
@@ -4822,7 +5258,8 @@ def across_ranks(torch, kern) -> dict:
                 f"5r (a) rank {r}: no param leaf is sharded")
         require(o["a_tokens"] == o0["a_tokens"],
                 f"5r (a): rank {r}'s tokens differ from rank 0's")
-        require(not o["a_captures"], "5r (a): a decode graph across ranks")
+        require(not o["a_captures"], "5r (a): a decode or prefill graph "
+                "across ranks (5s (d))")
         print(f"      rank {r}: sharded leaves {o['a_sharded_leaves']} of "
               f"{o['a_leaves']}; staged collectives {o['a_staged']}; peak "
               f"memory (a) {o['a_peak_bytes'] / 2**30:.2f} GiB, over "

@@ -27,8 +27,8 @@ from repro_torch import make_generator, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import Ctx, Params
-from repro_torch.models.transformer import (init_attention, init_embed,
-                                            init_mlp, remat)
+from repro_torch.models.transformer import (_kv_out, init_attention,
+                                            init_embed, init_mlp, remat)
 from repro_torch.runtime.sharding import unplace
 
 __all__ = ["init_params", "encode", "forward", "loss_fn", "init_cache",
@@ -172,8 +172,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def prefill(params: Params, tokens: torch.Tensor, frames: torch.Tensor,
             cfg: ModelConfig, ctx: Ctx, max_len: int, *,
-            lengths: torch.Tensor | None = None
-            ) -> tuple[torch.Tensor, Params]:
+            lengths: torch.Tensor | None = None,
+            cache: Params | None = None) -> tuple[torch.Tensor, Params]:
     """Encode the source once, run the decoder prompt in one masked causal
     pass, and return the last-valid-position logits and a decode cache
     with the self- and cross-attention K/V populated (in ``ctx.dtype``).
@@ -182,7 +182,10 @@ def prefill(params: Params, tokens: torch.Tensor, frames: torch.Tensor,
     every request of an engine shares it (``init_cache(enc_len=...)``).
     ``lengths`` as in :func:`repro_torch.models.transformer.prefill`;
     the self-attention masks with them (the full S without), the
-    cross-attention sees every frame from every query row.
+    cross-attention sees every frame from every query row.  ``cache``: an
+    ``init_cache(B, max_len, enc_len=S_enc)`` whose leaves take the
+    result in place of fresh ones (the same values), as a serving
+    engine's static buffer.
     """
     B, S = tokens.shape
     if S > max_len:
@@ -196,10 +199,12 @@ def prefill(params: Params, tokens: torch.Tensor, frames: torch.Tensor,
     positions = _positions(B, S, dev)
     hd = cfg.resolved_head_dim
     Ld, KV = cfg.decoder_layers, cfg.n_kv_heads
-    ck = torch.zeros((Ld, B, max_len, KV, hd), dtype=ctx.dtype, device=dev)
-    cv = torch.zeros_like(ck)
-    xk = torch.empty((Ld, B, S_enc, KV, hd), dtype=ctx.dtype, device=dev)
-    xv = torch.empty_like(xk)
+    ck, cv = _kv_out(cache, (Ld, B, max_len, KV, hd), S, ctx.dtype, dev)
+    if cache is None:
+        xk = torch.empty((Ld, B, S_enc, KV, hd), dtype=ctx.dtype, device=dev)
+        xv = torch.empty_like(xk)
+    else:
+        xk, xv = cache["cross_k"], cache["cross_v"]
     x = L.embed(params["embed"], tokens, ctx)
     for i, lp in enumerate(params["decoder"]):
         h = L.rms_norm(lp["self_norm"], x, cfg.norm_eps)

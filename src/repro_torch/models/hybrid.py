@@ -30,8 +30,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
 from repro_torch.models.layers import Ctx, Params
-from repro_torch.models.transformer import (_layer_params, init_embed,
-                                            init_linear, remat)
+from repro_torch.models.transformer import (_kv_out, _layer_params,
+                                            init_embed, init_linear, remat)
 from repro_torch.runtime.sharding import unplace, write_layers
 
 __all__ = ["init_params", "forward", "loss_fn", "init_cache", "decode_step",
@@ -134,8 +134,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
-            max_len: int, *, lengths: torch.Tensor | None = None
-            ) -> tuple[torch.Tensor, Params]:
+            max_len: int, *, lengths: torch.Tensor | None = None,
+            cache: Params | None = None) -> tuple[torch.Tensor, Params]:
     """Fused prompt ingestion: a chunked-SSD pass per mamba layer and one
     masked full-sequence attention per shared-block invocation, whose
     K/V are captured into the decode cache.
@@ -145,7 +145,9 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
     the states equal a per-row lock-step decode of the prompt.  The
     prompt is padded to a whole number of SSD chunks (see
     :func:`repro_torch.models.ssm.prefill`); the padding positions' K/V
-    are dropped and the cache padded out to ``max_len``.
+    are dropped and the cache padded out to ``max_len``.  ``cache``: an
+    ``init_cache(B, max_len)`` whose leaves take the result in place of
+    fresh ones (the same values), as a serving engine's static buffer.
     """
     B, S0 = tokens.shape
     if S0 > max_len:
@@ -159,9 +161,8 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
     sp = params["shared"]
     hd = cfg.resolved_head_dim
     ng = len(params["layers"])
-    kv = (ng, B, max_len, cfg.n_kv_heads, hd)
-    ck = torch.zeros(kv, dtype=ctx.dtype, device=x0.device)
-    cv = torch.zeros(kv, dtype=ctx.dtype, device=x0.device)
+    ck, cv = _kv_out(cache, (ng, B, max_len, cfg.n_kv_heads, hd), S0,
+                     ctx.dtype, x0.device)
     convs, ssms = [], []
     x = x0
     for gi, group in enumerate(params["layers"]):
@@ -186,9 +187,8 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
         cv[gi, :, :S0] = unplace(v)[:, :S0]
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     logits = L.unembed(params["embed"], L.gather_last(x, lens), ctx)
-    ae = cfg.attn_every
-    conv = torch.stack(convs).unflatten(0, (ng, ae))
-    ssm_state = torch.stack(ssms).unflatten(0, (ng, ae))
+    conv, ssm_state = ssm.stack_states(cache, convs, ssms,
+                                       (ng, cfg.attn_every))
     return logits, {"conv": conv, "ssm": ssm_state, "k": ck, "v": cv,
                     "pos": ssm._pos(tokens, lengths, lens)}
 

@@ -5,7 +5,8 @@
     init_cache(batch, max_len, dtype, device=) -> decode cache
     decode(params, cache, tokens, ctx)       -> (logits, cache)
     prefill_logits(params, batch, ctx)       -> (B, 1, V) logits
-    prefill(params, batch, ctx, max_len)     -> (logits, populated cache)
+    prefill(params, batch, ctx, max_len, cache=None)
+                                             -> (logits, populated cache)
     prefill_chunk(params, tokens, ctx, *, cache, offset, lengths)
                                              -> (logits, cache), or None
     quantize_weights(params, fmt="int8")     -> params with QTensor weights
@@ -13,8 +14,12 @@
 ``batch`` is a dict with ``tokens`` (B, S), optional ``lengths``
 ((B,) ragged valid prefixes) and optional ``frontend_embeds`` (the vlm
 prefix (B, P, d), or the encdec source frames (B, S_enc, d), which that
-family requires); ``loss`` also reads ``targets`` (B, S).  ``loss`` is
-differentiable: ``repro_torch.launch.train`` takes its gradients.  The
+family requires); ``loss`` also reads ``targets`` (B, S).
+``prefill``'s ``cache``, an ``init_cache(B, max_len, ctx.dtype)``, takes
+the populated cache in place of fresh tensors (the same values): a
+serving engine's static buffer, which its prefill graphs write.
+``loss`` is differentiable: ``repro_torch.launch.train`` takes its
+gradients.  The
 dense, vlm and MoE ``init_cache`` take ``quantize_kv`` (the int8 cache);
 the encdec, SSM and hybrid ones do not, as in the JAX package.  Every
 family of the JAX package is ported: dense, vlm, MoE, SSM (mamba2),
@@ -85,11 +90,11 @@ def build_model(cfg: ModelConfig) -> Model:
                 params, batch["tokens"], cfg, ctx,
                 frontend_embeds=batch.get("frontend_embeds"), last_only=True)
 
-        def prefill_fn(params, batch, ctx, max_len):
+        def prefill_fn(params, batch, ctx, max_len, *, cache=None):
             return transformer.prefill(
                 params, batch["tokens"], cfg, ctx, max_len,
                 lengths=batch.get("lengths"),
-                frontend_embeds=batch.get("frontend_embeds"))
+                frontend_embeds=batch.get("frontend_embeds"), cache=cache)
 
         def prefill_chunk_fn(params, tokens, ctx, *, cache, offset,
                              lengths):
@@ -130,7 +135,7 @@ def build_model(cfg: ModelConfig) -> Model:
             return transformer.decode_step(params, cache, tokens, cfg, ctx,
                                            mlp_fn=_moe_mlp_fn(cfg, ctx))
 
-        def prefill_fn(params, batch, ctx, max_len):
+        def prefill_fn(params, batch, ctx, max_len, *, cache=None):
             tokens, lens = batch["tokens"], batch.get("lengths")
             mask = None
             if lens is not None:
@@ -140,7 +145,7 @@ def build_model(cfg: ModelConfig) -> Model:
                         [None, :] < lens.to(torch.int32)[:, None])
             return transformer.prefill(params, tokens, cfg, ctx, max_len,
                                        mlp_fn=_moe_mlp_fn(cfg, ctx, mask),
-                                       lengths=lens)
+                                       lengths=lens, cache=cache)
 
         return Model(cfg=cfg, init=init, loss=loss,
                      init_cache=functools.partial(transformer.init_cache, cfg),
@@ -153,9 +158,9 @@ def build_model(cfg: ModelConfig) -> Model:
             return mod.forward(params, batch["tokens"], cfg, ctx,
                                last_only=True)
 
-        def prefill_fn(params, batch, ctx, max_len):
+        def prefill_fn(params, batch, ctx, max_len, *, cache=None):
             return mod.prefill(params, batch["tokens"], cfg, ctx, max_len,
-                               lengths=batch.get("lengths"))
+                               lengths=batch.get("lengths"), cache=cache)
 
         return Model(
             cfg=cfg,
@@ -180,8 +185,9 @@ def build_model(cfg: ModelConfig) -> Model:
             prefill_logits=lambda params, batch, ctx: encdec.forward(
                 params, batch["tokens"], batch["frontend_embeds"], cfg, ctx,
                 last_only=True),
-            prefill=lambda params, batch, ctx, max_len: encdec.prefill(
-                params, batch["tokens"], batch["frontend_embeds"], cfg, ctx,
-                max_len, lengths=batch.get("lengths")),
+            prefill=lambda params, batch, ctx, max_len, *, cache=None:
+            encdec.prefill(params, batch["tokens"], batch["frontend_embeds"],
+                           cfg, ctx, max_len, lengths=batch.get("lengths"),
+                           cache=cache),
         )
     raise ValueError(f"unknown family {fam!r}")

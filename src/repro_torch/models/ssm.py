@@ -430,16 +430,34 @@ def _pos(tokens: torch.Tensor, lengths, lens: torch.Tensor) -> torch.Tensor:
     return lens
 
 
+def stack_states(cache: Params | None, convs: list, ssms: list,
+                 lead: tuple = ()) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each layer's conv window and SSD state stacked, the layer axis
+    unflattened to ``lead`` where given: new tensors, or written into
+    ``cache``'s ``conv`` and ``ssm``."""
+    out = []
+    for name, states in (("conv", convs), ("ssm", ssms)):
+        t = torch.stack(states)
+        if lead:
+            t = t.unflatten(0, lead)
+        if cache is not None:
+            t = cache[name].copy_(t)
+        out.append(t)
+    return out[0], out[1]
+
+
 def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
-            max_len: int, *, lengths: torch.Tensor | None = None
-            ) -> tuple[torch.Tensor, Params]:
+            max_len: int, *, lengths: torch.Tensor | None = None,
+            cache: Params | None = None) -> tuple[torch.Tensor, Params]:
     """Fused prompt ingestion: one chunked-SSD pass per layer instead of
     ``prompt_len`` recurrent steps.
 
     Returns (last-valid-position logits, decode cache).  With
     ``lengths`` ((B,) ragged prompts) ``cache["pos"]`` is the (B,)
     position vector; padded steps are exact identities on the state
-    (see :func:`mamba_prefill`).
+    (see :func:`mamba_prefill`).  ``cache``: an ``init_cache(B, max_len)``
+    whose state takes the result in place of a fresh one (the same
+    values), as a serving engine's static buffer.
     """
     del max_len  # O(1) state
     lens = _lengths(tokens, lengths)
@@ -453,7 +471,8 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
         ssms.append(st["ssm"])
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     logits = L.unembed(params["embed"], L.gather_last(x, lens), ctx)
-    return logits, {"conv": torch.stack(convs), "ssm": torch.stack(ssms),
+    conv, ssm_state = stack_states(cache, convs, ssms)
+    return logits, {"conv": conv, "ssm": ssm_state,
                     "pos": _pos(tokens, lengths, lens)}
 
 

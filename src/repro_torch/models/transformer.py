@@ -338,11 +338,23 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
     return logits, out
 
 
+def _kv_out(cache: Params | None, shape: tuple, S: int, dtype: torch.dtype,
+            device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The K/V a prefill of S positions writes: fresh zeros of ``shape``,
+    or ``cache``'s K/V with their rows from S on zeroed."""
+    if cache is None:
+        return (torch.zeros(shape, dtype=dtype, device=device),
+                torch.zeros(shape, dtype=dtype, device=device))
+    for t in (cache["k"], cache["v"]):
+        t[:, :, S:].zero_()
+    return cache["k"], cache["v"]
+
+
 def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
             max_len: int, *, mlp_fn: Callable | None = None,
             lengths: torch.Tensor | None = None,
-            frontend_embeds: torch.Tensor | None = None
-            ) -> tuple[torch.Tensor, Params]:
+            frontend_embeds: torch.Tensor | None = None,
+            cache: Params | None = None) -> tuple[torch.Tensor, Params]:
     """Run the prompt in one pass: last-valid-position logits and a
     populated ``(n_layers, B, max_len, KV, D)`` cache in ``ctx.dtype``.
 
@@ -352,7 +364,10 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
     write position.  Without ``lengths`` ``pos`` is the scalar S.
     ``frontend_embeds`` (B, P, d) are prepended (vlm): their P positions
     take rope positions 0..P-1 and count toward the cache, so the valid
-    lengths become ``lengths + P``.
+    lengths become ``lengths + P``.  ``cache``: an ``init_cache(B,
+    max_len)`` whose K/V take the prompt's in place of fresh zeros (rows
+    past the prompt zeroed, so the result is the same), as a serving
+    engine's static buffer.
     """
     x, n_front = _prepend(L.embed(params["embed"], tokens, ctx),
                           frontend_embeds, ctx)
@@ -365,9 +380,8 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
         torch.as_tensor(lengths, device=x.device).to(torch.int32) + n_front
     # query row 0 sits at position 0; made once, not in every layer's call
     offs = None if lens is None else torch.zeros_like(lens)
-    shape = (cfg.n_layers, B, max_len, cfg.n_kv_heads, hd)
-    ck = torch.zeros(shape, dtype=ctx.dtype, device=x.device)
-    cv = torch.zeros(shape, dtype=ctx.dtype, device=x.device)
+    ck, cv = _kv_out(cache, (cfg.n_layers, B, max_len, cfg.n_kv_heads, hd),
+                     S, ctx.dtype, x.device)
     fn = _mlp_fn(cfg, ctx, mlp_fn)
     for i, lp in enumerate(params["layers"]):
         h = L.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
@@ -403,34 +417,56 @@ def prefill_chunk(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     tokens: (B, C), the chunk, zero-padded on the last call; cache: a
     contiguous ``init_cache(B, max_len)`` stripe (the engine pages it
     when the last chunk lands); ``offset``: absolute position of chunk
-    row 0; ``lengths``: (B,) absolute valid end after this chunk
-    (``<= offset + C``; less only on the final, padded chunk).
+    row 0, a (1,) or (B,) int32 tensor on the tokens' device, as JAX
+    traces it (an int is turned into one); ``lengths``: (B,) absolute
+    valid end after this chunk (``<= offset + C``; less only on the
+    final, padded chunk).
 
     Each chunk's K/V are written into the stripe at ``offset`` and its
     queries attend to the whole stripe, ``q_offset`` shifting the causal
     frontier and ``lengths`` masking rows and columns, so chunked
     prefill stays on the flash kernel.  Rows of a padded final chunk
     that would land past ``max_len`` are not written (they are padding:
-    ``lengths <= max_len``).  Returns the logits at ``lengths - 1`` (only
-    meaningful on the final chunk) and the stripe with ``pos =
-    lengths``, the contract of :func:`prefill`.
+    ``lengths <= max_len``): the write is masked on the device, so the
+    host never reads the offset and a chunk can be captured as a CUDA
+    graph.  Returns the logits at ``lengths - 1`` (only meaningful on
+    the final chunk) and the stripe with ``pos = lengths``, the contract
+    of :func:`prefill`.
     """
     x = L.embed(params["embed"], tokens, ctx)
     B, C, _ = x.shape
-    off = int(offset)
-    lens = torch.as_tensor(lengths, device=x.device).to(torch.int32)
-    off_b = torch.full((B,), off, dtype=torch.int32, device=x.device)
-    positions = (off + torch.arange(C, device=x.device))[None, :].expand(B, C)
+    dev = x.device
+    lens = torch.as_tensor(lengths, device=dev).to(torch.int32)
+    off_b = torch.as_tensor(offset, device=dev).to(torch.int32).reshape(
+        -1).expand(B).contiguous()
+    positions = off_b[:, None] + torch.arange(C, device=dev)[None, :]
     hd = cfg.resolved_head_dim
-    n_write = min(C, cache["k"].shape[2] - off)
+    # the write: a window of W stripe rows that always fits, from the
+    # offset clamped into the stripe; a row takes chunk row ``src`` where
+    # that row exists (offset <= row < offset + C) and keeps its value
+    # elsewhere, so rows past max_len are dropped, not clamped onto
+    # earlier positions
+    T = cache["k"].shape[2]
+    W = min(C, T)
+    rows = off_b.clamp(0, T - W)[:, None] + torch.arange(W, device=dev)
+    src = rows - off_b[:, None]
+    keep = ((src >= 0) & (src < C))[..., None, None]
+    src = src.clamp(0, C - 1).long()
+    rows = rows.long()
+    b_idx = torch.arange(B, device=dev)[:, None]
+
+    def write(c: torch.Tensor, new: torch.Tensor) -> None:
+        c[b_idx, rows] = torch.where(keep, new[b_idx, src].to(c.dtype),
+                                     c[b_idx, rows])
+
     for i, lp in enumerate(params["layers"]):
         h = L.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
         q, k, v = L._qkv(lp["attn"], h, cfg, ctx)
         q = L.rope(q, positions, cfg.rope_theta)
         k = L.rope(k, positions, cfg.rope_theta)
         ck, cv = cache["k"][i], cache["v"][i]
-        ck[:, off:off + n_write] = k[:, :n_write]
-        cv[:, off:off + n_write] = v[:, :n_write]
+        write(ck, k)
+        write(cv, v)
         o = L._gqa_full(q, ck.to(q.dtype), cv.to(q.dtype), causal=True,
                         config=ctx.plan, lengths=lens, q_offset=off_b)
         x = x + L.linear(lp["attn"]["wo"],

@@ -193,10 +193,10 @@ class ShardedEngine(ServeEngine):
     fp32 and W8A8 (a QTensor's codes and scales placed by the rules'
     children 0 and 1), the cache of each placed by ``cache_shardings``
     and written slot by slot on each leaf's batch axis
-    (``sharding.write_slot``).  No decode block is captured in a CUDA
-    graph across ranks (``captures`` stays empty): a graph cannot capture
-    the host side of a gloo collective, and ranks sharing a card run
-    gloo."""
+    (``sharding.write_slot``).  Neither a decode block nor a prefill is
+    captured in a CUDA graph across ranks (``captures`` stays empty): a
+    graph cannot capture the host side of a gloo collective, and ranks
+    sharing a card run gloo."""
 
     def __init__(self, model, params, ctx, *, mesh, **kwargs):
         if kwargs.get("page_size") is not None:
@@ -241,6 +241,17 @@ class ShardedEngine(ServeEngine):
             super()._capture(greedy_only)
         # across ranks every dispatch runs the block eagerly (class
         # docstring)
+
+    def _capture_prefill(self, key: tuple) -> None:
+        if self.mesh.size == 1:
+            super()._capture_prefill(key)
+        # across ranks every prefill and chunk runs eagerly
+
+    def _prefill_cache(self) -> dict | None:
+        # across ranks, where nothing is captured, a prefill returns a
+        # fresh cache (the SSM states come back placed, as the install
+        # takes them)
+        return super()._prefill_cache() if self.mesh.size == 1 else None
 
     def _install(self, req, slot: int, cache1, n_prompt: int) -> None:
         if self.mesh.size == 1:

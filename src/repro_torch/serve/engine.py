@@ -20,8 +20,23 @@ on a CUDA device it runs as one captured CUDA graph a variant (greedy
 only, sampled): the first dispatch of a variant runs it eagerly, which
 builds and binds the kernels, and the graph is captured after it; every
 later dispatch copies its operands in with one host->device copy and
-replays the graph.  A capture or a replay that fails raises; there is no
-eager fallback on the card.  On the CPU the same function runs eagerly.
+replays the graph.  Prefill runs the same way, as the JAX engine jits
+it once a shape: one graph a prompt bucket and frontend shape, over a
+static ``(1, bucket)`` token buffer (rewritten whole at every
+admission, zeros past the prompt, as JAX pads), a ``(1,)`` lengths
+buffer and the frontend's buffer; and one graph a chunk shape, over
+static token, offset and lengths buffers (the chunk's offset is a
+device tensor, as JAX traces it).  Every one of these graphs writes its
+cache into one batch-1 buffer of the engine's, made outside the graphs'
+pool, so no graph holds a ``max_len`` cache of its own: the prefill's
+is installed at once, and the chunk stripe is handed from one chunked
+admission to another (the rows of the one it leaves saved, the other's
+restored).  The graphs share one memory pool: a replay's outputs are
+consumed (installed, or copied) before any other of them replays.  The
+first-token sampler and the paged insert stay eager: a few ops an
+admission, which JAX jits as programs of their own.  A capture or a
+replay that fails raises; there is no eager fallback on the card.  On
+the CPU the same functions run eagerly on the same static buffers.
 Greedy decode through the engine is token-for-token identical to
 :func:`lockstep_generate`.  Sampling keys are the JAX package's
 threefry key data (:mod:`repro_torch.serve.sampling`), so a seeded
@@ -90,6 +105,7 @@ the model's: ``init_cache(quantize_kv=True)`` and ``decode_step``.
 from __future__ import annotations
 
 import collections
+import gc
 import time
 import warnings
 from typing import Sequence
@@ -269,6 +285,16 @@ class ServeEngine:
                                      pin_memory=self.device.type == "cuda")
         # greedy_only -> (graph, its token tile, the launches it replays)
         self._graphs: dict[bool, tuple] = {}
+        # the prefill programs: key -> static inputs (made at the key's
+        # first use), key -> (graph, outputs, launches) once captured, and
+        # the one memory pool of their graphs (made at the first capture)
+        self._pf_in: dict[tuple, dict] = {}
+        self._pf_graphs: dict[tuple, tuple] = {}
+        self._pf_pool = None
+        # dtype -> the batch-1 cache the programs write (_batch1), and
+        # the chunked admission whose rows the chunk stripe holds
+        self._b1: dict[torch.dtype, dict] = {}
+        self._stripe_slot: int | None = None
         #: one record a captured graph: variant, pool bytes, capture s
         self.captures: list[dict] = []
 
@@ -466,20 +492,29 @@ class ServeEngine:
         # the host rewrites the staging buffer only after the dispatch's
         # read of the tile, so the copy may run behind the host
         self._ops.copy_(self._ops_host, non_blocking=True)
+        return self._run(self._graphs, greedy_only,
+                         lambda: self._block(greedy_only), self._capture)
+
+    def _run(self, graphs: dict, key, body, capture):
+        """``body()`` as a program of static buffers: eagerly on the CPU;
+        on a CUDA device the replay of ``graphs[key]``, or, at the key's
+        first use, ``body()`` eagerly (which builds the kernels and
+        resolves the plan's call sites) and then ``capture(key)``."""
         if self.device.type != "cuda":
-            return self._block(greedy_only)
-        if greedy_only not in self._graphs:
-            tile = self._block(greedy_only)
-            self._capture(greedy_only)
-            return tile
-        graph, tile, counts = self._graphs[greedy_only]
+            return body()
+        if key not in graphs:
+            out = body()
+            capture(key)
+            return out
+        graph, out, counts = graphs[key]
         graph.replay()
         launches.add(counts)
-        return tile
+        return out
 
-    def _capture(self, greedy_only: bool) -> None:
-        """Capture the variant's block into a CUDA graph that reads and
-        writes the engine's static buffers.  The capture runs nothing: it
+    def _graph(self, variant: str, body, pool=None) -> tuple:
+        """Capture ``body`` into a CUDA graph that reads and writes the
+        engine's static buffers -> (graph, its outputs, the launches it
+        replays), recorded in ``captures``.  The capture runs nothing: it
         advances no state, and the launch counts its wrapper calls made
         are taken back out and added again at each replay."""
         dev = self.device
@@ -491,15 +526,110 @@ class ServeEngine:
         reserved = torch.cuda.memory_reserved(dev)
         before = launches.snapshot()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            tile = self._block(greedy_only)
+        # no garbage collection inside the capture: collecting a dead
+        # engine would destroy its graphs, a call that invalidates the
+        # capture (torch.cuda.graph no longer collects before it begins)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=pool):
+                out = body()
+        finally:
+            if collecting:
+                gc.enable()
         counts = launches.since(before)
         launches.add(counts, -1)
-        self._graphs[greedy_only] = (graph, tile, counts)
         self.captures.append({
-            "variant": "greedy" if greedy_only else "sampled",
+            "variant": variant,
             "pool_bytes": torch.cuda.memory_reserved(dev) - reserved,
             "capture_s": _now() - t0})
+        return graph, out, counts
+
+    def _capture(self, greedy_only: bool) -> None:
+        """Capture the variant's block (see :meth:`_graph`)."""
+        self._graphs[greedy_only] = self._graph(
+            "greedy" if greedy_only else "sampled",
+            lambda: self._block(greedy_only))
+
+    def _capture_prefill(self, key: tuple) -> None:
+        """Capture the prefill program of ``key`` (see :meth:`_graph`)
+        into the pool every prefill and chunk graph of this engine shares.
+        Sharing is safe only because each replay's outputs are consumed
+        before another of these graphs replays: ``_admit`` installs the
+        batch-1 cache and samples from the logits at once, and the last
+        chunk's logits are copied out.  The caches the graphs write are
+        the engine's batch-1 buffers (:meth:`_batch1`), outside the pool,
+        so the pool holds one program's working memory at a time, not a
+        cache a graph."""
+        if self._pf_pool is None:
+            self._pf_pool = torch.cuda.graph_pool_handle()
+        if key[0] == "chunk":
+            variant = f"prefill_chunk:{self._chunk}"
+        else:
+            variant = f"prefill:{key[1]}" + ("+frontend" if len(key) > 2
+                                             else "")
+        self._pf_graphs[key] = self._graph(
+            variant, lambda: self._prefill_program(key), pool=self._pf_pool)
+
+    def _prefill_program(self, key: tuple):
+        """The prefill program of ``key`` on its static inputs
+        (``self._pf_in[key]``) -> (logits, cache): a batch-1
+        ``Model.prefill`` at a prompt bucket (``("prefill", bucket)``, and
+        the frontend's shape and dtype) into the ``ctx.dtype`` batch-1
+        buffer, or one chunk (``("chunk",)``) against the chunk stripe,
+        the ``cache_dtype`` one."""
+        buf = self._pf_in[key]
+        if key[0] == "chunk":
+            return self.model.prefill_chunk(
+                self.params, buf["tokens"], self.ctx,
+                cache=self._batch1(self.cache_dtype), offset=buf["offset"],
+                lengths=buf["lengths"])
+        return self.model.prefill(self.params, buf, self.ctx, self.max_len,
+                                  cache=self._prefill_cache())
+
+    def _prefill_cache(self) -> dict | None:
+        """The cache a prefill program writes: the ``ctx.dtype`` batch-1
+        buffer (None: a fresh one each call)."""
+        return self._batch1(self.ctx.dtype)
+
+    def _batch1(self, dtype: torch.dtype) -> dict:
+        """The engine's batch-1 cache in ``dtype`` (without ``pos``), made
+        at its first use, outside any graph's pool.  The prefill programs
+        write theirs in ``ctx.dtype`` (what ``Model.prefill`` returns) and
+        the chunks theirs in ``cache_dtype`` (the stripe's dtype, which
+        the chunk's attention reads back): one buffer where the two
+        agree."""
+        buf = self._b1.get(dtype)
+        if buf is None:
+            buf = self.model.init_cache(1, self.max_len, dtype,
+                                        device=self.device, **self._cache_kw)
+            del buf["pos"]
+            self._b1[dtype] = buf
+        return buf
+
+    def _take_stripe(self, slot: int | None) -> None:
+        """Hand the chunk stripe to the chunked admission parked in
+        ``slot`` (None: to a prefill about to overwrite it).  The rows the
+        admission that held it has ingested are saved into its parked
+        state, and the new holder's restored, with its later rows zeroed,
+        as in a stripe of its own.  Only dense and vlm chunk: the stripe's
+        leaves are ``k`` and ``v``, positions on axis 2."""
+        held = self._stripe_slot
+        if held == slot:
+            return
+        stripe = self._batch1(self.cache_dtype)
+        st = self._chunking.get(held)
+        if st is not None and st["off"]:
+            st["rows"] = {n: stripe[n][:, :, :st["off"]].clone()
+                          for n in ("k", "v")}
+        if slot is not None:
+            st = self._chunking[slot]
+            rows = st.pop("rows", {})
+            for n in ("k", "v"):
+                stripe[n][:, :, st["off"]:].zero_()
+                if n in rows:
+                    stripe[n][:, :, :st["off"]].copy_(rows[n])
+        self._stripe_slot = slot
 
     def _block(self, greedy_only: bool) -> torch.Tensor:
         """K decode+sample iterations over all slots, reading the static
@@ -616,20 +746,47 @@ class ServeEngine:
         :class:`OutOfPages` (paged mode, pool exhausted even after prefix
         eviction) before any engine state changes, so the caller can
         requeue the request."""
-        n, n_front = len(req.prompt), self._n_front(req)
-        toks = torch.zeros((1, self._bucket(n, self.max_len - n_front)),
-                           dtype=torch.long)
-        toks[0, :n] = torch.tensor(req.prompt, dtype=torch.long)
-        batch = {"tokens": toks.to(self.device),
-                 "lengths": torch.tensor([n], dtype=torch.int32,
-                                         device=self.device)}
-        if req.frontend_embeds is not None:
-            batch["frontend_embeds"] = torch.as_tensor(
-                req.frontend_embeds)[None].to(self.device)
-        logits, cache1 = self.model.prefill(self.params, batch, self.ctx,
-                                            self.max_len)
-        self._install(req, slot, cache1, n + n_front)
+        key = self._load_prefill(req)
+        logits, cache1 = self._run(self._pf_graphs, key,
+                                   lambda: self._prefill_program(key),
+                                   self._capture_prefill)
+        self._install(req, slot, cache1, len(req.prompt) + self._n_front(req))
         return self._first_token(req, slot, logits)
+
+    def _load_prefill(self, req: Request) -> tuple:
+        """Write ``req`` into the static inputs of its prefill program
+        (made at the key's first use) -> the key: ``("prefill",
+        bucket)``, with the frontend's shape and dtype where it has
+        one."""
+        n, n_front = len(req.prompt), self._n_front(req)
+        sb = self._bucket(n, self.max_len - n_front)
+        if self.ctx.dtype == self.cache_dtype:
+            self._take_stripe(None)         # the prefill's buffer is it
+        fe = (None if req.frontend_embeds is None
+              else torch.as_tensor(req.frontend_embeds))
+        key = ("prefill", sb) if fe is None else \
+            ("prefill", sb, tuple(fe.shape), fe.dtype)
+        buf = self._pf_in.get(key)
+        if buf is None:
+            buf = self._pf_in[key] = {
+                "tokens": torch.zeros((1, sb), dtype=torch.long,
+                                      device=self.device),
+                "lengths": torch.zeros((1,), dtype=torch.int32,
+                                       device=self.device)}
+            if fe is not None:
+                buf["frontend_embeds"] = torch.zeros(
+                    (1, *fe.shape), dtype=fe.dtype, device=self.device)
+        # every buffer rewritten whole, zeros past the prompt as JAX
+        # pads: a shorter prompt after a longer one in the bucket must
+        # not see the longer one's tail (its K/V land in the cache past
+        # pos, and not every family's pass reads the mask)
+        toks = torch.zeros((1, sb), dtype=torch.long)
+        toks[0, :n] = torch.tensor(req.prompt, dtype=torch.long)
+        buf["tokens"].copy_(toks)
+        buf["lengths"].fill_(n)
+        if fe is not None:
+            buf["frontend_embeds"].copy_(fe[None])
+        return key
 
     def _install(self, req: Request, slot: int, cache1,
                  n_prompt: int) -> None:
@@ -759,15 +916,33 @@ class ServeEngine:
                         t_submit: float) -> None:
         """Park ``req`` in ``slot`` as an in-flight chunked admission: its
         prompt is ingested ``prefill_chunk`` tokens per engine step into
-        a private contiguous stripe, installed when the last chunk
+        the engine's chunk stripe (:meth:`_take_stripe` hands it from one
+        admission in flight to another), installed when the last chunk
         lands."""
         self._chunking[slot] = {
             "req": req, "off": 0, "n": len(req.prompt),
-            "cache": self.model.init_cache(1, self.max_len, self.cache_dtype,
-                                           device=self.device,
-                                           **self._cache_kw),
             "queue_wait": queue_wait, "t_submit": t_submit,
         }
+
+    def _load_chunk(self, tokens: Sequence[int], offset: int) -> tuple:
+        """Write one chunk (``tokens`` from absolute position ``offset``,
+        zeros after them) into the static inputs of the chunk program
+        (made at its first use) -> its key."""
+        key = ("chunk",)
+        buf = self._pf_in.get(key)
+        if buf is None:
+            dev = self.device
+            buf = self._pf_in[key] = {
+                "tokens": torch.zeros((1, self._chunk), dtype=torch.long,
+                                      device=dev),
+                "offset": torch.zeros((1,), dtype=torch.int32, device=dev),
+                "lengths": torch.zeros((1,), dtype=torch.int32, device=dev)}
+        toks = torch.zeros((1, self._chunk), dtype=torch.long)
+        toks[0, :len(tokens)] = torch.tensor(list(tokens), dtype=torch.long)
+        buf["tokens"].copy_(toks)
+        buf["offset"].fill_(offset)
+        buf["lengths"].fill_(offset + len(tokens))
+        return key
 
     def _advance_chunk(self, slot: int) -> list[tuple[int, int]]:
         """Ingest one more chunk of the admission parked in ``slot``; on
@@ -781,17 +956,14 @@ class ServeEngine:
         if "logits" not in st:
             off, n = st["off"], st["n"]
             end = min(off + self._chunk, n)
-            toks = torch.zeros((1, self._chunk), dtype=torch.long)
-            toks[0, :end - off] = torch.tensor(req.prompt[off:end],
-                                               dtype=torch.long)
             t0 = _now()
             with obs.span("serve.prefill_chunk", rid=req.rid, slot=slot,
                           step=self._step, offset=off, end=end):
-                logits, st["cache"] = self.model.prefill_chunk(
-                    self.params, toks.to(self.device), self.ctx,
-                    cache=st["cache"], offset=off,
-                    lengths=torch.tensor([end], dtype=torch.int32,
-                                         device=self.device))
+                self._take_stripe(slot)
+                key = self._load_chunk(req.prompt[off:end], off)
+                logits, _ = self._run(self._pf_graphs, key,
+                                      lambda: self._prefill_program(key),
+                                      self._capture_prefill)
                 # unlike the JAX engine, which leaves the chunk in
                 # flight, wait for it: a chunk that is not the last reads
                 # nothing back, so without the wait its device time would
@@ -804,15 +976,22 @@ class ServeEngine:
             st["off"] = end
             if end < n:
                 return []
-            st["logits"] = logits
+            # a replay's logits live in the graphs' shared pool, and the
+            # install may wait for pages across engine steps: a copy
+            st["logits"] = logits.clone()
+        self._take_stripe(slot)
+        cache1 = {**self._batch1(self.cache_dtype),
+                  "pos": torch.full((1,), st["n"], dtype=torch.int32,
+                                    device=self.device)}
         try:
-            self._install(req, slot, st["cache"], st["n"])
+            self._install(req, slot, cache1, st["n"])
         except OutOfPages:
             if not any(s is not None for s in self._slots):
                 raise
             return []
         tok = self._first_token(req, slot, st["logits"])
         del self._chunking[slot]
+        self._stripe_slot = None
         self.stats.prefill_tokens += st["n"]
         self.stats.admitted += 1
         ttft = _now() - st["t_submit"]

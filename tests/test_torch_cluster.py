@@ -622,5 +622,7 @@ def test_router_on_card_matches_single_engine(cuda):
     assert router.stats().admitted == router.stats().retired == 8
     assert ran.get("zero_stall_matmul", 0) > 0
     assert ran.get("flash_attention", 0) > 0
-    assert all([c["variant"] for c in rep.engine.captures] == ["greedy"]
+    # each replica's decode graph, beside its prefill graphs
+    assert all([c["variant"] for c in rep.engine.captures
+                if not c["variant"].startswith("prefill")] == ["greedy"]
                for rep in router.replicas)

@@ -299,6 +299,8 @@ def test_graph_replay_equals_eager_block_on_card(cuda, mode, temperature):
                                          mode=mode, temperature=temperature)
     assert graph == eager
     assert graph_counts == eager_counts
-    assert [c["variant"] for c in eng.captures] == [
+    # the decode graph's variant, beside one prefill graph a bucket
+    assert [c["variant"] for c in eng.captures
+            if not c["variant"].startswith("prefill")] == [
         "greedy" if temperature == 0.0 else "sampled"]
     assert eng.stats.dispatches > 1

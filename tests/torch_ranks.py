@@ -188,6 +188,54 @@ def sharded_engine(rank, n, shape, npz, backend):
     return out
 
 
+def prefill_across_ranks(rank, n, device):
+    """ShardedEngine over (1, n) on reduced gemma-7b drawn from seed 0:
+    its tokens and its captures (none across ranks: neither the decode
+    block nor a prefill)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import Ctx, build_model
+    from repro_torch.serve import ShardedEngine
+    cfg = get_config("gemma-7b", reduced=True)
+    model = build_model(cfg)
+    mesh = make_mesh_compat((1, n), ("data", "model"), device=device)
+    eng = ShardedEngine(model, model.init(seed=0, device=device),
+                        Ctx(plan="auto", dtype=torch.float32), mesh=mesh,
+                        **ENGINE_KW)
+    res = eng.run(requests(cfg.vocab_size))
+    return {"tokens": {i: r.tokens for i, r in res.items()},
+            "captures": eng.captures}
+
+
+def failed_prefill_capture(rank, n):
+    """An engine on the card whose prefill body reads a device value on
+    the host: the first admission runs it eagerly, then its capture
+    fails -> whether it raised a ``RuntimeError`` (torch's CUDA errors
+    derive from it) and the graphs kept (none)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Ctx, build_model
+    from repro_torch.serve import ServeEngine
+    cfg = get_config("gemma-7b", reduced=True)
+    model = build_model(cfg)
+    eng = ServeEngine(model, model.init(seed=0, device="cuda"),
+                      Ctx(plan="auto", dtype=torch.float32), device="cuda",
+                      num_slots=2, max_len=32)
+    real = eng._prefill_program
+
+    def reads_the_host(key):
+        logits, cache = real(key)
+        logits.sum().item()
+        return logits, cache
+
+    eng._prefill_program = reads_the_host
+    try:
+        eng._admit(requests(cfg.vocab_size)[0], 0)
+        raised = False
+    except RuntimeError:
+        raised = True
+    return {"raised": raised, "graphs": len(eng._pf_graphs)}
+
+
 def train_steps(rank, n, npz, arch, compression="none"):
     """Five fp32 train steps of the reduced ``arch`` from JAX's params in
     ``npz`` on (2, 2) (or one device with ``n`` None), gradients
