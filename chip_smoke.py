@@ -187,14 +187,19 @@ Phases, each printed as it runs:
    checkpoints removed, a second ``train_loop`` resumes from step 10 and
    gives the unbroken run's losses for steps 11-29 within 1e-4
    relative; ``microbatches=2`` gives its first loss within 1e-5
-   relative; ``grad_compression="int8"`` runs; then a warm-up and 3 steps
-   through ``make_train_step``; (c) gemma-7b at full width, 4 of 28
-   layers, remat "full": a warm-up and 4 steps of 4 x 512 tokens through
-   ``make_train_step``; each of (b) and (c): the median step time,
-   tokens/s, the peak memory (in (c) beside its reckoning), the model
-   FLOP/s as a share of the fp32 peak and one step's device-busy share
-   under ``torch.profiler``; (d) no launch of any of the six kernel wrappers
-   over (a)-(c);
+   relative; ``grad_compression="int8"`` runs (``train_loop`` steps
+   through ``compile_train_step``: a CUDA graph after its first step);
+   (c) gemma-7b at full width, 4 of 28 layers, remat "full", 4 x 512
+   tokens; (d) no launch of any of the six kernel wrappers over (a)-(c)
+   and (e); (e) on (b)'s and (c)'s configurations, 3 steps from the
+   state drawn from seed 0, twice through the eager ``make_train_step``
+   and once through ``compile_train_step`` (its first step eager, then
+   the capture, then replays): the graphed state bit-equal to the first
+   eager run's, or no further from it than the second eager run is (both
+   distances printed), one capture; then each path's median step time,
+   tokens/s, the model FLOP/s as a share of the fp32 peak, one step's
+   device-busy share under ``torch.profiler``, the capture's seconds and
+   pool, and the peak memory (in (c) beside its reckoning);
 5p. cluster serving on phase 5's gemma-7b bf16 weights and traffic (run
    inside phase 5, after 5f): (a) a ``Router`` over two contiguous
    replicas: every token phase 5's, the ``on_token`` stream with no
@@ -307,6 +312,13 @@ Phases, each printed as it runs:
    seamless-m4t-large-v2 with its frames, llava-next-34b with 2880
    patch positions): the first-prefill logits of the graph's replay
    bit-equal to the eager body's;
+5t. the lock-step oracle's decode as a CUDA graph (inside phase 5, on its
+   weights): ``lockstep_generate`` over the first 4 requests of phase 5's
+   traffic, 32 new tokens (its first decode step eager, then one step
+   captured and replayed) against the eager loop of ``Model.decode``
+   calls: tokens equal, launch counts the path's (kernel 1 at every
+   projection of the batched prefill and of 31 decode steps), how many
+   tokens equal phase 5's engine's printed;
 6. each kernel's time at the main-path shapes with CUDA events over a
    CUDA graph of many calls (device time, with the host's launch work
    taken out; operands cycled past the 50 MB L2), beside its plain
@@ -334,7 +346,7 @@ Phases, each printed as it runs:
    128-tile) over a CUDA graph and issued eagerly, beside kernel 1 and
    cuBLAS (printed, not gated);
 7. the script's wall time, a ``{"kernels": [...]}`` line (with each
-   kernel's launches on the paths of 5p, 5g-5l, 5r (rank 0) and 5s,
+   kernel's launches on the paths of 5p, 5g-5l, 5r (rank 0), 5s and 5t,
    the zamba2
    shapes' and
    the slice-9 shapes' timings of kernels 1-3 and kernel 1's ZONL
@@ -345,9 +357,11 @@ Phases, each printed as it runs:
 On the card the engine decodes through one CUDA graph a variant
 (greedy only, sampled), captured after the variant's first dispatch,
 and prefills through one graph a prompt bucket and one a chunk shape,
-each captured after its first (eager) use; every serving phase prints
-its engines' captures and their pool bytes, and each wrapper's launch
-count counts the launches a replay runs.
+each captured after its first (eager) use; the train step runs as one
+graph a batch shape and the lock-step oracle's decode as one graph a
+call, in the same way; every serving phase prints its engines' captures
+and their pool bytes, and each wrapper's launch count counts the
+launches a replay runs.
 
 Any failed check raises, so the script exits non-zero and prints no
 ``ok`` line.  It exits non-zero at once without a CUDA device, or when
@@ -505,7 +519,7 @@ def main() -> int:
     # kernel 4 runs on two paths (5d, 5e); the line reads 5e's, where it
     # carries every projection, so that each count is that of one run
     counts["quantized_zero_stall_matmul"] = serve_gemma_w8a8(torch, kern)
-    by_path = {"5p": PHASE5["5p"], "5s": PHASE5["5s"]}
+    by_path = {"5p": PHASE5["5p"], "5s": PHASE5["5s"], "5t": PHASE5["5t"]}
     by_path.update(serve_zamba2_full_width(torch, kern))
     by_path.update(serve_mamba2_full_width(torch, kern))
     for phase in (serve_seamless_full_width, serve_llava_full_width,
@@ -1753,6 +1767,7 @@ def serve_full_width(torch, kern):
     del logits
     greedy = serve_block_full_width(torch, kern, model, params, gen)
     PHASE5["tokens"] = greedy
+    PHASE5["5t"] = oracle_full_width(torch, kern, model, params, greedy)
     serve_sampled_full_width(torch, kern, model, params, greedy)
     PHASE5["5s"] = prefill_graphs_full_width(torch, kern, model, params,
                                              greedy)
@@ -2039,6 +2054,71 @@ def serve_block_full_width(torch, kern, model, params, gen) -> dict:
     del eng, res
     torch.cuda.empty_cache()
     return tokens
+
+
+def eager_oracle(torch, model, params, ctx, prompts, new: int,
+                 max_len: int) -> list[list[int]]:
+    """The lock-step oracle's loop, every decode step an eager
+    ``Model.decode`` call: one ragged prefill, then ``new - 1`` greedy
+    steps."""
+    lens = [len(p) for p in prompts]
+    toks = torch.zeros((len(prompts), max(lens)), dtype=torch.long)
+    for i, p in enumerate(prompts):
+        toks[i, :lens[i]] = torch.tensor(p)
+    batch = {"tokens": toks.cuda(),
+             "lengths": torch.tensor(lens, dtype=torch.int32, device="cuda")}
+    logits, cache = model.prefill(params, batch, ctx, max_len)
+    tok = torch.argmax(logits[:, -1].float(), dim=-1)
+    outs = [[int(t)] for t in tok.tolist()]
+    for _ in range(new - 1):
+        logits, cache = model.decode(params, cache, tok[:, None], ctx)
+        tok = torch.argmax(logits[:, -1].float(), dim=-1)
+        for out, t in zip(outs, tok.tolist()):
+            out.append(int(t))
+    return outs
+
+
+def oracle_full_width(torch, kern, model, params, greedy: dict) -> dict:
+    """5t: ``lockstep_generate`` (its decode a CUDA graph after the first
+    step) over the first 4 requests of phase 5's traffic against the
+    eager oracle's loop on the same weights: tokens equal, launches the
+    path's -> the graphed run's launch counts."""
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import Ctx
+    from repro_torch.serve import lockstep_generate
+    kw, L, n = SERVE_KW, GEMMA["layers"], 4
+    prompts = [r.prompt for r in make_requests(
+        model.cfg, kw["seed"], kw["batch"], kw["prompt_len"], kw["gen_len"],
+        kw["mixed"])[:n]]
+    ctx = Ctx(plan="auto", dtype=torch.bfloat16)
+    new, max_len = kw["gen_len"], kw["prompt_len"] + kw["gen_len"]
+    print(f"[5t] lockstep_generate on phase 5's weights: the first {n} "
+          f"requests, {new} new tokens, its decode graphed against the "
+          f"eager oracle", flush=True)
+    t0 = time.perf_counter()
+    want = eager_oracle(torch, model, params, ctx, prompts, new, max_len)
+    t1 = time.perf_counter()
+    reset_counts(kern)
+    got = lockstep_generate(model, params, ctx, prompts, new,
+                            max_len=max_len, device="cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = {name: k.launches for name, k in kern.items()}
+    same = sum(a == b for i in range(n) for a, b in zip(got[i], greedy[i]))
+    print(f"    eager oracle {t1 - t0:.3f} s, graphed {t2 - t1:.3f} s (each "
+          f"with its prefill; the graphed one with its first step and "
+          f"capture); tokens equal: {got == want}; {same} of {n * new} equal "
+          f"phase 5's engine's (a batched, padded prefill against the "
+          f"engine's batch-1 prefills: bf16 rounding may differ)", flush=True)
+    require(got == want, "5t: the graphed oracle's tokens differ from the "
+            "eager oracle's")
+    want_counts = {name: 0 for name in kern}
+    want_counts.update(zero_stall_matmul=(7 * L + 1) * new,
+                       flash_attention=L)
+    check_counts("5t", counts, want_counts,
+                 f"(7*{L}+1) matmuls per pass over a prefill and {new - 1} "
+                 f"decode steps, {L} flash calls in the prefill")
+    return {name: c for name, c in counts.items() if c}
 
 
 def serve_sampled_full_width(torch, kern, model, params, greedy: dict
@@ -4430,7 +4510,7 @@ TRAIN_B = dict(seq_len=1024, global_batch=8, lr=3e-3, warmup_steps=3,
 # 5o (c): gemma-7b at full width; 4 layers keep parameters, gradients and
 # both moments in fp32 (16 bytes a parameter) and the loss's one-hot
 # contraction over 256000 columns inside 80 GB
-TRAIN_C = dict(layers=4, seq_len=512, global_batch=4, steps=4)
+TRAIN_C = dict(layers=4, seq_len=512, global_batch=4)
 
 
 def train_step_device_vs_host(torch) -> None:
@@ -4537,8 +4617,8 @@ def train_mamba2_full(torch) -> None:
             "5o (b): microbatches=2 changed the first loss")
     require(all(math.isfinite(x) for x in int8), "5o (b): int8 diverged")
     shutil.rmtree(TRAIN_DIR)
-    time_train_steps(torch, "b", get_config("mamba2-130m"),
-                     TRAIN_B["seq_len"], TRAIN_B["global_batch"], 3)
+    train_graph_vs_eager(torch, "mamba2-130m", get_config("mamba2-130m"),
+                         TRAIN_B["seq_len"], TRAIN_B["global_batch"])
 
 
 def device_busy(torch, fn) -> tuple[float, float, list, int]:
@@ -4567,66 +4647,128 @@ def device_busy(torch, fn) -> tuple[float, float, list, int]:
             len(dev))
 
 
-def time_train_steps(torch, label: str, cfg, S: int, B: int,
-                     steps: int) -> tuple[float, int]:
-    """``steps`` timed train steps of ``cfg`` at B x S tokens after a
-    warm-up step, fp32 on the card, through ``make_train_step``, then one
-    more under the profiler: prints the losses, the step times, tokens/s,
-    the peak memory, the model FLOP/s (6 N tokens, x 4/3 under full
-    remat) against the fp32 peak and the device-busy share; returns (the
-    median step's seconds, the peak bytes)."""
+def tree_distance(torch, got: list, want: list) -> float:
+    """The largest elementwise distance between two lists of tensors
+    (``want`` may be on the host)."""
+    return max(float((g - w.to(g.device)).abs().max())
+               for g, w in zip(got, want))
+
+
+def train_graph_vs_eager(torch, label: str, cfg, S: int, B: int,
+                         steps: int = 3, more: int = 3) -> None:
+    """5o (e) on ``label``'s configuration, fp32 on the card: ``steps``
+    train steps of B x S tokens from the state drawn from seed 0, twice
+    through the eager ``make_train_step`` (E1, E2) and once through
+    ``compile_train_step`` (G: its first step eager, then the capture,
+    then replays).  The determinism gate: G's parameters and losses
+    bit-equal to E1's, or no further from them than E2's are.  Then E1
+    and G take one more step under ``torch.profiler`` (G ``more`` timed
+    replays first).  Prints the losses, the eager and graphed median
+    step (E1's first step left out: the warm-up; G's replays only),
+    tokens/s, the model FLOP/s (6 N tokens, x 4/3 under full remat)
+    against the fp32 peak, the device-busy share, the capture's seconds
+    and pool, and the peak memory allocated and reserved over E1's steps
+    and over G's (its first step and capture included)."""
     from repro_torch.configs import RunConfig
     from repro_torch.data import make_pipeline
-    from repro_torch.launch.train import make_train_step
+    from repro_torch.launch.train import compile_train_step, make_train_step
     from repro_torch.models import Ctx, build_model
     from repro_torch.optim import init_opt_state
+    from repro_torch.tree import leaves
 
     run = RunConfig(seq_len=S, global_batch=B, lr=3e-4, warmup_steps=1,
-                    total_steps=steps + 2, dtype="float32")
+                    total_steps=steps + more + 2, dtype="float32")
     model = build_model(cfg)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    params = model.init(seed=0, dtype=torch.float32, device="cuda")
-    opt = init_opt_state(params)
-    step = make_train_step(model, Ctx(plan="torch", dtype=torch.float32),
-                           run)
+    ctx = Ctx(plan="torch", dtype=torch.float32)
     pipe = make_pipeline(cfg.vocab_size, S, B)
-    times, losses = [], []
-    for i in range(steps + 1):
-        batch = pipe.torch_batch(i, "cuda")
+    batches = [pipe.torch_batch(i, "cuda") for i in range(steps + more + 1)]
+
+    def steps_of(step, n):
+        """n steps of ``step`` on a fresh state -> (state, losses, the
+        host time of each step)."""
+        params = model.init(seed=0, dtype=torch.float32, device="cuda")
+        state, losses, times = (params, init_opt_state(params), {}), [], []
+        for i in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            *state, m = step(*state, batches[i])
+            losses.append(float(m["loss"]))
+            times.append(time.perf_counter() - t0)
+        return state, losses, times
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    release()
+    eager = make_train_step(model, ctx, run)
+    state, loss_e1, t_e1 = steps_of(eager, steps)
+    peak_e = (torch.cuda.max_memory_allocated(),
+              torch.cuda.max_memory_reserved())
+    ref = [t.to("cpu", copy=True) for t in leaves(state[0])]
+    busy_e = device_busy(torch, lambda: eager(*state, batches[steps]))
+    del state
+    release()
+    state, loss_e2, t_e2 = steps_of(eager, steps)
+    d_eager = tree_distance(torch, leaves(state[0]), ref)
+    del state, eager
+    release()
+    compiled = compile_train_step(model, ctx, run)
+    state, loss_g, t_g = steps_of(compiled, steps)
+    peak_g = (torch.cuda.max_memory_allocated(),
+              torch.cuda.max_memory_reserved())
+    d_graph = tree_distance(torch, leaves(state[0]), ref)
+    for i in range(steps, steps + more):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        params, opt, _, m = step(params, opt, {}, batch)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(float(m["loss"]))
-    peak = torch.cuda.max_memory_allocated()
-    med = sorted(times[1:])[len(times[1:]) // 2]
+        *state, m = compiled(*state, batches[i])
+        float(m["loss"])
+        t_g.append(time.perf_counter() - t0)
+    busy_g = device_busy(torch, lambda: compiled(*state,
+                                                 batches[steps + more]))
+    cap = compiled.captures
+    del state, compiled
+    release()
+
+    dl_eager = max(abs(a - b) for a, b in zip(loss_e2, loss_e1))
+    dl_graph = max(abs(a - b) for a, b in zip(loss_g, loss_e1))
+    print(f"    (e) {label}, {steps} steps of {B} x {S} from seed 0's state: "
+          f"losses eager {loss_e1}, again {loss_e2}, graph {loss_g}; the "
+          f"graph's parameters within {d_graph:.3g} of the eager run's "
+          f"(losses {dl_graph:.3g}), a second eager run's within "
+          f"{d_eager:.3g} (losses {dl_eager:.3g})", flush=True)
+    require(len(cap) == 1, f"5o (e) {label}: {len(cap)} captures, not 1")
+    require((d_graph == 0.0 and dl_graph == 0.0)
+            or (d_graph <= d_eager and dl_graph <= dl_eager),
+            f"5o (e) {label}: the graphed step is further from the eager "
+            f"step than a second eager run is")
     n, tokens = cfg.param_count(), S * B
     flops = 6 * n * tokens * (4 / 3 if cfg.remat == "full" else 1)
-    print(f"    ({label}) {steps} steps of {B} x {S} after a warm-up: losses "
-          f"{[round(x, 4) for x in losses]}; step times "
-          f"{[round(1e3 * t, 1) for t in times]} ms; median "
-          f"{1e3 * med:.1f} ms, {tokens / med:.0f} tokens/s; peak memory "
-          f"{peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated); model "
-          f"FLOP/s {flops / med / 1e12:.2f} T (6 N tokens"
-          f"{' x 4/3, full remat' if cfg.remat == 'full' else ''}), "
-          f"{100 * flops / med / PEAK_FLOPS['float32']:.1f}% of the "
-          f"{PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s fp32 peak", flush=True)
-    require(all(math.isfinite(x) for x in losses),
-            f"5o ({label}): loss not finite")
-    batch = pipe.torch_batch(steps + 1, "cuda")
-    busy, wall, top, events = device_busy(
-        torch, lambda: step(params, opt, {}, batch))
-    print(f"    ({label}) one step under torch.profiler: {events} device "
-          f"events, busy {busy / 1e3:.1f} ms of {wall / 1e3:.1f} ms "
-          f"({busy / wall:.1%}), "
-          f"{busy / 1e3 / (1e3 * med):.1%} of the unprofiled median; most "
-          f"device time: " + "; ".join(f"{name[:50]} {us / 1e3:.1f} ms"
-                                       for name, us in top), flush=True)
-    del params, opt, step
-    torch.cuda.empty_cache()
-    return med, peak
+    for path, times, busy, peak in (
+            ("eager", t_e1[1:] + t_e2, busy_e, peak_e),
+            ("graph", t_g[1:], busy_g, peak_g)):
+        med = sorted(times)[len(times) // 2]
+        b_us, wall, top, events = busy
+        print(f"    (e) {label} {path}: step times "
+              f"{[round(1e3 * t, 1) for t in times]} ms, median "
+              f"{1e3 * med:.1f} ms, {tokens / med:.0f} tokens/s, model "
+              f"FLOP/s {flops / med / 1e12:.2f} T "
+              f"({100 * flops / med / PEAK_FLOPS['float32']:.1f}% of the "
+              f"{PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s fp32 peak); peak "
+              f"memory {peak[0] / 1e9:.2f} GB allocated, {peak[1] / 1e9:.2f} "
+              f"GB reserved; one step under torch.profiler: "
+              f"{events} device events, busy {b_us / 1e3:.1f} ms of "
+              f"{wall / 1e3:.1f} ms ({b_us / wall:.1%}), "
+              f"{b_us / 1e3 / (1e3 * med):.1%} of the unprofiled median; "
+              "most device time: " + "; ".join(
+                  f"{name[:40]} {us / 1e3:.1f} ms" for name, us in top[:3]),
+              flush=True)
+    print(f"    (e) {label} graph: the first step (eager) and the capture "
+          f"{1e3 * t_g[0]:.1f} ms, the capture {cap[0]['capture_s']:.3f} s, "
+          f"its pool {cap[0]['pool_bytes'] / 2**20:.1f} MiB", flush=True)
+    require(all(math.isfinite(x) for x in loss_e1 + loss_g),
+            f"5o (e) {label}: loss not finite")
 
 
 def train_gemma_full_width(torch) -> None:
@@ -4648,7 +4790,7 @@ def train_gemma_full_width(torch) -> None:
           f"{reckon / 1e9:.1f} GB of fp32 state (16 bytes a parameter) + "
           f"{4 * S * B * cfg.vocab_size / 1e9:.2f} GB a (tokens, vocab) fp32 "
           f"tensor of the loss", flush=True)
-    time_train_steps(torch, "c", cfg, S, B, TRAIN_C["steps"])
+    train_graph_vs_eager(torch, "gemma-7b", cfg, S, B)
 
 
 def train_on_the_card(torch, kern) -> None:
@@ -4657,7 +4799,8 @@ def train_on_the_card(torch, kern) -> None:
     t0 = time.perf_counter()
     print("[5o] training in fp32 on the plain path: (a) the card against the "
           "host; (b) mamba2-130m full size through train_loop; (c) gemma-7b "
-          "full width; (d) no kernel launch", flush=True)
+          "full width; (d) no kernel launch; (e) the graphed step against "
+          "the eager step on (b)'s and (c)'s configurations", flush=True)
     torch.cuda.empty_cache()
     before = launches.snapshot()
     train_step_device_vs_host(torch)
@@ -4667,11 +4810,11 @@ def train_on_the_card(torch, kern) -> None:
     train_gemma_full_width(torch)
     tc = time.perf_counter()
     made = launches.since(before)
-    print(f"    (d) kernel launches over (a)-(c): {made or 'none'} (each of "
-          f"{', '.join(kern)})")
+    print(f"    (d) kernel launches over (a)-(c) and (e): {made or 'none'} "
+          f"(each of {', '.join(kern)})")
     require(not made, f"5o: the train path launched kernels: {made}")
-    print(f"    5o took {tc - t0:.1f} s: (a) {ta - t0:.1f}, (b) {tb - ta:.1f}, "
-          f"(c) {tc - tb:.1f}", flush=True)
+    print(f"    5o took {tc - t0:.1f} s: (a) {ta - t0:.1f}, (b) and its (e) "
+          f"{tb - ta:.1f}, (c) and its (e) {tc - tb:.1f}", flush=True)
 
 
 # ----------------------------------------------------------------------

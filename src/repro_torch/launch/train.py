@@ -4,7 +4,10 @@ Wires every substrate together: config -> model -> data pipeline ->
 train step (autograd through ``Model.loss``, optional gradient
 accumulation and gradient compression, AdamW in place) -> async
 checkpointing -> resilient executor (retry / heartbeat / straggler
-detection).  As in the JAX package, training runs the plain path
+detection).  The step runs as compiled programs where JAX jits it
+(:func:`compile_train_step`: one CUDA graph a batch shape on the card,
+the first step of a shape eager; the same body eagerly on the CPU and
+across ranks).  As in the JAX package, training runs the plain path
 (``Ctx(plan="torch")``: the kernels of the port have no backward, and
 JAX trains on its ``jnp`` path).  In one process it runs on one device;
 across ranks (:func:`repro_torch.runtime.ranks.init_ranks`, e.g. under
@@ -31,7 +34,7 @@ import time
 import torch
 import torch.distributed
 
-from repro_torch import resolve_device
+from repro_torch import graphs, resolve_device
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import RunConfig, get_config
 from repro_torch.data import make_pipeline
@@ -43,9 +46,10 @@ from repro_torch.runtime import sharding as shr
 from repro_torch.runtime.fault_tolerance import (Heartbeat, ResilientExecutor,
                                                  StragglerDetector)
 from repro_torch.runtime.ranks import device_mesh
-from repro_torch.tree import flatten, unflatten
+from repro_torch.tree import flatten, leaves, unflatten
 
-__all__ = ["train_loop", "make_train_step", "state_shardings"]
+__all__ = ["train_loop", "make_train_step", "compile_train_step",
+           "state_shardings"]
 
 
 def make_train_step(model, ctx: Ctx, run: RunConfig):
@@ -97,6 +101,100 @@ def make_train_step(model, ctx: Ctx, run: RunConfig):
         return params, opt, residuals, {"loss": loss, **metrics}
 
     return train_step
+
+
+class CompiledTrainStep:
+    """The train step as compiled programs, the port of JAX's
+    ``jax.jit(make_train_step(model, ctx, run), donate_argnums=(0, 1,
+    2))``: called as the step is, it returns the same 4-tuple.
+
+    One program a batch key (each batch leaf's name, shape and dtype):
+    the batch is copied into the key's static tensors and the step runs
+    over them, then copies the residuals that error feedback returns
+    anew back into the state's (parameters, moments and the step counter
+    are updated in place).  On a CUDA device a key's first call runs the
+    body eagerly (a real step, and the warm-up), then the body is
+    captured as a CUDA graph (:func:`repro_torch.graphs.capture`: the
+    capture advances nothing), and every later call of the key replays
+    it; ``captures`` records each capture.  On the CPU the same body runs
+    eagerly on the same static tensors.  ``metrics`` are copies, which
+    the next replay does not overwrite.
+
+    The programs read and write the state tensors of the first call, as
+    JAX's donated buffers become its outputs.  A call with other state
+    tensors (``Checkpointer.restore`` hands back new ones) has them
+    copied into those, and gets those back: a copy of the state costs
+    far less than an eager step and a capture, and the graphs and their
+    pool stay as they are; no program ever replays over tensors the
+    caller no longer holds.
+
+    Under ``ctx.mesh``, or with DTensor parameters, the eager step runs
+    on the caller's tensors and nothing is captured: gloo's host-staged
+    collectives cannot be captured in a CUDA graph."""
+
+    def __init__(self, model, ctx: Ctx, run: RunConfig):
+        self.step = make_train_step(model, ctx, run)
+        self.ctx = ctx
+        self.batches: dict[tuple, dict] = {}   # key -> static batch
+        self.programs: dict[tuple, tuple] = {}  # key -> its capture
+        self.captures: list[dict] = []
+        # the state the programs read and write: (params, opt,
+        # residuals), its leaves and its structure
+        self._state: tuple | None = None
+        self._leaves: list = []
+        self._treedef = None
+
+    def __call__(self, params, opt, residuals, batch):
+        if self.ctx.mesh is not None or any(
+                shr.is_dtensor(p) for p in leaves(params)):
+            return self.step(params, opt, residuals, batch)
+        self._hold((params, opt, residuals))
+        key = tuple((k, tuple(v.shape), v.dtype)
+                    for k, v in sorted(batch.items()))
+        static = self.batches.setdefault(
+            key, {k: torch.empty_like(v) for k, v in batch.items()})
+        for k, v in batch.items():
+            static[k].copy_(v)
+        device = self._leaves[0].device
+        if device.type != "cuda":
+            metrics = self._body(static)
+        elif key not in self.programs:
+            metrics = self._body(static)
+            self.programs[key] = graphs.capture(
+                lambda: self._body(static), device,
+                "train_step:" + ",".join(f"{k}{s}" for k, s, _ in key),
+                self.captures)
+        else:
+            metrics = graphs.replay(self.programs[key])
+        return (*self._state, {k: v.clone() for k, v in metrics.items()})
+
+    def _hold(self, state: tuple) -> None:
+        """Bind the programs to the first call's state; copy a later
+        call's other tensors into it."""
+        given, treedef = flatten(state)
+        if self._state is None:
+            self._state, self._leaves, self._treedef = state, given, treedef
+            return
+        if treedef != self._treedef:
+            raise ValueError("the train state's structure changed")
+        with torch.no_grad():
+            for held, x in zip(self._leaves, given):
+                if x is not held:
+                    held.copy_(x)
+
+    def _body(self, batch: dict) -> dict:
+        params, opt, residuals = self._state
+        _, _, new, metrics = self.step(params, opt, residuals, batch)
+        for held, x in zip(leaves(residuals), leaves(new)):
+            if x is not held:
+                held.copy_(x)
+        return metrics
+
+
+def compile_train_step(model, ctx: Ctx, run: RunConfig) -> CompiledTrainStep:
+    """``make_train_step(model, ctx, run)`` as compiled programs (see
+    :class:`CompiledTrainStep`), where JAX jits it."""
+    return CompiledTrainStep(model, ctx, run)
 
 
 def state_shardings(mesh, state: dict) -> dict:
@@ -158,7 +256,7 @@ def train_loop(arch: str, run: RunConfig, *, reduced: bool = True,
         state, start_step = ckpt.restore(state, **restore_kw)
         start_step += 1
 
-    step_fn = make_train_step(model, ctx, run)
+    step_fn = compile_train_step(model, ctx, run)
     detector = StragglerDetector()
     # one heartbeat file a rank
     hb = Heartbeat(run.ckpt_dir,

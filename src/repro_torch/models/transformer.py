@@ -218,7 +218,11 @@ def layer_fwd(cfg: ModelConfig, ctx: Ctx, mlp_fn: Callable | None,
     y, aux = _mlp_fn(cfg, ctx, mlp_fn)(lp["mlp"], h)
     if mlp_fn is None:
         y = L.shard_seq(y, ctx)
-    return x + y, torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+    # the dense MLP's aux is the number 0.0: filled on the device, since
+    # a host-to-device copy cannot be captured in a CUDA graph
+    aux = (aux.to(torch.float32) if isinstance(aux, torch.Tensor)
+           else torch.full((), aux, dtype=torch.float32, device=x.device))
+    return x + y, aux
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, ctx: Ctx,

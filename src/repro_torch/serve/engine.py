@@ -105,7 +105,6 @@ the model's: ``init_cache(quantize_kv=True)`` and ``decode_step``.
 from __future__ import annotations
 
 import collections
-import gc
 import time
 import warnings
 from typing import Sequence
@@ -113,8 +112,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch import obs, resolve_device
-from repro_torch.kernels import launches
+from repro_torch import graphs, obs, resolve_device
 from repro_torch.serve import sampling
 from repro_torch.serve.paging import (TRASH_PAGE, OutOfPages, PageAllocator,
                                       PageGeometry, PrefixCache)
@@ -495,64 +493,29 @@ class ServeEngine:
         return self._run(self._graphs, greedy_only,
                          lambda: self._block(greedy_only), self._capture)
 
-    def _run(self, graphs: dict, key, body, capture):
+    def _run(self, table: dict, key, body, capture):
         """``body()`` as a program of static buffers: eagerly on the CPU;
-        on a CUDA device the replay of ``graphs[key]``, or, at the key's
+        on a CUDA device the replay of ``table[key]``, or, at the key's
         first use, ``body()`` eagerly (which builds the kernels and
         resolves the plan's call sites) and then ``capture(key)``."""
         if self.device.type != "cuda":
             return body()
-        if key not in graphs:
+        if key not in table:
             out = body()
             capture(key)
             return out
-        graph, out, counts = graphs[key]
-        graph.replay()
-        launches.add(counts)
-        return out
-
-    def _graph(self, variant: str, body, pool=None) -> tuple:
-        """Capture ``body`` into a CUDA graph that reads and writes the
-        engine's static buffers -> (graph, its outputs, the launches it
-        replays), recorded in ``captures``.  The capture runs nothing: it
-        advances no state, and the launch counts its wrapper calls made
-        are taken back out and added again at each replay."""
-        dev = self.device
-        t0 = _now()
-        # torch.cuda.graph syncs and empties the cache again; done here
-        # first, the growth of the reserved bytes is the graph's pool
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        before = launches.snapshot()
-        graph = torch.cuda.CUDAGraph()
-        # no garbage collection inside the capture: collecting a dead
-        # engine would destroy its graphs, a call that invalidates the
-        # capture (torch.cuda.graph no longer collects before it begins)
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, pool=pool):
-                out = body()
-        finally:
-            if collecting:
-                gc.enable()
-        counts = launches.since(before)
-        launches.add(counts, -1)
-        self.captures.append({
-            "variant": variant,
-            "pool_bytes": torch.cuda.memory_reserved(dev) - reserved,
-            "capture_s": _now() - t0})
-        return graph, out, counts
+        return graphs.replay(table[key])
 
     def _capture(self, greedy_only: bool) -> None:
-        """Capture the variant's block (see :meth:`_graph`)."""
-        self._graphs[greedy_only] = self._graph(
-            "greedy" if greedy_only else "sampled",
-            lambda: self._block(greedy_only))
+        """Capture the variant's block as a CUDA graph of the engine's
+        static buffers (:func:`repro_torch.graphs.capture`), recorded in
+        ``captures``."""
+        self._graphs[greedy_only] = graphs.capture(
+            lambda: self._block(greedy_only), self.device,
+            "greedy" if greedy_only else "sampled", self.captures)
 
     def _capture_prefill(self, key: tuple) -> None:
-        """Capture the prefill program of ``key`` (see :meth:`_graph`)
+        """Capture the prefill program of ``key`` (as :meth:`_capture`)
         into the pool every prefill and chunk graph of this engine shares.
         Sharing is safe only because each replay's outputs are consumed
         before another of these graphs replays: ``_admit`` installs the
@@ -568,8 +531,9 @@ class ServeEngine:
         else:
             variant = f"prefill:{key[1]}" + ("+frontend" if len(key) > 2
                                              else "")
-        self._pf_graphs[key] = self._graph(
-            variant, lambda: self._prefill_program(key), pool=self._pf_pool)
+        self._pf_graphs[key] = graphs.capture(
+            lambda: self._prefill_program(key), self.device, variant,
+            self.captures, pool=self._pf_pool)
 
     def _prefill_program(self, key: tuple):
         """The prefill program of ``key`` on its static inputs
@@ -1146,7 +1110,17 @@ def lockstep_generate(model, params, ctx, prompts: Sequence[Sequence[int]],
     """Greedy lock-step oracle: one ragged batch, one prefill, then
     synchronised decode.  The engine must match it token for token.
     ``frontend_embeds``: the batch's (B, P, d) vlm prefixes or encdec
-    source frames."""
+    source frames.
+
+    Decode is one program of static buffers, as JAX jits it with the
+    cache donated: a ``(B, 1)`` token buffer and the prefill's cache.  A
+    step runs ``Model.decode``, writes the greedy argmax into the token
+    buffer and copies ``pos`` (and any other leaf ``decode`` returns
+    anew) back into the cache.  On a CUDA device the first step runs
+    eagerly, then one step is captured as a CUDA graph
+    (:func:`repro_torch.graphs.capture`) and replayed for the rest; the
+    graph and its pool live only for the call.  On the CPU every step
+    runs the same body eagerly."""
     device = resolve_device(device)
     B = len(prompts)
     max_new = ([max_new_tokens] * B if isinstance(max_new_tokens, int)
@@ -1161,12 +1135,26 @@ def lockstep_generate(model, params, ctx, prompts: Sequence[Sequence[int]],
         batch["frontend_embeds"] = torch.as_tensor(frontend_embeds).to(
             device)
     logits, cache = model.prefill(params, batch, ctx, max_len)
-    tok = sampling.greedy(logits[:, -1])
-    outs = [[int(t)] for t in tok.cpu().tolist()]
-    for _ in range(max(max_new) - 1):
-        logits, cache = model.decode(params, cache, tok[:, None].long(), ctx)
-        tok = sampling.greedy(logits[:, -1])
-        for i, t in enumerate(tok.cpu().tolist()):
-            if len(outs[i]) < max_new[i]:
-                outs[i].append(int(t))
+    tok = sampling.greedy(logits[:, -1])[:, None].long()
+    outs = [[int(t)] for t in tok[:, 0].cpu().tolist()]
+
+    def step() -> torch.Tensor:
+        logits, new = model.decode(params, cache, tok, ctx)
+        tok.copy_(sampling.greedy(logits[:, -1])[:, None])
+        for name, t in new.items():
+            if t is not cache[name]:
+                cache[name].copy_(t)
+        return tok
+
+    graph = None
+    for i in range(max(max_new) - 1):
+        if graph is not None:
+            graphs.replay(graph)
+        else:
+            step()
+            if device.type == "cuda" and i < max(max_new) - 2:
+                graph = graphs.capture(step, device, "lockstep_decode", [])
+        for b, t in enumerate(tok[:, 0].cpu().tolist()):
+            if len(outs[b]) < max_new[b]:
+                outs[b].append(int(t))
     return outs

@@ -15,41 +15,45 @@ from typing import Any, Callable
 __all__ = ["flatten", "unflatten", "leaves", "tree_map", "stacked_groups"]
 
 
+# The walks are module-level functions, not recursive closures: a closure
+# that calls itself is a reference cycle, which would keep every leaf it
+# saw (a step's gradients) alive until the garbage collector runs, and
+# the collector is off while a CUDA graph is captured.
+def _flatten(x: Any, out: list) -> Any:
+    if isinstance(x, dict):
+        keys = tuple(sorted(x))
+        return (dict, keys), tuple(_flatten(x[k], out) for k in keys)
+    if isinstance(x, (list, tuple)):
+        return (type(x), len(x)), tuple(_flatten(v, out) for v in x)
+    out.append(x)
+    return None
+
+
 def flatten(tree: Any) -> tuple[list, Any]:
     """(leaves, treedef): every leaf of ``tree`` in order, and its
     structure (None for a leaf)."""
     out: list = []
+    return out, _flatten(tree, out)
 
-    def walk(x):
-        if isinstance(x, dict):
-            keys = tuple(sorted(x))
-            return (dict, keys), tuple(walk(x[k]) for k in keys)
-        if isinstance(x, (list, tuple)):
-            return (type(x), len(x)), tuple(walk(v) for v in x)
-        out.append(x)
-        return None
 
-    return out, walk(tree)
+def _build(d: Any, it) -> Any:
+    if d is None:
+        return next(it)
+    (kind, meta), subs = d
+    kids = [_build(s, it) for s in subs]
+    if kind is dict:
+        return dict(zip(meta, kids))
+    if kind is list:
+        return kids
+    if kind is tuple:
+        return tuple(kids)
+    return kind(*kids)          # a NamedTuple
 
 
 def unflatten(treedef: Any, leaves: list) -> Any:
     """The tree of structure ``treedef`` holding ``leaves`` in order."""
     it = iter(leaves)
-
-    def build(d):
-        if d is None:
-            return next(it)
-        (kind, meta), subs = d
-        kids = [build(s) for s in subs]
-        if kind is dict:
-            return dict(zip(meta, kids))
-        if kind is list:
-            return kids
-        if kind is tuple:
-            return tuple(kids)
-        return kind(*kids)          # a NamedTuple
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree has")
     return out

@@ -277,6 +277,37 @@ def train_steps(rank, n, npz, arch, compression="none"):
             "replicated": obs.counters("dryrun.redistribute_for_op.")}
 
 
+def compiled_train_across_ranks(rank, n):
+    """``compile_train_step`` of reduced gemma-7b on the card over a (1,
+    n) mesh, the state placed as DTensors: 3 steps' losses, the captures
+    and the batch keys held (none of either across ranks)."""
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.launch.train import compile_train_step
+    from repro_torch.models import Ctx, build_model
+    from repro_torch.optim import init_opt_state
+    from repro_torch.runtime import sharding as shr
+    from repro_torch.runtime.ranks import device_mesh
+    cfg = get_config("gemma-7b", reduced=True)
+    model = build_model(cfg)
+    mesh = make_mesh_compat((1, n), ("data", "model"), device="cuda")
+    dm = device_mesh(mesh)
+    params = model.init(seed=0, dtype=torch.float32, device="cuda")
+    params = shr.place(params, shr.param_shardings(mesh, params), dm)
+    batch = train_batch(cfg.vocab_size, "cuda")
+    batch = shr.place(batch, shr.batch_shardings(mesh, batch), dm)
+    step = compile_train_step(
+        model, Ctx(plan="torch", dtype=torch.float32, mesh=mesh),
+        RunConfig(seq_len=16, global_batch=4, lr=1e-3))
+    state, losses = (params, init_opt_state(params), {}), []
+    with shr.across_ranks():
+        for _ in range(3):
+            *state, m = step(*state, batch)
+            losses.append(float(shr.unplace(m["loss"])))
+    return {"losses": losses, "captures": step.captures,
+            "batches": len(step.batches)}
+
+
 def train_steps_compressed(rank, n, npz, schemes):
     """:func:`train_steps` of reduced gemma-7b on (2, 2) under each
     gradient compression of ``schemes``: the losses of each."""
