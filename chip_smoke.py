@@ -2712,7 +2712,7 @@ def prefill_passes(eng, reqs, bucket: int) -> dict:
     from repro_torch.serve.engine import _host
     req = next(r for r in reqs if len(r.prompt) == bucket)
     key = eng._load_prefill(req)
-    graph, (logits, _), _ = eng._pf_graphs[key]
+    graph, (logits, _) = eng._pf_graphs[key][:2]
     return {"graph": lambda: (graph.replay(), _host(logits)),
             "eager": lambda: _host(eng._prefill_program(key)[0])}
 

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.trace_costs import counted_times
 from repro_torch.kernels import ops
@@ -540,16 +541,27 @@ def attention_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
                      ) -> tuple[torch.Tensor, Params]:
     """One-token decode against a contiguous KV cache (plain torch, as in
     the reference).  x: (B, 1, d); cache: {"k": (B, S_max, KV, D), "v"};
-    pos: (B,) or scalar write index.  The cache is updated in place."""
+    pos: (B,) or scalar write index.  The cache is updated in place.
+
+    Its regions (:func:`repro_torch.obs.region`), as in the paged and the
+    int8 decode: ``attention.qkv`` (the projections and rope),
+    ``attention.cache_write``, ``attention.core`` (scores, mask, softmax,
+    the value product and the layout copies they make) and
+    ``attention.out``."""
     B = x.shape[0]
-    q, k, v = _qkv(p, x, cfg, ctx)
-    pos_b = torch.broadcast_to(torch.as_tensor(pos, device=x.device), (B,))
-    q = rope(q, pos_b[:, None], cfg.rope_theta)
-    k = rope(k, pos_b[:, None], cfg.rope_theta)
-    ck = _scatter_at(cache["k"], k, pos)
-    cv = _scatter_at(cache["v"], v, pos)
-    o = attention_decode_masked(q, ck, cv, pos_b, cfg, ctx)
-    return linear(p["wo"], o, ctx), {"k": ck, "v": cv}
+    with obs.region("attention.qkv"):
+        q, k, v = _qkv(p, x, cfg, ctx)
+        pos_b = torch.broadcast_to(torch.as_tensor(pos, device=x.device),
+                                   (B,))
+        q = rope(q, pos_b[:, None], cfg.rope_theta)
+        k = rope(k, pos_b[:, None], cfg.rope_theta)
+    with obs.region("attention.cache_write"):
+        ck = _scatter_at(cache["k"], k, pos)
+        cv = _scatter_at(cache["v"], v, pos)
+    with obs.region("attention.core"):
+        o = attention_decode_masked(q, ck, cv, pos_b, cfg, ctx)
+    with obs.region("attention.out"):
+        return linear(p["wo"], o, ctx), {"k": ck, "v": cv}
 
 
 def _scatter_paged(pool: torch.Tensor, new: torch.Tensor,
@@ -592,26 +604,31 @@ def attention_decode_paged(p: Params, x: torch.Tensor, cfg: ModelConfig,
     """
     B = x.shape[0]
     hd = cfg.resolved_head_dim
-    q, k, v = _qkv(p, x, cfg, ctx)
-    pos_b = torch.broadcast_to(torch.as_tensor(pos, device=x.device), (B,))
-    q = rope(q, pos_b[:, None], cfg.rope_theta)
-    k = rope(k, pos_b[:, None], cfg.rope_theta)
-    ck = _scatter_paged(cache["k"], k, page_table, pos_b)
-    cv = _scatter_paged(cache["v"], v, page_table, pos_b)
-    if ctx.plan.backend == "auto":
-        o = ops.paged_attention(
-            q.reshape(B, cfg.n_heads, hd).to(ck.dtype), ck, cv, page_table,
-            kv_lens=(pos_b + 1).to(torch.int32), config=ctx.plan,
-            scale=hd ** -0.5)
-        o = o.reshape(B, 1, cfg.n_heads * hd).to(ctx.dtype)
+    with obs.region("attention.qkv"):
+        q, k, v = _qkv(p, x, cfg, ctx)
+        pos_b = torch.broadcast_to(torch.as_tensor(pos, device=x.device),
+                                   (B,))
+        q = rope(q, pos_b[:, None], cfg.rope_theta)
+        k = rope(k, pos_b[:, None], cfg.rope_theta)
+    with obs.region("attention.cache_write"):
+        ck = _scatter_paged(cache["k"], k, page_table, pos_b)
+        cv = _scatter_paged(cache["v"], v, page_table, pos_b)
+    with obs.region("attention.core"):
+        if ctx.plan.backend == "auto":
+            o = ops.paged_attention(
+                q.reshape(B, cfg.n_heads, hd).to(ck.dtype), ck, cv,
+                page_table, kv_lens=(pos_b + 1).to(torch.int32),
+                config=ctx.plan, scale=hd ** -0.5)
+            o = o.reshape(B, 1, cfg.n_heads * hd).to(ctx.dtype)
+        else:
+            ps, KV = ck.shape[1], ck.shape[2]
+            T = page_table.shape[1]
+            pt = page_table.to(torch.long)
+            kg = ck[pt].reshape(B, T * ps, KV, hd)
+            vg = cv[pt].reshape(B, T * ps, KV, hd)
+            o = attention_decode_masked(q, kg, vg, pos_b, cfg, ctx)
+    with obs.region("attention.out"):
         return linear(p["wo"], o, ctx), {"k": ck, "v": cv}
-    ps, KV = ck.shape[1], ck.shape[2]
-    T = page_table.shape[1]
-    pt = page_table.to(torch.long)
-    kg = ck[pt].reshape(B, T * ps, KV, hd)
-    vg = cv[pt].reshape(B, T * ps, KV, hd)
-    o = attention_decode_masked(q, kg, vg, pos_b, cfg, ctx)
-    return linear(p["wo"], o, ctx), {"k": ck, "v": cv}
 
 
 def _quantize_kv(t: torch.Tensor, dtype: torch.dtype
@@ -638,48 +655,56 @@ def attention_decode_quantized(p: Params, x: torch.Tensor, cfg: ModelConfig,
     """
     B = x.shape[0]
     hd = cfg.resolved_head_dim
-    q, k, v = _qkv(p, x, cfg, ctx)
-    pos_b = torch.broadcast_to(torch.as_tensor(pos, device=x.device), (B,))
-    q = rope(q, pos_b[:, None], cfg.rope_theta)
-    k = rope(k, pos_b[:, None], cfg.rope_theta)
-    qk, ks = _quantize_kv(k, ctx.dtype)
-    qv, vs = _quantize_kv(v, ctx.dtype)
-    ck = _scatter_at(cache["k"], qk, pos)
-    cks = _scatter_at(cache["k_scale"], ks, pos)
-    cv = _scatter_at(cache["v"], qv, pos)
-    cvs = _scatter_at(cache["v_scale"], vs, pos)
-    KV = ck.shape[2]
-    qg = q.reshape(B, 1, KV, cfg.n_heads // KV, hd)
-    # the int8 product, then each position's scale (equal to
-    # dequantizing first)
-    raw = torch.einsum("bskrd,btkd->bkrst", qg.to(ctx.dtype),
-                       ck.to(ctx.dtype))
-    scores = raw * cks[:, :, :, 0].permute(0, 2, 1)[:, :, None, None, :]
-    logits = scores.to(torch.float32) * (hd ** -0.5)
-    t_idx = torch.arange(ck.shape[1], device=x.device)
-    mask = t_idx[None, :] <= pos_b[:, None]
-    logits = torch.where(mask[:, None, None, None, :], logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
-    pv = probs * cvs[:, :, :, 0].permute(0, 2, 1)[
-        :, :, None, None, :].to(probs.dtype)
-    o = torch.einsum("bkrst,btkd->bskrd", pv.to(ctx.dtype), cv.to(ctx.dtype))
-    o = o.reshape(B, 1, cfg.n_heads * hd)
-    return linear(p["wo"], o, ctx), {"k": ck, "v": cv, "k_scale": cks,
-                                     "v_scale": cvs}
+    with obs.region("attention.qkv"):
+        q, k, v = _qkv(p, x, cfg, ctx)
+        pos_b = torch.broadcast_to(torch.as_tensor(pos, device=x.device),
+                                   (B,))
+        q = rope(q, pos_b[:, None], cfg.rope_theta)
+        k = rope(k, pos_b[:, None], cfg.rope_theta)
+    with obs.region("attention.cache_write"):
+        qk, ks = _quantize_kv(k, ctx.dtype)
+        qv, vs = _quantize_kv(v, ctx.dtype)
+        ck = _scatter_at(cache["k"], qk, pos)
+        cks = _scatter_at(cache["k_scale"], ks, pos)
+        cv = _scatter_at(cache["v"], qv, pos)
+        cvs = _scatter_at(cache["v_scale"], vs, pos)
+    with obs.region("attention.core"):
+        KV = ck.shape[2]
+        qg = q.reshape(B, 1, KV, cfg.n_heads // KV, hd)
+        # the int8 product, then each position's scale (equal to
+        # dequantizing first)
+        raw = torch.einsum("bskrd,btkd->bkrst", qg.to(ctx.dtype),
+                           ck.to(ctx.dtype))
+        scores = raw * cks[:, :, :, 0].permute(0, 2, 1)[:, :, None, None, :]
+        logits = scores.to(torch.float32) * (hd ** -0.5)
+        t_idx = torch.arange(ck.shape[1], device=x.device)
+        mask = t_idx[None, :] <= pos_b[:, None]
+        logits = torch.where(mask[:, None, None, None, :], logits, NEG_INF)
+        probs = torch.softmax(logits, dim=-1)
+        pv = probs * cvs[:, :, :, 0].permute(0, 2, 1)[
+            :, :, None, None, :].to(probs.dtype)
+        o = torch.einsum("bkrst,btkd->bskrd", pv.to(ctx.dtype),
+                         cv.to(ctx.dtype))
+        o = o.reshape(B, 1, cfg.n_heads * hd)
+    with obs.region("attention.out"):
+        return linear(p["wo"], o, ctx), {"k": ck, "v": cv, "k_scale": cks,
+                                         "v_scale": cvs}
 
 
 def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx) -> torch.Tensor:
-    h = linear(p["wi"], x, ctx)
-    if cfg.mlp_type == "swiglu":
-        h = F.silu(linear(p["wg"], x, ctx)) * h
-    elif cfg.mlp_type == "geglu":
-        # jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(linear(p["wg"], x, ctx), approximate="tanh") * h
-    elif cfg.mlp_type == "mlp":
-        h = F.gelu(h, approximate="tanh")
-    else:
-        raise ValueError(f"unknown mlp_type {cfg.mlp_type!r}")
-    return linear(p["wo"], h, ctx)
+    """The dense MLP, one region (``mlp``) of a graph's map."""
+    with obs.region("mlp"):
+        h = linear(p["wi"], x, ctx)
+        if cfg.mlp_type == "swiglu":
+            h = F.silu(linear(p["wg"], x, ctx)) * h
+        elif cfg.mlp_type == "geglu":
+            # jax.nn.gelu defaults to the tanh approximation
+            h = F.gelu(linear(p["wg"], x, ctx), approximate="tanh") * h
+        elif cfg.mlp_type == "mlp":
+            h = F.gelu(h, approximate="tanh")
+        else:
+            raise ValueError(f"unknown mlp_type {cfg.mlp_type!r}")
+        return linear(p["wo"], h, ctx)
 
 
 def embed(p: Params, tokens: torch.Tensor, ctx: Ctx) -> torch.Tensor:

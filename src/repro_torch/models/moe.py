@@ -32,6 +32,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import Ctx, Params
@@ -153,58 +154,68 @@ def moe_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
     ``token_mask`` ((B, S) bool, ragged serving batches): padding tokens
     neither take expert capacity nor contribute output.  The capacity is
     ``max(1, int(capacity_factor * k * B * S / E))``, so it depends on
-    the batch composition, as in the JAX package."""
+    the batch composition, as in the JAX package.
+
+    Its regions (:func:`repro_torch.obs.region`): ``moe.route`` (the
+    router's product and :func:`router_assignments`), ``moe.dispatch``
+    (the buffers' scatter), ``moe.experts`` (the three grouped products
+    and the activation) and ``moe.combine``."""
     B, S, d = x.shape
     T = B * S
     E, k = cfg.n_experts, cfg.experts_per_token
     C = max(1, int(cfg.capacity_factor * k * T / E))
     xf = x.reshape(T, d)
 
-    # the router product is a plain matmul in the JAX package too
-    logits = xf.to(torch.float32) @ gather_fsdp(p["router"]).to(
-        torch.float32)
-    valid = None if token_mask is None else token_mask.reshape(T)
-    mesh = xf.device_mesh if is_dtensor(xf) else None
-    if mesh is not None:
-        xf, logits = replicate_for_op("moe.dispatch", xf, logits)
-        if is_dtensor(valid):
-            valid, = replicate_for_op("moe.dispatch", valid)
-    slot, gates, keep, tok_ids, aux = router_assignments(
-        logits, k, C, E, token_valid=valid)
+    with obs.region("moe.route"):
+        # the router product is a plain matmul in the JAX package too
+        logits = xf.to(torch.float32) @ gather_fsdp(p["router"]).to(
+            torch.float32)
+        valid = None if token_mask is None else token_mask.reshape(T)
+        mesh = xf.device_mesh if is_dtensor(xf) else None
+        if mesh is not None:
+            xf, logits = replicate_for_op("moe.dispatch", xf, logits)
+            if is_dtensor(valid):
+                valid, = replicate_for_op("moe.dispatch", valid)
+        slot, gates, keep, tok_ids, aux = router_assignments(
+            logits, k, C, E, token_valid=valid)
 
-    # dispatch: (E*C, d) buffers; dropped assignments go to a dump row
-    dump = E * C
-    slot_safe = torch.where(keep, slot, dump)
-    buf = torch.zeros((E * C + 1, d), dtype=ctx.dtype, device=xf.device)
-    buf[slot_safe] = xf[tok_ids].to(ctx.dtype)
-    buf = buf[:-1].reshape(E, C, d)
-    if mesh is not None:
-        buf = from_replicated(buf, mesh)
-    buf = _ep_constraint(buf, ctx, ("model", None, None))
+    with obs.region("moe.dispatch"):
+        # (E*C, d) buffers; dropped assignments go to a dump row
+        dump = E * C
+        slot_safe = torch.where(keep, slot, dump)
+        buf = torch.zeros((E * C + 1, d), dtype=ctx.dtype, device=xf.device)
+        buf[slot_safe] = xf[tok_ids].to(ctx.dtype)
+        buf = buf[:-1].reshape(E, C, d)
+        if mesh is not None:
+            buf = from_replicated(buf, mesh)
+        buf = _ep_constraint(buf, ctx, ("model", None, None))
 
-    # expert FFN through the grouped zero-stall engine (quantized-aware)
-    h = _expert_matmul(buf, p["wi"], ctx)
-    h = _ep_constraint(h, ctx, ("model", None, None))
-    if "wg" in p:
-        g = _expert_matmul(buf, p["wg"], ctx)
-        # jax.nn.gelu defaults to the tanh approximation
-        act = F.silu(g) if cfg.mlp_type == "swiglu" \
-            else F.gelu(g, approximate="tanh")
-        h = act * h
-    else:
-        h = F.gelu(h, approximate="tanh")
-    y = _expert_matmul(h, p["wo"], ctx)
-    y = _ep_constraint(y, ctx, ("model", None, None))
+    with obs.region("moe.experts"):
+        # expert FFN through the grouped zero-stall engine
+        # (quantized-aware)
+        h = _expert_matmul(buf, p["wi"], ctx)
+        h = _ep_constraint(h, ctx, ("model", None, None))
+        if "wg" in p:
+            g = _expert_matmul(buf, p["wg"], ctx)
+            # jax.nn.gelu defaults to the tanh approximation
+            act = F.silu(g) if cfg.mlp_type == "swiglu" \
+                else F.gelu(g, approximate="tanh")
+            h = act * h
+        else:
+            h = F.gelu(h, approximate="tanh")
+        y = _expert_matmul(h, p["wo"], ctx)
+        y = _ep_constraint(y, ctx, ("model", None, None))
 
-    # combine: out[tok] = sum over its k assignments of gate * y[e, rank]
-    y_flat = y.reshape(E * C, d)
-    if mesh is not None:
-        y_flat, = replicate_for_op("moe.combine", y_flat)
-    contrib = (y_flat[torch.where(keep, slot, 0)]
-               * (gates * keep).to(ctx.dtype)[:, None])
-    out = contrib.view(T, k, d).sum(dim=1).reshape(B, S, d)
-    if mesh is not None:
-        out, aux = from_replicated(out, mesh), from_replicated(aux, mesh)
+    with obs.region("moe.combine"):
+        # out[tok] = sum over its k assignments of gate * y[e, rank]
+        y_flat = y.reshape(E * C, d)
+        if mesh is not None:
+            y_flat, = replicate_for_op("moe.combine", y_flat)
+        contrib = (y_flat[torch.where(keep, slot, 0)]
+                   * (gates * keep).to(ctx.dtype)[:, None])
+        out = contrib.view(T, k, d).sum(dim=1).reshape(B, S, d)
+        if mesh is not None:
+            out, aux = from_replicated(out, mesh), from_replicated(aux, mesh)
     if return_aux:
         return out, aux
     return out

@@ -23,7 +23,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch import make_generator, resolve_device
+from repro_torch import make_generator, obs, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import Ctx, Params
@@ -310,15 +310,21 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
     table passes through unchanged (the engine rewrites it on admission
     and retirement).  A ``"k_scale"`` leaf (``init_cache(quantize_kv=
     True)``) switches every layer to the int8 cache
-    (:func:`~repro_torch.models.layers.attention_decode_quantized`)."""
+    (:func:`~repro_torch.models.layers.attention_decode_quantized`).
+
+    Its regions (:func:`repro_torch.obs.region`): ``model.embed``,
+    ``model.norm`` (each layer's two norms) and ``model.head`` (the final
+    norm and the head); the residual adds fall to the caller's."""
     pos = cache["pos"]
     page_table = cache.get("page_table")
     quantized = "k_scale" in cache
     leaves = ("k", "v", "k_scale", "v_scale") if quantized else ("k", "v")
-    x = L.embed(params["embed"], tokens, ctx)
+    with obs.region("model.embed"):
+        x = L.embed(params["embed"], tokens, ctx)
     fn = _mlp_fn(cfg, ctx, mlp_fn)
     for i, lp in enumerate(params["layers"]):
-        h = L.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
+        with obs.region("model.norm"):
+            h = L.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
         layer_cache = {name: cache[name][i] for name in leaves}
         if page_table is not None:
             a, _ = L.attention_decode_paged(lp["attn"], h, cfg, ctx,
@@ -331,10 +337,12 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
             a, _ = L.attention_decode(lp["attn"], h, cfg, ctx,
                                       cache=layer_cache, pos=pos)
         x = x + a
-        h = L.rms_norm(lp["mlp_norm"], x, cfg.norm_eps)
+        with obs.region("model.norm"):
+            h = L.rms_norm(lp["mlp_norm"], x, cfg.norm_eps)
         x = x + fn(lp["mlp"], h)[0]
-    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
-    logits = L.unembed(params["embed"], x, ctx)
+    with obs.region("model.head"):
+        x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+        logits = L.unembed(params["embed"], x, ctx)
     out = {name: cache[name] for name in leaves}
     out["pos"] = pos + 1
     if page_table is not None:

@@ -8,6 +8,10 @@ utilization accounting, and latency summaries (the port of
 * **spans / events**: structured JSONL tracing (:func:`span` /
   :func:`event`), a shared no-op when disabled; switch with
   :func:`enable` / :func:`disable` or the scoped :func:`capture`.
+* **regions**: :func:`region` names a stretch of the program; while a
+  CUDA graph is captured (:func:`recording`, :class:`RegionRecorder`)
+  each device node of the graph is mapped to its innermost region, and
+  the map goes into the capture's record; a no-op outside a capture.
 * **kernel watch**: per-dispatch :class:`OpRecord` accounting of the
   resolved :class:`~repro_torch.plan.KernelConfig`, joined with the
   Hopper model's prediction and an optional measurement on the card
@@ -28,6 +32,7 @@ from repro_torch.obs.metrics import percentile, summarize
 from repro_torch.obs.trace import (
     JsonlSink,
     ListSink,
+    RegionRecorder,
     Span,
     capture,
     counter_inc,
@@ -36,6 +41,9 @@ from repro_torch.obs.trace import (
     enable,
     enabled,
     event,
+    first_in_session,
+    recording,
+    region,
     reset_counters,
     span,
 )
@@ -44,7 +52,8 @@ __all__ = [
     # trace
     "Span", "JsonlSink", "ListSink", "span", "event", "enable",
     "disable", "enabled", "capture", "counter_inc", "counters",
-    "reset_counters",
+    "reset_counters", "region", "RegionRecorder", "recording",
+    "first_in_session",
     # metrics
     "percentile", "summarize",
     # kernel watch

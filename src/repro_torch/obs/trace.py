@@ -1,4 +1,5 @@
-"""Structured tracing core: spans, events, counters, JSONL sink.
+"""Structured tracing core: spans, events, counters, JSONL sink, and the
+regions of a CUDA graph capture.
 
 The port's own copy of ``repro.obs.trace``: the same names, the same
 JSONL records, the same process-global state.  It imports nothing of
@@ -20,11 +21,23 @@ Design constraints, in priority order:
    attributes pass through verbatim, so downstream tooling is
    ``json.loads`` per line and nothing else.
 
+4. **Regions cost nothing outside a capture.**  :func:`region` names a
+   stretch of the program (``attention.core``, ``moe.experts``, ...).
+   Outside a CUDA graph capture it is the shared no-op span, one
+   attribute read; while :func:`repro_torch.graphs.capture` records a
+   graph it notes where the region opens and closes among the graph's
+   nodes (:class:`RegionRecorder`), and the map of device nodes to
+   regions goes into the capture's record.  A replay runs no Python, so
+   a replayed graph pays nothing for its regions.
+
 State is process-global (like :mod:`logging`): kernels, the serving
 engine and launchers all emit into whatever sink the entry point
 configured, without threading a tracer handle through every call.
-Times are host clock reads: a span around work on the card covers it
-only where the work ends in a device->host read inside the span.
+Every record's ``t`` (and a span's ``dur_s``) is a reading of the
+host's ``time.perf_counter``: a span around work on the card covers it
+only where the work ends in a device->host read inside the span.  A
+region's map is positional (the i-th device node of a graph), so it
+needs no clock of its own.
 """
 
 from __future__ import annotations
@@ -35,21 +48,25 @@ import json
 import os
 import threading
 import time
+from typing import Callable, Sequence
 
 __all__ = ["Span", "JsonlSink", "ListSink", "span", "event", "enable",
            "disable", "enabled", "capture", "counter_inc", "counters",
-           "reset_counters"]
+           "reset_counters", "region", "RegionRecorder", "recording",
+           "first_in_session"]
 
 _LOCK = threading.Lock()
 
 
 class _State:
-    __slots__ = ("enabled", "sink", "owns_sink")
+    __slots__ = ("enabled", "sink", "owns_sink", "seen", "recorder")
 
     def __init__(self):
         self.enabled = False
         self.sink = None
         self.owns_sink = False
+        self.seen = {}          # id -> token: first_in_session's tokens
+        self.recorder = None    # the RegionRecorder of a capture running
 
 
 _STATE = _State()
@@ -181,6 +198,7 @@ def enable(*, trace_path=None, sink=None) -> None:
     elif sink is not None:
         _STATE.sink = sink
         _STATE.owns_sink = False
+    _STATE.seen = {}
     _STATE.enabled = True
 
 
@@ -199,15 +217,129 @@ def capture():
 
     Restores the previous tracer state on exit (tests and programmatic
     consumers use this instead of mutating the globals)."""
-    prev = (_STATE.enabled, _STATE.sink, _STATE.owns_sink)
+    prev = (_STATE.enabled, _STATE.sink, _STATE.owns_sink, _STATE.seen)
     sink = ListSink()
     _STATE.sink = sink
     _STATE.owns_sink = False
+    _STATE.seen = {}
     _STATE.enabled = True
     try:
         yield sink
     finally:
-        _STATE.enabled, _STATE.sink, _STATE.owns_sink = prev
+        _STATE.enabled, _STATE.sink, _STATE.owns_sink, _STATE.seen = prev
+
+
+def first_in_session(token) -> bool:
+    """True where tracing is on and ``token`` was not passed here since
+    tracing was last switched on (:func:`enable`, :func:`capture`), for
+    what a tracing session records once, as a graph's region map.  With
+    tracing off it is False after one attribute read."""
+    if not _STATE.enabled:
+        return False
+    if id(token) in _STATE.seen:
+        return False
+    _STATE.seen[id(token)] = token      # held, so its id is not reused
+    return True
+
+
+# ----------------------------------------------------------------------
+# regions of a CUDA graph capture
+# ----------------------------------------------------------------------
+class _Region:
+    """A region open while a recorder runs: notes the capture's position
+    at its entry and its exit."""
+
+    __slots__ = ("recorder", "name")
+
+    def __init__(self, recorder: "RegionRecorder", name: str):
+        self.recorder = recorder
+        self.name = name
+
+    def __enter__(self) -> "_Region":
+        self.recorder.mark(self.name, True)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.recorder.mark(self.name, False)
+        return False
+
+
+def region(name: str) -> "_Region | _NullSpan":
+    """A named stretch of the program, for the map of a CUDA graph's
+    device nodes: ``with obs.region("attention.core"): ...``.
+
+    Outside a capture (no recorder installed by :func:`recording`) it is
+    the shared no-op span, whether tracing is on or off: one attribute
+    read, no allocation, no clock.  Inside one, every device node
+    captured while the region is the innermost one open is labelled
+    with its name."""
+    rec = _STATE.recorder
+    if rec is None:
+        return _NULL_SPAN
+    return _Region(rec, name)
+
+
+class RegionRecorder:
+    """Where each :func:`region` of a capture opens and closes among the
+    graph's nodes, and the map it gives.
+
+    ``boundary()`` returns the capture's position: the nodes the next
+    captured operation will depend on (the last captured on the
+    capturing stream; empty before the first).  :meth:`runs` takes the
+    graph's nodes in order once the body is captured and labels each
+    device node with its innermost open region (None where none is
+    open)."""
+
+    def __init__(self, boundary: Callable[[], Sequence]):
+        self._boundary = boundary
+        self.marks: list[tuple[str, bool, tuple]] = []
+
+    def mark(self, name: str, opening: bool) -> None:
+        self.marks.append((name, opening, tuple(self._boundary())))
+
+    def runs(self, chain: Sequence[tuple[object, bool]]) -> dict:
+        """``chain``: the graph's nodes in order, each ``(handle,
+        runs_on_device)`` (kernel, memcpy and memset nodes run on the
+        device) -> ``{"nodes": n, "runs": [[region, first, end], ...]}``
+        over the n device nodes' positions, consecutive nodes of one
+        region merged into one run."""
+        index = {h: i for i, (h, _) in enumerate(chain)}
+        # a mark made after node i applies from node i + 1 on; marks are
+        # in capture order, and the capture only moves forward
+        starts = [max((index[h] + 1 for h in deps), default=0)
+                  for _, _, deps in self.marks]
+        stack: list[str] = []
+        runs: list[list] = []
+        m = pos = 0
+        for i, (_, on_device) in enumerate(chain):
+            while m < len(self.marks) and starts[m] <= i:
+                name, opening = self.marks[m][:2]
+                if opening:
+                    stack.append(name)
+                else:
+                    stack.pop()         # regions nest: it is the top
+                m += 1
+            if not on_device:
+                continue
+            label = stack[-1] if stack else None
+            if runs and runs[-1][0] == label:
+                runs[-1][2] = pos + 1
+            else:
+                runs.append([label, pos, pos + 1])
+            pos += 1
+        return {"nodes": pos, "runs": runs}
+
+
+@contextlib.contextmanager
+def recording(recorder: RegionRecorder):
+    """Install ``recorder`` for the body (the capture of one graph), so
+    that :func:`region` notes positions; the previous one is restored."""
+    prev = _STATE.recorder
+    _STATE.recorder = recorder
+    try:
+        yield recorder
+    finally:
+        _STATE.recorder = prev
 
 
 # ----------------------------------------------------------------------

@@ -608,36 +608,48 @@ class ServeEngine:
         any cache leaf ``decode`` returned anew) and keys back into the
         static tensors, so a replay leaves the engine where this loop
         does.  ``greedy_only`` is the argmax specialisation of an
-        all-greedy slot pool: no sort, no draw, keys untouched."""
+        all-greedy slot pool: no sort, no draw, keys untouched.
+
+        Its regions (:func:`repro_torch.obs.region`), which map the
+        graph's device nodes: ``decode.model`` (the model's step),
+        ``decode.sample`` (the sampler) and ``decode.state`` (the
+        operands unpacked, the keys, tokens, budgets and done masks
+        updated, the closing copies into the static tensors)."""
         model, ctx, eos = self.model, self.ctx, self.eos_id
-        tok, done, budget, topk, temp, topp = self._ops
-        tok, done = tok.long(), done.bool()
-        temp, topp = temp.view(torch.float32), topp.view(torch.float32)
+        with obs.region("decode.state"):
+            tok, done, budget, topk, temp, topp = self._ops
+            tok, done = tok.long(), done.bool()
+            temp, topp = temp.view(torch.float32), topp.view(torch.float32)
         keys, cache = self._keys, dict(self.cache)
         out = []
         for _ in range(self.steps_per_dispatch):
-            logits, cache = model.decode(self.params, cache, tok[:, None],
-                                         ctx)
-            if greedy_only:
-                nxt = sampling.greedy(logits[:, -1])
-            else:
-                keys2, nxt = sampling.sample(logits[:, -1], keys, temp, topk,
-                                             topp)
-                keys = torch.where(done[:, None], keys, keys2)
-            nxt = torch.where(done, tok, nxt.long())
-            budget = budget - (~done).to(torch.int32)
-            newly = budget <= 0
-            if eos is not None:
-                newly = newly | (nxt == eos)
-            done = done | newly
-            tok = nxt
-            out.append(nxt)
-        for name, t in cache.items():
-            if t is not self.cache[name]:
-                self.cache[name].copy_(t)
-        if keys is not self._keys:
-            self._keys.copy_(keys)
-        return torch.stack(out, dim=1)
+            with obs.region("decode.model"):
+                logits, cache = model.decode(self.params, cache,
+                                             tok[:, None], ctx)
+            with obs.region("decode.sample"):
+                if greedy_only:
+                    nxt = sampling.greedy(logits[:, -1])
+                else:
+                    keys2, nxt = sampling.sample(logits[:, -1], keys, temp,
+                                                 topk, topp)
+            with obs.region("decode.state"):
+                if not greedy_only:
+                    keys = torch.where(done[:, None], keys, keys2)
+                nxt = torch.where(done, tok, nxt.long())
+                budget = budget - (~done).to(torch.int32)
+                newly = budget <= 0
+                if eos is not None:
+                    newly = newly | (nxt == eos)
+                done = done | newly
+                tok = nxt
+                out.append(nxt)
+        with obs.region("decode.state"):
+            for name, t in cache.items():
+                if t is not self.cache[name]:
+                    self.cache[name].copy_(t)
+            if keys is not self._keys:
+                self._keys.copy_(keys)
+            return torch.stack(out, dim=1)
 
     # ------------------------------------------------------------------
     def _n_front(self, req: Request) -> int:
@@ -709,13 +721,28 @@ class ServeEngine:
         """Batch-1 prefill into ``slot``; returns the first token.  Raises
         :class:`OutOfPages` (paged mode, pool exhausted even after prefix
         eviction) before any engine state changes, so the caller can
-        requeue the request."""
-        key = self._load_prefill(req)
-        logits, cache1 = self._run(self._pf_graphs, key,
-                                   lambda: self._prefill_program(key),
-                                   self._capture_prefill)
-        self._install(req, slot, cache1, len(req.prompt) + self._n_front(req))
-        return self._first_token(req, slot, logits)
+        requeue the request.
+
+        Its four sub-spans of ``serve.admit``, each with ``rid``:
+        ``serve.admit.load`` (the static inputs written),
+        ``serve.admit.prefill`` (the program's replay launched),
+        ``serve.admit.install`` (the cache installed into the slot) and
+        ``serve.admit.first_token`` (the first token sampled and read).
+        Nothing here waits for the card but the last one's host read,
+        so the first three time the host's issue of their work, and the
+        device work they queue lands in ``serve.admit.first_token``."""
+        rid = req.rid
+        with obs.span("serve.admit.load", rid=rid):
+            key = self._load_prefill(req)
+        with obs.span("serve.admit.prefill", rid=rid):
+            logits, cache1 = self._run(self._pf_graphs, key,
+                                       lambda: self._prefill_program(key),
+                                       self._capture_prefill)
+        with obs.span("serve.admit.install", rid=rid):
+            self._install(req, slot, cache1,
+                          len(req.prompt) + self._n_front(req))
+        with obs.span("serve.admit.first_token", rid=rid):
+            return self._first_token(req, slot, logits)
 
     def _load_prefill(self, req: Request) -> tuple:
         """Write ``req`` into the static inputs of its prefill program
@@ -922,7 +949,8 @@ class ServeEngine:
             end = min(off + self._chunk, n)
             t0 = _now()
             with obs.span("serve.prefill_chunk", rid=req.rid, slot=slot,
-                          step=self._step, offset=off, end=end):
+                          step=self._step, offset=off, end=end,
+                          decoding=self._decoding()):
                 self._take_stripe(slot)
                 key = self._load_chunk(req.prompt[off:end], off)
                 logits, _ = self._run(self._pf_graphs, key,
@@ -943,17 +971,19 @@ class ServeEngine:
             # a replay's logits live in the graphs' shared pool, and the
             # install may wait for pages across engine steps: a copy
             st["logits"] = logits.clone()
-        self._take_stripe(slot)
-        cache1 = {**self._batch1(self.cache_dtype),
-                  "pos": torch.full((1,), st["n"], dtype=torch.int32,
-                                    device=self.device)}
         try:
-            self._install(req, slot, cache1, st["n"])
+            with obs.span("serve.admit.install", rid=req.rid):
+                self._take_stripe(slot)
+                cache1 = {**self._batch1(self.cache_dtype),
+                          "pos": torch.full((1,), st["n"], dtype=torch.int32,
+                                            device=self.device)}
+                self._install(req, slot, cache1, st["n"])
         except OutOfPages:
             if not any(s is not None for s in self._slots):
                 raise
             return []
-        tok = self._first_token(req, slot, st["logits"])
+        with obs.span("serve.admit.first_token", rid=req.rid):
+            tok = self._first_token(req, slot, st["logits"])
         del self._chunking[slot]
         self._stripe_slot = None
         self.stats.prefill_tokens += st["n"]
@@ -973,12 +1003,71 @@ class ServeEngine:
     def step(self) -> list[tuple[int, int]]:
         """Chunks of in-flight chunked admissions, admissions, then one
         decode block (K iterations, one host sync).  Returns streamed
-        (rid, token) events in emission order."""
+        (rid, token) events in emission order.
+
+        Its spans: ``serve.step`` around the whole step, which names the
+        host's time between its sub-spans; inside it ``serve.schedule``
+        (everything up to the dispatch, :meth:`_schedule`; inside it
+        ``serve.prefill_chunk`` and ``serve.admit``, with ``decoding``,
+        the live slots they hold back, and the ``serve.admit.*``
+        sub-spans), ``serve.dispatch`` (the block, ending at its host
+        read) and ``serve.drain`` (its tokens drained and the finished
+        requests retired)."""
         events: list[tuple[int, int]] = []
         self._step += 1
         self._last_prefill_s = 0.0
         self._last_dispatch_s = 0.0
+        with obs.span("serve.step", step=self._step):
+            self._step_body(events)
+        return events
 
+    def _step_body(self, events: list) -> None:
+        """The body of :meth:`step`, its streamed events appended to
+        ``events``."""
+        with obs.span("serve.schedule", step=self._step):
+            ops = self._schedule(events)
+        if ops is None:
+            return
+        active, toks, done, budget, greedy_only = ops
+
+        K = self.steps_per_dispatch
+        t0 = _now()
+        with obs.span("serve.dispatch", step=self._step, k=K,
+                      active=len(active),
+                      variant="greedy" if greedy_only else "sampled"):
+            block = self._decode_block(toks, done, budget,
+                                       greedy_only=greedy_only)
+            block = _host(block)      # THE one sync of this dispatch
+        dt = _now() - t0
+        self._last_dispatch_s = dt
+        self.stats.decode_s += dt
+        self.stats.decode_steps += K
+        self.stats.dispatches += 1
+        self.stats.dispatch_occupancy.append(len(active) / self.num_slots)
+        per_token_s = dt / K
+
+        # drain step-major so events are ordered like K single steps
+        with obs.span("serve.drain", step=self._step):
+            for k in range(K):
+                for i in active:
+                    st = self._slots[i]
+                    if st is None:
+                        continue
+                    tok = int(block[i, k])
+                    st.tokens.append(tok)
+                    st.next_token = tok
+                    self.stats.decode_tokens += 1
+                    self.stats.token_latency_s.append(per_token_s)
+                    events.append((st.request.rid, tok))
+                    if self._done(st, tok):
+                        self._retire(i)
+
+    def _schedule(self, events: list) -> tuple | None:
+        """The step up to its dispatch: one chunk of each in-flight
+        chunked admission, queued requests admitted into free slots
+        (their streamed events appended to ``events``), then the live
+        slots' operand vectors -> (active, toks, done, budget,
+        greedy_only), or None where no slot decodes."""
         # one chunk of each in-flight chunked admission per step, between
         # decode dispatches, so a long prompt never blocks the slots that
         # are already decoding
@@ -999,7 +1088,8 @@ class ServeEngine:
                 continue
             try:
                 with obs.span("serve.admit", rid=req.rid, slot=slot,
-                              step=self._step, prompt_len=len(req.prompt)):
+                              step=self._step, prompt_len=len(req.prompt),
+                              decoding=self._decoding()):
                     tok = self._admit(req, slot)
             except OutOfPages:
                 # pool exhausted: requeue at the front and stop admitting;
@@ -1034,9 +1124,8 @@ class ServeEngine:
         self.stats.max_concurrent = max(self.stats.max_concurrent,
                                         len(active))
         if not active:
-            return events
+            return None
 
-        K = self.steps_per_dispatch
         toks = np.zeros((self.num_slots,), np.int32)
         done = np.ones((self.num_slots,), bool)
         budget = np.zeros((self.num_slots,), np.int32)
@@ -1046,35 +1135,15 @@ class ServeEngine:
             done[i] = False
             budget[i] = st.request.max_new_tokens - len(st.tokens)
         greedy_only = all(self._temp[i] == 0.0 for i in active)
-        t0 = _now()
-        with obs.span("serve.dispatch", step=self._step, k=K,
-                      active=len(active)):
-            block = self._decode_block(toks, done, budget,
-                                       greedy_only=greedy_only)
-            block = _host(block)      # THE one sync of this dispatch
-        dt = _now() - t0
-        self._last_dispatch_s = dt
-        self.stats.decode_s += dt
-        self.stats.decode_steps += K
-        self.stats.dispatches += 1
-        self.stats.dispatch_occupancy.append(len(active) / self.num_slots)
-        per_token_s = dt / K
+        return active, toks, done, budget, greedy_only
 
-        # drain step-major so events are ordered like K single steps
-        for k in range(K):
-            for i in active:
-                st = self._slots[i]
-                if st is None:
-                    continue
-                tok = int(block[i, k])
-                st.tokens.append(tok)
-                st.next_token = tok
-                self.stats.decode_tokens += 1
-                self.stats.token_latency_s.append(per_token_s)
-                events.append((st.request.rid, tok))
-                if self._done(st, tok):
-                    self._retire(i)
-        return events
+    def _decoding(self) -> int:
+        """The live decoding slots, which an admission or a chunk run
+        now holds back from their next dispatch (0 with tracing off,
+        where no span records it: no slot scan then)."""
+        if not obs.enabled():
+            return 0
+        return sum(s is not None for s in self._slots)
 
     # ------------------------------------------------------------------
     def run(self, requests: Sequence[Request] = (), *,

@@ -306,6 +306,11 @@ def test_a_step_leaves_no_tensor_to_the_collector():
             for t in leaves(state) + list(tb.values())}
     collecting = gc.isenabled()
     gc.collect()
+    # what is alive before the step is not the step's: the tensors other
+    # test modules of this process keep in their caches, held here so
+    # that no storage of theirs is freed and its address reused
+    before = [o for o in gc.get_objects() if isinstance(o, torch.Tensor)]
+    held |= {t.untyped_storage().data_ptr() for t in before}
     gc.disable()
     try:
         *state, met = step(*state, tb)
